@@ -1,0 +1,678 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of RAGDoll on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # everything, as the acceptance run does
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. device  -- a CUDA card must be present; prints its name and power limit.
+2. build   -- compiles every hand-written kernel from ``src/repro_torch``.
+3. corpus  -- ``blob_corpus(1_000_000, 768)`` in 64 IVF partitions, a
+              quarter of them spilled to disk under ``build/``.
+4. kernels -- each kernel against its plain PyTorch version at the main
+              path's shapes, with its time, the plain version's, one
+              library call's and the card's bound for the same work.
+5. model   -- a reduced llama on the card (kernels) against the same
+              weights on the CPU (plain versions): logits and tokens.
+6. serve   -- llama3-8b at full width (bf16, seeded random weights) behind a
+              threaded ``RagdollEngine`` with a paged, chunk-prefilled
+              ``ContinuousGenerator``: 16 RAG requests, each checked for 32
+              tokens and for its 5 retrieved chunks against an exact search.
+              Every kernel's launch count must be > 0 in this run.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks (no sparsity)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FP32 = 67e12           # CUDA cores (the kernels here use no tensor cores)
+
+# llama3-8b serving shapes of the main path
+CTX, MAX_NEW, PAGE, CHUNK, SLOTS = 1024, 32, 16, 256, 8
+N_REQ, WARMUP_REQ, PROFILE_REQ, TOP_K = 16, 2, 8, 5
+CORPUS_N, CORPUS_DIM, PARTITIONS, SPILLED = 1_000_000, 768, 64, 16
+
+FP32_ATTN_TOL = 2e-5        # fp32 pages: sum order only
+TOPK_SCORE_TOL = 1e-4       # fp32 dot products of unit vectors
+BF16_RTOL = 1.6e-2          # bf16 outputs: about one bf16 ulp (2**-7) twice
+BF16_ATOL = 1e-5            # fp32 noise below a bf16 ulp near zero
+RMSNORM_FP32_TOL = 1e-5
+TIE_GAP = 1e-5              # ids must match where neighbours differ by more
+MODEL_LOGIT_TOL = 1e-4      # reduced model, fp32, card vs CPU
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# ---------------------------------------------------------------- timing
+def _kernel_records(prof, torch):
+    """(name, start us, duration us) of every device record of a trace."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.start, e.time_range.elapsed_us())
+            for e in prof.events() if e.device_type == cuda]
+
+
+class Timer:
+    """Device time of one call: the profiler's (CUPTI) records of the
+    kernels the call launched, summed, averaged over ``iters`` calls.
+    ``cold`` overwrites the 50 MB L2 (a 256 MiB device-to-device copy,
+    left out of the sum) before each call, for inputs the main path finds
+    cold: the KV pages of a layer and a freshly copied partition."""
+
+    def __init__(self, torch, iters: int = 20):
+        self.torch = torch
+        self.iters = iters
+        self.src = torch.empty(2 ** 28, dtype=torch.uint8, device="cuda")
+        self.dst = torch.empty_like(self.src)
+        # start the profiler's tracing before any kernel library loads its
+        # module: a kernel first launched before the first session went
+        # unrecorded on the card
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]):
+            self.dst.copy_(self.src)
+            torch.cuda.synchronize()
+
+    def __call__(self, fn, cold: bool = False) -> float:
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(self.iters):
+                if cold:
+                    self.dst.copy_(self.src)
+                fn()
+            torch.cuda.synchronize()
+        us = sum(d for name, _, d in _kernel_records(prof, torch)
+                 if not (cold and name.startswith("Memcpy DtoD")))
+        if us <= 0:
+            fail("the profiler recorded no device time")
+        return us / self.iters / 1e3
+
+
+def bound_ms(nbytes: float, ops: float, peak: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------ comparisons
+def check_close(name, got, want, *, atol, rtol=0.0) -> float:
+    err = (got.double() - want.double()).abs()
+    bad = err > atol + rtol * want.double().abs()
+    if not bool(bad.any()) and bool(got.isfinite().all()):
+        return float(err.max())
+    fail(f"{name}: {int(bad.sum())} elements off (max err "
+         f"{float(err.max()):.3e}, atol {atol}, rtol {rtol})")
+
+
+def check_topk(name, got_s, got_i, want_s, want_i) -> float:
+    err = check_close(name + " scores", got_s, want_s, atol=TOPK_SCORE_TOL)
+    ws = want_s.double()
+    close = (ws[:, 1:] - ws[:, :-1]).abs() <= TIE_GAP
+    sep = ws.new_ones(ws.shape, dtype=bool)
+    sep[:, 1:] &= ~close
+    sep[:, :-1] &= ~close
+    if not bool(((got_i.long() == want_i.long()) | ~sep).all()):
+        fail(f"{name}: ids differ where scores are {TIE_GAP} apart")
+    return err
+
+
+# ----------------------------------------------------------------- phases
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {smi}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"capability {torch.cuda.get_device_capability(0)} "
+        f"count {torch.cuda.device_count()}")
+    return name, smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build, rmsnorm
+    t0 = time.perf_counter()
+    libs = _build.build()
+    t_nvcc = time.perf_counter() - t0
+    rmsnorm._kernel()                    # imports triton (compiles at launch)
+    for name, path in libs.items():
+        for line in (path.parent / f"{name}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    log(f"[build] nvcc {t_nvcc:.1f} s for {sorted(libs)} "
+        f"in {path.parent.relative_to(ROOT)}")
+
+
+def phase_corpus(torch, store_root: Path):
+    from repro_torch.retrieval import VectorStore
+    from repro_torch.retrieval.synthetic import (ArrayEmbedder, blob_corpus,
+                                                 perturb_queries)
+    t0 = time.perf_counter()
+    vecs = blob_corpus(CORPUS_N, CORPUS_DIM, clusters=PARTITIONS, seed=0)
+    queries = perturb_queries(vecs, WARMUP_REQ + N_REQ + PROFILE_REQ,
+                              seed=1)
+    t1 = time.perf_counter()
+    store = VectorStore.build([str(i) for i in range(CORPUS_N)],
+                              ArrayEmbedder(vecs), num_partitions=PARTITIONS,
+                              root=str(store_root), device="cuda")
+    for pid in range(PARTITIONS - SPILLED, PARTITIONS):
+        store.spill(pid)
+    t2 = time.perf_counter()
+    # exact answers for every query (the plain top-k over the whole corpus)
+    from repro_torch.kernels import ops
+    dev_vecs = torch.from_numpy(vecs).cuda()
+    exact = ops.retrieval_topk(torch.from_numpy(queries).cuda(), dev_vecs,
+                               TOP_K, impl="ref")
+    del dev_vecs
+    sizes = [len(p.doc_ids) for p in store.partitions.values()]
+    log(f"[corpus] {CORPUS_N} x {CORPUS_DIM} fp32 "
+        f"({vecs.nbytes / 1e9:.2f} GB) in {t1 - t0:.1f} s; {PARTITIONS} "
+        f"k-means partitions ({min(sizes)}..{max(sizes)} rows) and "
+        f"{SPILLED} spilled in {t2 - t1:.1f} s")
+    del vecs
+    return store, queries, exact
+
+
+def _paged_case(torch, gen, *, q_dtype, kv_dtype, dead_slot=True):
+    """The decode step's shapes: 8 slots over ctx + max_new tokens."""
+    h, kvh, d = 32, 8, 128
+    total = CTX + MAX_NEW
+    nmax = -(-total // PAGE)
+    pages = SLOTS * nmax + 1
+    if kv_dtype == torch.int8:
+        k = torch.randint(-127, 128, (pages, PAGE, kvh, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (pages, PAGE, kvh, d), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        scales = [torch.rand((pages, kvh), generator=gen, device="cuda")
+                  * 0.015 + 0.005 for _ in range(2)]
+    else:
+        k = torch.randn((pages, PAGE, kvh, d), generator=gen,
+                        device="cuda").to(kv_dtype)
+        v = torch.randn((pages, PAGE, kvh, d), generator=gen,
+                        device="cuda").to(kv_dtype)
+        scales = [None, None]
+    q = torch.randn((SLOTS, h, d), generator=gen, device="cuda").to(q_dtype)
+    perm = torch.randperm(pages - 1, generator=gen, device="cuda") + 1
+    tab = perm[:SLOTS * nmax].reshape(SLOTS, nmax).to(torch.int32)
+    kv_len = torch.randint(CTX + 1, total + 1, (SLOTS,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    if dead_slot:                  # a finished slot riding the step
+        tab[-1] = 0
+        kv_len[-1] = total
+    return q, k, v, tab, kv_len, scales
+
+
+def _paged_bytes_ops(torch, q, k, tab, kv_len, window, scales):
+    """Bytes the step must move and operations it does.  A K/V row is
+    counted once however many live tokens map to it: the dead slot's
+    table points every entry at trash page 0, so its 1056 tokens need
+    one page's rows from memory."""
+    b, h, d = q.shape
+    kvh = k.shape[2]
+    lens, tab = kv_len.long().cpu(), tab.long().cpu()
+    rows, entries = [], 0           # (page * PAGE + offset) of live tokens
+    for i in range(b):
+        n = int(lens[i])
+        lo = max(0, n - window) if window else 0
+        pos = torch.arange(lo, n)
+        rows.append(tab[i, pos // PAGE] * PAGE + pos % PAGE)
+        entries += (n - 1) // PAGE - lo // PAGE + 1
+    rows = torch.cat(rows)
+    distinct = int(rows.unique().numel())
+    nbytes = (2 * distinct * kvh * d * k.element_size()    # K and V rows
+              + 2 * q.numel() * q.element_size()           # q in, out
+              + entries * 4 + b * 4)                       # table, lengths
+    if scales[0] is not None:
+        nbytes += 2 * int((rows // PAGE).unique().numel()) * kvh * 4
+    ops = 4 * int(rows.numel()) * h * d                    # q.k and p.v
+    return nbytes, ops
+
+
+def phase_kernels(torch, timer, store, queries):
+    """Each kernel against its plain version at the main path's shapes.
+    Returns the JSON entries (launch counts filled in after serving)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = {}
+
+    def report(name, case, got_err, ms, plain_ms, lib_ms, bound):
+        b_ms, b_by = bound
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"[kernel] {name} {case}: max_abs_err {got_err:.3e} "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
+            f"bound_ms {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound")
+        return dict(max_abs_err=got_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    # ---- rmsnorm: decode (8 rows) and a prefill chunk (256 rows)
+    for t, dt in ((SLOTS, torch.bfloat16), (CHUNK, torch.bfloat16),
+                  (SLOTS, torch.float32), (CHUNK, torch.float32)):
+        x = torch.randn((t, 4096), generator=gen, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn((4096,), generator=gen,
+                                   device="cuda")).to(dt)
+        got = ops.rmsnorm(x, w, 1e-5)
+        want = ops.rmsnorm(x, w, 1e-5, impl="ref")
+        if dt == torch.float32:
+            err = check_close("rmsnorm", got, want, atol=RMSNORM_FP32_TOL)
+        else:
+            err = check_close("rmsnorm", got, want, atol=BF16_ATOL,
+                              rtol=BF16_RTOL)
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        r = report("rmsnorm", f"({t}, 4096) {str(dt)[6:]}", err,
+                   timer(lambda: ops.rmsnorm(x, w, 1e-5)),
+                   timer(lambda: ops.rmsnorm(x, w, 1e-5, impl="ref")),
+                   timer(lambda: F.rms_norm(x, (4096,), w, 1e-5)),
+                   bound_ms(nbytes, 4 * x.numel(), PEAK_FP32))
+        if t == SLOTS and dt == torch.bfloat16:
+            rows["rmsnorm"] = r
+
+    # ---- paged decode attention: H=32, KV=8, D=128, page 16, 8 slots
+    cases = (("bf16 pages", torch.bfloat16, torch.bfloat16, None, None),
+             ("fp32 pages", torch.float32, torch.float32, None, None),
+             ("int8 pages + scales", torch.float32, torch.int8, None, None),
+             ("bf16 window 256 softcap 50", torch.bfloat16, torch.bfloat16,
+              256, 50.0))
+    for case, qdt, kvdt, window, cap in cases:
+        q, k, v, tab, kv_len, (ks, vs) = _paged_case(
+            torch, gen, q_dtype=qdt, kv_dtype=kvdt)
+        kw = dict(window=window, softcap=cap, k_scale=ks, v_scale=vs)
+        got = ops.paged_decode_attention(q, k, v, tab, kv_len, **kw)
+        want = ops.paged_decode_attention(q, k, v, tab, kv_len, impl="ref",
+                                          **kw)
+        if qdt == torch.float32:
+            err = check_close(f"paged {case}", got, want, atol=FP32_ATTN_TOL)
+        else:
+            err = check_close(f"paged {case}", got, want, atol=BF16_ATOL,
+                              rtol=BF16_RTOL)
+        lib_ms = None
+        if kvdt == torch.bfloat16 and window is None:
+            # yardstick: SDPA over the dense view, gathered beforehand
+            from repro_torch.kernels import ref
+            kd = ref.gather_paged_kv(k, tab).transpose(1, 2)
+            vd = ref.gather_paged_kv(v, tab).transpose(1, 2)
+            pos = torch.arange(kd.shape[2], device="cuda")
+            mask = (pos[None, :] < kv_len[:, None])[:, None, None]
+            qd = q[:, :, None]
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True), cold=True)
+        nbytes, nops = _paged_bytes_ops(torch, q, k, tab, kv_len, window,
+                                        (ks, vs))
+        r = report("paged_decode_attention", case, err,
+                   timer(lambda: ops.paged_decode_attention(
+                       q, k, v, tab, kv_len, **kw), cold=True),
+                   timer(lambda: ops.paged_decode_attention(
+                       q, k, v, tab, kv_len, impl="ref", **kw), cold=True),
+                   lib_ms, bound_ms(nbytes, nops, PEAK_FP32))
+        if case == "bf16 pages":
+            rows["paged_decode_attention"] = r
+
+    # ---- retrieval top-k: 8 queries against one partition, k = 5
+    resident = sorted((len(p.doc_ids), pid)
+                      for pid, p in store.partitions.items() if p.resident)
+    pid = resident[len(resident) // 2][1]       # the median-sized partition
+    part = torch.from_numpy(store.partitions[pid].embeddings).cuda()
+    q8 = torch.from_numpy(queries[:SLOTS]).cuda()
+    rng_db = torch.randn((1037, 768), generator=gen, device="cuda")
+    for case, db, k in ((f"partition {pid} ({part.shape[0]} rows)", part,
+                         TOP_K),
+                        ("ragged 1037 rows", rng_db, TOP_K),
+                        ("3 rows, k=5 > N", rng_db[:3], TOP_K),
+                        ("ragged 1037 rows, k=64", rng_db, 64)):
+        got_s, got_i = ops.retrieval_topk(q8, db, k)
+        want_s, want_i = ops.retrieval_topk(q8, db, k, impl="ref")
+        err = check_topk(f"topk {case}", got_s, got_i, want_s, want_i)
+        if db.shape[0] < k and not bool((got_i[:, db.shape[0]:] == -1).all()):
+            fail(f"topk {case}: missing the (-1e30, -1) tail")
+        n = db.shape[0]
+        nbytes = (q8.numel() + db.numel()) * 4 + q8.shape[0] * k * 8
+        r = report("retrieval_topk", case, err,
+                   timer(lambda: ops.retrieval_topk(q8, db, k), cold=True),
+                   timer(lambda: ops.retrieval_topk(q8, db, k, impl="ref"),
+                         cold=True),
+                   timer(lambda: torch.topk(q8 @ db.T, min(k, n), dim=-1),
+                         cold=True),
+                   bound_ms(nbytes, 2 * q8.shape[0] * n * 768, PEAK_FP32))
+        if db is part:
+            rows["retrieval_topk"] = r
+    del part
+
+    # ---- merge: (8, 64, 5) boards under a probe mask, two rows unprobed
+    s = torch.sort(torch.randn((SLOTS, PARTITIONS, TOP_K), generator=gen,
+                               device="cuda"), dim=-1, descending=True).values
+    ids = torch.randint(0, CORPUS_N, (SLOTS, PARTITIONS, TOP_K),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    mask = torch.rand((SLOTS, PARTITIONS), generator=gen,
+                      device="cuda") < 0.25
+    mask[1] = False
+    mask[5] = False
+    mask[5, 7] = True                   # one probed board, short of k ...
+    s[5, 7, 2:] = ops.NEG_INF           # ... with the sentinel tail
+    ids[5, 7, 2:] = -1
+    got_s, got_i = ops.retrieval_topk_merge(s, ids, mask, TOP_K)
+    want_s, want_i = ops.retrieval_topk_merge(s, ids, mask, TOP_K,
+                                              impl="ref")
+    err = check_topk("merge", got_s, got_i, want_s, want_i)
+    if not (bool((got_i[1] == -1).all()) and bool((got_i[5, 2:] == -1).all())
+            and bool((got_s[1] == ops.NEG_INF).all())):
+        fail("merge: masked rows must come out as (-1e30, -1)")
+    nbytes = s.numel() * 8 + mask.numel() + SLOTS * TOP_K * 8
+
+    def lib_merge():
+        flat = torch.where(mask[:, :, None], s, ops.NEG_INF).flatten(1)
+        top = torch.topk(flat, TOP_K, dim=-1)
+        return top.values, ids.flatten(1).gather(1, top.indices)
+
+    rows["retrieval_topk_merge"] = report(
+        "retrieval_topk_merge", f"({SLOTS}, {PARTITIONS}, {TOP_K})", err,
+        timer(lambda: ops.retrieval_topk_merge(s, ids, mask, TOP_K)),
+        timer(lambda: ops.retrieval_topk_merge(s, ids, mask, TOP_K,
+                                               impl="ref")),
+        timer(lib_merge), bound_ms(nbytes, SLOTS * PARTITIONS * TOP_K,
+                                   PEAK_FP32))
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_model(torch):
+    """A reduced llama: the kernels on the card against the plain versions
+    on the CPU, same fp32 weights, chunked prefill then paged decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_cache
+    cfg = get_config("llama3-8b").reduced(num_layers=2)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    p_cpu = cpu.init(seed=3, dtype=torch.float32)
+
+    def to_dev(t):
+        if isinstance(t, dict):
+            return {k: to_dev(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_dev(v) for v in t]
+        return t.cuda()
+
+    p_gpu = to_dev(p_cpu)
+    ctx, chunk, page, steps = 40, 16, 8, 8
+    nmax = -(-(ctx + steps) // page)
+    tab = torch.arange(1, 2 * nmax + 1, dtype=torch.int32).reshape(2, nmax)
+    tab[1] = tab[1].flip(0)
+    g = torch.Generator().manual_seed(4)
+    prompts = torch.randint(2, cfg.vocab_size, (2, ctx), generator=g,
+                            dtype=torch.int32)
+    logits = {}
+    for dev, model, params in (("cpu", cpu, p_cpu), ("cuda", gpu, p_gpu)):
+        cache = init_cache(cfg, 2 * nmax + 1, page, torch.float32, dev)
+        t = tab.to(dev)
+        out = []
+        last = []
+        for slot in range(2):
+            for off in range(0, ctx, chunk):
+                c = min(chunk, ctx - off)
+                lg = model.chunk_prefill(
+                    params, prompts[slot:slot + 1, off:off + c].to(dev), cache,
+                    torch.full((1,), off, dtype=torch.int32, device=dev),
+                    t[slot:slot + 1], kv_span=ctx)
+            last.append(lg[0])
+        out.append(torch.stack(last))
+        cur = out[-1].argmax(-1).to(torch.int32)
+        for s in range(steps):
+            pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
+            out.append(model.decode(params, cur[:, None], cache, pos, t,
+                                    kv_span=ctx + steps))
+            cur = out[-1].argmax(-1).to(torch.int32)
+        logits[dev] = torch.stack(out).cpu()
+    err = check_close("reduced model logits", logits["cuda"], logits["cpu"],
+                      atol=MODEL_LOGIT_TOL)
+    if not torch.equal(logits["cuda"].argmax(-1), logits["cpu"].argmax(-1)):
+        fail("reduced model: greedy tokens differ between card and CPU")
+    log(f"[model] {cfg.name}: chunked prefill + {steps} paged decode steps, "
+        f"card (kernels) vs CPU (plain): max logit err {err:.3e} "
+        f"(tol {MODEL_LOGIT_TOL}), greedy tokens equal")
+
+
+class QueryEmbedder:
+    """Maps request text ``q<i>`` to the i-th perturbed corpus query."""
+
+    def __init__(self, queries):
+        self.queries = queries
+        self.dim = queries.shape[1]
+
+    def embed(self, texts):
+        return self.queries[[int(t[1:]) for t in texts]]
+
+
+def phase_serve(torch, store, queries, exact, smi: str):
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving import (ContinuousGenerator, GeneratorConfig,
+                                     RagdollEngine, Request, percentile)
+    cfg = get_config("llama3-8b")
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{nparams / 1e9:.2f} B bf16 params in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = ContinuousGenerator(
+        cfg, params, GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                                     dtype=torch.bfloat16),
+        num_slots=SLOTS, paged=True, page_size=PAGE, prefill_chunk=CHUNK,
+        device="cuda")
+    eng = RagdollEngine(store, QueryEmbedder(queries), gen,
+                        BacklogScheduler(max_batch=SLOTS),
+                        BacklogScheduler(max_batch=SLOTS),
+                        initial_partitions=PARTITIONS - SPILLED,
+                        device="cuda")
+    errors = []
+    threading.excepthook = lambda a: errors.append(
+        f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+
+    def serve(rids, t_limit):
+        for i in rids:
+            eng.submit(Request(rid=i, query=f"q{i}", arrival=None,
+                               top_k=TOP_K, max_new_tokens=MAX_NEW))
+        deadline = time.monotonic() + t_limit
+        while True:
+            try:
+                return eng.drain(rids[-1] + 1, timeout=5.0)
+            except TimeoutError:
+                if errors:
+                    fail(f"worker thread died: {errors}")
+                if time.monotonic() > deadline:
+                    raise
+
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        serve(list(range(WARMUP_REQ)), 300)
+        log(f"[serve] warm-up: {WARMUP_REQ} requests in "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_hist = eng.registry.histogram("decode.step_seconds")
+        steps_before, secs_before = step_hist.count, step_hist.total
+        ops.reset_launch_counts()
+        eng.retrieval_stats.reset()          # the measured window only
+        t0 = time.perf_counter()
+        done = serve(list(range(WARMUP_REQ, WARMUP_REQ + N_REQ)), 600)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        retrieval = eng.retrieval_stats.snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        # a further batch under the profiler: where the device time goes
+        from torch.profiler import ProfilerActivity, profile
+        first = WARMUP_REQ + N_REQ
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve(list(range(first, first + PROFILE_REQ)), 600)
+            torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    if errors:
+        fail(f"worker thread died: {errors}")
+
+    reqs = [r for r in done if r.rid >= WARMUP_REQ]
+    if len(reqs) != N_REQ:
+        fail(f"{len(reqs)} of {N_REQ} requests came back")
+    ex_s, ex_i = exact
+    for r in reqs:
+        toks = r.output.split()
+        if len(toks) != MAX_NEW or not all(
+                0 <= int(t[3:]) < cfg.vocab_size for t in toks):
+            fail(f"request {r.rid}: {len(toks)} tokens, want {MAX_NEW}")
+        got = torch.tensor([[int(c) for c in r.retrieved]])
+        if got.shape[1] != TOP_K:
+            fail(f"request {r.rid}: {got.shape[1]} chunks, want {TOP_K}")
+        # exact search (nprobe=None): the ids of the plain full-corpus top-k
+        check_topk(f"request {r.rid} retrieval", ex_s[r.rid:r.rid + 1].cpu(),
+                   got, ex_s[r.rid:r.rid + 1].cpu(),
+                   ex_i[r.rid:r.rid + 1].cpu())
+    missing = [n for n, c in counts.items() if c == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    lat = [r.latency for r in reqs]
+    steps = step_hist.count - steps_before
+    step_ms = (step_hist.total - secs_before) / max(steps, 1) * 1e3
+    toks = N_REQ * MAX_NEW
+    log(f"[serve] {N_REQ}/{N_REQ} requests served, {MAX_NEW} tokens and "
+        f"{TOP_K} exact chunks each, in {wall:.2f} s on {smi}")
+    log(f"[serve] latency p50 {percentile(lat, 50):.3f} s p95 "
+        f"{percentile(lat, 95):.3f} s; {toks / wall:.1f} output tokens/s; "
+        f"{steps} generator steps, mean {step_ms:.1f} ms; peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB ({smi})")
+    log(f"[serve] retrieval of the {N_REQ} requests: {retrieval}")
+    log(f"[serve] launches on the main path: {json.dumps(counts)}")
+    breakdown(_kernel_records(prof, torch), window, smi)
+    return counts
+
+
+CATEGORIES = (
+    ("paged decode attention", ("paged_decode_kernel",)),
+    ("rmsnorm", ("rmsnorm_kernel",)),
+    ("retrieval top-k and merge", ("topk_chunk_kernel", "merge_kernel")),
+    ("matmul (projections, MLP, lm_head, prefill attention)",
+     ("gemm", "xmma", "nvjet", "cutlass")),
+    ("copy host to device", ("Memcpy HtoD",)),
+    ("copy device to host", ("Memcpy DtoH",)),
+)
+
+
+def breakdown(records, window_s: float, smi: str) -> None:
+    """Device busy share of a serving window and its time by kind."""
+    if not records:
+        log("[profile] the profiler recorded no device activity: not measured")
+        return
+    busy, cur = 0.0, None
+    for start, end in sorted((s, s + d) for _, s, d in records):
+        if cur is None or start > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy = (busy + cur[1] - cur[0]) / 1e6
+    cats, names = {}, {}
+    for name, _, d in records:
+        label = next((lab for lab, keys in CATEGORIES
+                      if any(k.lower() in name.lower() for k in keys)),
+                     "other (elementwise, indexing, reductions, memset)")
+        cats[label] = cats.get(label, 0.0) + d / 1e6
+        names[name] = names.get(name, 0.0) + d / 1e6
+    total = sum(cats.values())
+    log(f"[profile] {PROFILE_REQ} requests: wall {window_s:.2f} s, device "
+        f"busy {busy:.2f} s ({busy / window_s:.1%}), idle "
+        f"{1 - busy / window_s:.1%} ({smi})")
+    for label, t in sorted(cats.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {t:8.3f} s {t / total:6.1%}  {label}")
+    for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile]   top {t:8.3f} s  {name[:110]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+SOURCES = {
+    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+                "src/repro/kernels/rmsnorm.py:22"),
+    "paged_decode_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:124"),
+    "retrieval_topk": ("cuda", "src/repro_torch/csrc/topk_retrieval.cu",
+                       "src/repro/kernels/topk_retrieval.py:58"),
+    "retrieval_topk_merge": ("cuda", "src/repro_torch/csrc/topk_retrieval.cu",
+                             "src/repro/kernels/topk_retrieval.py:146"),
+}
+
+
+def main() -> int:
+    import torch
+    t_start = time.perf_counter()
+    name, smi = phase_device(torch)
+    phase_build()
+    store_root = ROOT / "build" / "smoke_corpus"
+    shutil.rmtree(store_root, ignore_errors=True)
+    try:
+        store, queries, exact = phase_corpus(torch, store_root)
+        rows = phase_kernels(torch, Timer(torch), store, queries)
+        phase_model(torch)
+        counts = phase_serve(torch, store, queries, exact, smi)
+    finally:
+        shutil.rmtree(store_root, ignore_errors=True)
+    kernels = []
+    for kname, (route, source, replaces) in SOURCES.items():
+        kernels.append(dict(name=kname, route=route, source=source,
+                            replaces=replaces, launches=counts[kname],
+                            **rows[kname]))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

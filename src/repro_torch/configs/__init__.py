@@ -1,0 +1,35 @@
+"""Architecture config registry of the PyTorch port.
+
+``get_config(name)`` resolves the architectures the port serves so far
+(the dense llama family of the main serving path).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import (SHAPE_ORDER, SHAPES, InputShape,
+                                        shape_applicable)
+
+_MODULES = {
+    "llama3-8b": "llama3_8b",
+}
+
+ASSIGNED_ARCHS: List[str] = list(_MODULES)
+
+_cache: Dict[str, ModelConfig] = {}
+
+
+def get_config(name: str) -> ModelConfig:
+    key = name.replace("_", "-")
+    if key not in _cache:
+        if key not in _MODULES:
+            raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+        mod = importlib.import_module(f"repro_torch.configs.{_MODULES[key]}")
+        _cache[key] = mod.CONFIG
+    return _cache[key]
+
+
+__all__ = ["ModelConfig", "InputShape", "SHAPES", "SHAPE_ORDER",
+           "shape_applicable", "get_config", "ASSIGNED_ARCHS"]

@@ -1,0 +1,114 @@
+"""Retrieval top-k and the masked partition merge: CUDA C++ kernels for
+Hopper, their launch counts and their plain versions.
+
+Replaces ``src/repro/kernels/topk_retrieval.py::topk_pallas`` (exact
+inner-product top-k of queries against one partition, global row ids,
+pad rows never surfacing) and ``::topk_merge_pallas`` (fuse ``(Q, P, k)``
+per-partition scoreboards under a ``(Q, P)`` probe mask, masked entries
+becoming ``(-1e30, -1)``).
+
+Both return score descending, then lower position first on ties, which
+is ``jax.lax.top_k``'s order; fewer than ``k`` candidates leave a
+``(-1e30, -1)`` tail.  What bounds them on the H100 (bytes: one pass
+over the partition for the top-k, a few KB for the merge) and how the
+design handles it is in ``csrc/topk_retrieval.cu``: a two-pass top-k
+(per-chunk candidates, then the merge kernel) because blocks carry no
+state from one grid step to the next.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import topk_merge_reference as topk_merge_plain
+from repro_torch.kernels.ref import topk_reference as topk_plain
+
+MAX_K = 64          # the wrapper's bound on k (a warp scans k rounds)
+MAX_DIM = 7000      # queries of one tile must fit in shared memory
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("topk_retrieval")
+    if lib.retrieval_topk.argtypes is None:
+        lib.topk_chunks.argtypes = [_I]
+        lib.topk_chunks.restype = _I
+        lib.retrieval_topk.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+        lib.retrieval_topk.restype = _I
+        lib.retrieval_topk_merge.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.retrieval_topk_merge.restype = _I
+    return lib
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside the kernel's range [1, {MAX_K}]")
+
+
+def topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, D) x (N, D) fp32 on CUDA -> (Q, k) fp32 scores, int32 row ids."""
+    _check_k(k)
+    if not (queries.is_cuda and database.is_cuda):
+        raise ValueError("topk_cuda takes CUDA tensors")
+    if database.dtype != torch.float32:
+        raise ValueError(f"the kernel takes a float32 database, "
+                         f"got {database.dtype}")
+    qn, d = queries.shape
+    n = database.shape[0]
+    if database.shape[1] != d or n == 0 or qn == 0 or d > MAX_DIM:
+        raise ValueError(f"shapes {tuple(queries.shape)} x "
+                         f"{tuple(database.shape)}")
+    lib = _lib()
+    q = queries.float().contiguous()
+    db = database.contiguous()
+    chunks = lib.topk_chunks(n)
+    cand_s = torch.empty((qn, chunks, k), dtype=torch.float32, device=q.device)
+    cand_i = torch.empty((qn, chunks, k), dtype=torch.int32, device=q.device)
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=q.device)
+    err = lib.retrieval_topk(
+        q.data_ptr(), db.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), qn, n, d, k,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "retrieval_topk")
+    topk_cuda.launches += 1
+    return out_s, out_i
+
+
+def topk_merge_cuda(part_scores: torch.Tensor, part_ids: torch.Tensor,
+                    mask: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, P, k) boards + (Q, P) mask on CUDA -> (Q, k) scores, int32 ids."""
+    _check_k(k)
+    qn, parts, kk = part_scores.shape
+    if part_ids.shape != part_scores.shape or mask.shape != (qn, parts):
+        raise ValueError(f"shapes {tuple(part_scores.shape)} "
+                         f"{tuple(part_ids.shape)} {tuple(mask.shape)}")
+    if kk != k:
+        raise ValueError(f"board depth {kk} != k={k}")
+    if not (part_scores.is_cuda and part_ids.is_cuda and mask.is_cuda):
+        raise ValueError("topk_merge_cuda takes CUDA tensors")
+    lib = _lib()
+    s = part_scores.float().contiguous()
+    i = part_ids.to(torch.int32).contiguous()
+    m = mask.to(torch.bool).contiguous().view(torch.uint8)
+    out_s = torch.empty((qn, k), dtype=torch.float32, device=s.device)
+    out_i = torch.empty((qn, k), dtype=torch.int32, device=s.device)
+    err = lib.retrieval_topk_merge(
+        s.data_ptr(), i.data_ptr(), m.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), qn, parts, k,
+        torch.cuda.current_stream(s.device).cuda_stream)
+    _build.check(lib, err, "retrieval_topk_merge")
+    topk_merge_cuda.launches += 1
+    return out_s, out_i
+
+
+topk_cuda.launches = 0
+topk_merge_cuda.launches = 0
+
+__all__ = ["topk_cuda", "topk_merge_cuda", "topk_plain", "topk_merge_plain"]

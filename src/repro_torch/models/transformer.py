@@ -1,0 +1,120 @@
+"""Dense transformer on a paged KV cache (family ``dense``).
+
+Parameters are a plain dict of tensors in the JAX package's layouts, with
+``blocks`` a list of per-layer dicts (JAX stacked them on a leading
+repeats axis and scanned; PyTorch runs eagerly, so the stack is a Python
+loop).  Two entry points share them: ``decode_step`` (one token per slot
+at per-slot positions) and ``chunk_prefill_step`` (one prompt chunk at
+per-slot offsets).  Both write the pooled caches in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerKind, ModelConfig
+from repro_torch.models import attention, layers
+
+Params = Dict[str, Any]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    kinds = {k for k, _ in cfg.layer_kinds()} | {f for _, f in cfg.layer_kinds()}
+    if (cfg.family != "dense" or cfg.encdec or cfg.first_k_dense
+            or kinds - {"attn", "local", "dense"}):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the dense attention family so far")
+
+
+def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype,
+               device) -> Params:
+    d = cfg.d_model
+    return {
+        "norm1": torch.ones((d,), dtype=dtype, device=device),
+        "attn": attention.init_attention(gen, cfg, dtype, device),
+        "norm2": torch.ones((d,), dtype=dtype, device=device),
+        "ffn": layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
+                device) -> Params:
+    _check_family(cfg)
+    p: Params = {
+        "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                                   device),
+        "blocks": [init_layer(gen, cfg, dtype, device)
+                   for _ in range(cfg.num_layers)],
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                         dtype, device)
+    return p
+
+
+def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                kind: LayerKind, *, mode: str, cache: dict,
+                pos: torch.Tensor, block_tab: torch.Tensor,
+                kv_span: Optional[int]) -> torch.Tensor:
+    mixer, _ = kind
+    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + attention.attention_forward(
+        p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
+        block_tab=block_tab, kv_span=kv_span)
+    h2 = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + layers.apply_mlp(p["ffn"], h2, cfg.mlp_kind)
+
+
+def _run_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+               caches: List[dict], pos: torch.Tensor,
+               block_tab: torch.Tensor, kv_span: Optional[int]
+               ) -> torch.Tensor:
+    for lp, kind, cache in zip(p["blocks"], cfg.layer_kinds(), caches):
+        x = apply_layer(lp, x, cfg, kind, mode=mode, cache=cache, pos=pos,
+                        block_tab=block_tab, kv_span=kv_span)
+    return x
+
+
+def _embed_inputs(p: Params, cfg: ModelConfig,
+                  inputs: torch.Tensor) -> torch.Tensor:
+    x = p["embed"][inputs.long()]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, p["embed"])
+    else:
+        logits = x @ p["lm_head"]
+    return layers.softcap(logits, cfg.final_logit_softcap)
+
+
+def decode_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
+                cache: dict, pos: torch.Tensor, *, block_tab: torch.Tensor,
+                kv_span: Optional[int] = None) -> torch.Tensor:
+    """One decode step at per-slot positions ``pos`` (B,); ``inputs``
+    (B, 1) token ids.  Writes ``cache`` in place; returns logits (B, V)."""
+    x = _embed_inputs(p, cfg, inputs)
+    x = _run_stack(p, cfg, x, mode="decode", caches=cache["blocks"],
+                   pos=pos, block_tab=block_tab, kv_span=kv_span)
+    x = layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return unembed(p, cfg, x)[:, 0]
+
+
+def chunk_prefill_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
+                       cache: dict, offset: torch.Tensor, *,
+                       block_tab: torch.Tensor,
+                       kv_span: Optional[int] = None) -> torch.Tensor:
+    """Prefill one prompt chunk ``inputs`` (B, C) at per-slot start
+    ``offset`` (B,).  Its KV lands at ``[offset, offset + C)``; attention
+    spans the cache written so far, viewed ``kv_span`` tokens wide.
+    Returns the chunk's last-position logits (B, V)."""
+    x = _embed_inputs(p, cfg, inputs)
+    x = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
+                   pos=offset, block_tab=block_tab, kv_span=kv_span)
+    x = layers.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    return unembed(p, cfg, x)[:, 0]

@@ -1,0 +1,213 @@
+"""RAGDoll serving engine (real, thread-driven), continuous path.
+
+``RagdollEngine`` runs decoupled retrieval and generation pipelines: a
+retrieval ``PipelineWorker`` embeds each batch of queries and searches
+the IVF store (partitions streamed from disk, scored on the device),
+then a generation ``StepPumpWorker`` admits requests into free KV slots
+of a paged :class:`~repro_torch.serving.generator.ContinuousGenerator`
+at any decode step and forwards them the moment they finish.  Admission
+is owned by a :class:`~repro_torch.serving.reqsched.RequestScheduler`.
+
+This slice serves the engine without a placement optimizer and with one
+retrieval shard; the placement policy (``optimizer``), sharded retrieval
+and the serial baseline engine come with later slices of the port.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core.pipeline import (Pipeline, PipelineWorker, StageQueue,
+                                       StepPumpWorker)
+from repro_torch.core.prefetch import PrefetchPolicy
+from repro_torch.core.scheduler import BacklogScheduler
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.retrieval.cache import HotPartitionSet, PartitionCache
+from repro_torch.retrieval.streamer import PartitionStreamer
+from repro_torch.retrieval.vectorstore import SearchStats, VectorStore
+from repro_torch.serving.generator import ContinuousGenerator
+from repro_torch.serving.reqsched import RequestScheduler
+from repro_torch.serving.request import Request
+
+
+class RagdollEngine:
+    def __init__(self, store: VectorStore, embedder,
+                 generator: ContinuousGenerator,
+                 ret_scheduler: BacklogScheduler,
+                 gen_scheduler: BacklogScheduler,
+                 optimizer=None,
+                 initial_partitions: Optional[int] = None,
+                 streamer: Optional[PartitionStreamer] = None,
+                 retrieval_shards: int = 1,
+                 aging_s: float = 30.0,
+                 partial_swap: bool = False,
+                 device: DeviceLike = None,
+                 tracer=None, registry=None):
+        if optimizer is not None:
+            raise NotImplementedError("placement optimizer: a later slice")
+        if retrieval_shards != 1:
+            raise NotImplementedError("sharded retrieval: a later slice")
+        if not isinstance(generator, ContinuousGenerator):
+            raise NotImplementedError(
+                "the whole-batch Generator: a later slice")
+        self.device = resolve_device(device)
+        self.store = store
+        self.embedder = embedder
+        self.generator = generator
+        self.tracer = tracer or NULL_TRACER
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        generator.bind_obs(self.tracer, self.registry)
+        p0 = (initial_partitions if initial_partitions is not None
+              else len(store.partitions))
+        self.pcache = PartitionCache(store, target=p0)
+        self._owns_streamer = streamer is None
+        self.streamer = streamer if streamer is not None else \
+            PartitionStreamer(store, PrefetchPolicy(max_depth=2),
+                              tracer=self.tracer)
+        if not self._owns_streamer and self.streamer.tracer is NULL_TRACER:
+            self.streamer.tracer = self.tracer
+        # device-hot partition tier: inert (budget 0) until a placement
+        # grants it bytes
+        self.hot = HotPartitionSet(store, device=self.device,
+                                   tracer=self.tracer,
+                                   registry=self.registry)
+        self.retrieval_stats = SearchStats()   # cumulative, for reporting
+        self.completed: List[Request] = []
+        self._done_lock = threading.Lock()
+        # completion wakeup: ``drain`` waits on this instead of polling
+        self._done_cv = threading.Condition(self._done_lock)
+        # open async "request" spans (submit -> harvest), keyed by rid
+        self._req_spans: Dict[int, object] = {}
+        rq, cq, dq = (StageQueue("retrieval"), StageQueue("context"),
+                      StageQueue("done"))
+        rw = PipelineWorker("retrieval", rq, cq, self._retrieve_batch,
+                            ret_scheduler)
+        self.scheduler = RequestScheduler(
+            generator, cq, aging_s=aging_s, partial_swap=partial_swap,
+            tracer=self.tracer, registry=self.registry)
+        gw = StepPumpWorker(
+            "generation", cq, dq,
+            capacity_fn=self.scheduler.capacity,
+            admit_fn=self.scheduler.admit,
+            step_fn=self._generate_step)
+        self.pipeline = Pipeline(retrieval_queue=rq, context_queue=cq,
+                                 done_queue=dq, workers=[rw, gw])
+        self.gen_scheduler = gen_scheduler
+
+    # ------------------------------------------------------------- stages
+    def _retrieve_batch(self, reqs: List[Request]) -> List[Request]:
+        with self.tracer.scope(*(r.rid for r in reqs)), \
+                self.tracer.span("retrieve.batch", batch=len(reqs)):
+            t0 = time.perf_counter()
+            with self.tracer.span("embed", batch=len(reqs)):
+                queries = self.embedder.embed([r.query for r in reqs])
+            with self.tracer.span("search", top_k=reqs[0].top_k):
+                scores, ids = self.store.search(
+                    queries, reqs[0].top_k, streamer=self.streamer, stats=self.retrieval_stats,
+                    hot=self.hot)
+            chunks = self.store.get_chunks(ids)
+            t1 = time.perf_counter()
+        if self.registry.enabled:
+            self.registry.counter("engine.retrieve_batches").inc()
+            self.registry.histogram("retrieve.seconds").observe(t1 - t0)
+        for r, ch in zip(reqs, chunks):
+            r.retrieved = ch
+            r.prompt = " ".join(ch) + " " + r.query
+            r.t_ret_start, r.t_ret_end = t0, t1
+        return reqs
+
+    def _harvest_obs(self, done: List[Request]) -> None:
+        """Close each finished request's async span, record latencies."""
+        for r in done:
+            self.tracer.end(self._req_spans.pop(r.rid, None))
+        if not self.registry.enabled:
+            return
+        self.registry.counter("engine.completed").inc(len(done))
+        lat = self.registry.histogram("request.latency_seconds")
+        wait = self.registry.histogram("request.waiting_seconds")
+        for r in done:
+            if not r.complete:
+                continue
+            lat.observe(r.latency)
+            wait.observe(r.waiting)
+
+    def _generate_step(self) -> Optional[List[Request]]:
+        """One decode step over the slot table; returns rows that left."""
+        t0 = time.perf_counter()
+        self.scheduler.tick()
+        stepped = self.generator.step()
+        finished = self.generator.harvest()
+        if not stepped and not finished:
+            return None            # idle: no live slots
+        t = time.perf_counter()
+        if stepped:
+            self.gen_scheduler.observe(stepped, t - t0)
+            if self.registry.enabled:
+                self.registry.histogram("decode.step_seconds").observe(
+                    t - t0)
+        done: List[Request] = []
+        for req, text, _tokens in finished:
+            req.output = text
+            req.t_gen_end = t
+            done.append(req)
+        if done:
+            self.scheduler.note_done(done)
+            self._harvest_obs(done)
+            with self._done_cv:
+                self.completed.extend(done)
+                self._done_cv.notify_all()
+        return done
+
+    # ------------------------------------------------------------- public
+    def pump_once(self) -> int:
+        """One synchronous generation-pump iteration: capacity probe ->
+        admit from the context queue -> decode step (the ``StepPumpWorker``
+        loop body minus the thread).  The deterministic seam for tests.
+        Returns the number of requests completed so far."""
+        free = self.scheduler.capacity()
+        items = self.pipeline.context_queue.pop_batch(free) if free > 0 \
+            else []
+        if items:
+            self.scheduler.admit(items)
+        self._generate_step()
+        with self._done_lock:
+            return len(self.completed)
+
+    def start(self) -> None:
+        self.pipeline.start()
+
+    def stop(self) -> None:
+        self.pipeline.stop()
+        if self._owns_streamer:     # an injected streamer outlives us
+            self.streamer.close()
+
+    def submit(self, req: Request) -> None:
+        req.arrival = time.perf_counter() if req.arrival is None \
+            else req.arrival
+        if self.tracer.enabled:
+            self._req_spans[req.rid] = self.tracer.begin(
+                "request", rid=req.rid, trace_ids=[req.rid])
+        self.scheduler.note_queued(req)
+        self.pipeline.retrieval_queue.put(req)
+
+    def drain(self, n: int, timeout: float = 120.0) -> List[Request]:
+        """Block until ``n`` requests have completed.  Raises
+        :class:`TimeoutError` naming the in-flight rids instead of
+        returning fewer than ``n``."""
+        deadline = time.monotonic() + timeout
+        with self._done_cv:
+            while len(self.completed) < n:
+                left = deadline - time.monotonic()
+                if left <= 0 or not self._done_cv.wait(timeout=left):
+                    if len(self.completed) >= n:
+                        break
+                    raise TimeoutError(
+                        f"drain({n}) timed out after {timeout:.1f}s with "
+                        f"{len(self.completed)}/{n} completed; in-flight "
+                        f"rids={self.scheduler.in_flight_rids()}; "
+                        f"scheduler={self.scheduler.snapshot()}")
+            return list(self.completed)
