@@ -10,18 +10,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. corpus  -- ``blob_corpus(1_000_000, 768)`` in 64 IVF partitions, a
               quarter of them spilled to disk under ``build/``.
 4. kernels -- each kernel against its plain PyTorch version at the main
-              path's shapes, with its time, the plain version's, one
+              paths' shapes, with its time, the plain version's, one
               library call's and the card's bound for the same work.
 5. model   -- a reduced llama on the card (kernels) against the same
-              weights on the CPU (plain versions): logits and tokens.
+              weights on the CPU (plain versions): logits and tokens of
+              chunked prefill + paged decode, and of one-shot prefill +
+              dense decode.
 6. serve   -- llama3-8b at full width (bf16, seeded random weights) behind a
               threaded ``RagdollEngine`` with a paged, chunk-prefilled
               ``ContinuousGenerator``: 16 RAG requests, each checked for 32
               tokens and for its 5 retrieved chunks against an exact search.
-              Every kernel's launch count must be > 0 in this run.
+7. serve-batch -- the same weights behind a ``RagdollEngine`` with the
+              whole-batch ``Generator`` (one-shot prefill, dense cache),
+              then behind ``SerialRAGEngine`` (the paper's serial baseline,
+              as ``launch/serve.py --serial`` runs it): the same 16
+              requests and checks.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Each serving path is driven with the launch counts set to 0 just before its
+16 measured requests and read just after; a kernel the path should run
+that launched no time fails the run.  The line before the last is
+``{"kernels": [...]}`` (``launches``: the sum over the three measured
+runs); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -37,10 +46,14 @@ ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense peaks (no sparsity)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FP32 = 67e12           # CUDA cores (the kernels here use no tensor cores)
+PEAK_FP32 = 67e12           # CUDA cores
+PEAK_BF16 = 989e12          # tensor cores, bf16 in, fp32 accumulation
 
-# llama3-8b serving shapes of the main path
+# llama3-8b serving shapes of the main paths
 CTX, MAX_NEW, PAGE, CHUNK, SLOTS = 1024, 32, 16, 256, 8
+HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+RAGGED_CHUNK = 200          # a prefill chunk shorter than the kernel's tiles
+SERIAL_BATCH = 4            # launch/serve.py --serial
 N_REQ, WARMUP_REQ, PROFILE_REQ, TOP_K = 16, 2, 8, 5
 CORPUS_N, CORPUS_DIM, PARTITIONS, SPILLED = 1_000_000, 768, 64, 16
 
@@ -51,6 +64,13 @@ BF16_ATOL = 1e-5            # fp32 noise below a bf16 ulp near zero
 RMSNORM_FP32_TOL = 1e-5
 TIE_GAP = 1e-5              # ids must match where neighbours differ by more
 MODEL_LOGIT_TOL = 1e-4      # reduced model, fp32, card vs CPU
+P_ROUND = 2.0 ** -8         # bf16 attention kernels: P in bf16 (2**-9) vs fp32
+
+# kernels each serving path must launch in its measured run
+CONTINUOUS_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
+                      "retrieval_topk_merge", "flash_attention")
+WHOLE_BATCH_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
+                       "retrieval_topk", "retrieval_topk_merge")
 
 
 def log(msg: str) -> None:
@@ -120,8 +140,18 @@ def check_close(name, got, want, *, atol, rtol=0.0) -> float:
     bad = err > atol + rtol * want.double().abs()
     if not bool(bad.any()) and bool(got.isfinite().all()):
         return float(err.max())
+    atol = float(atol.max()) if hasattr(atol, "max") else atol
     fail(f"{name}: {int(bad.sum())} elements off (max err "
-         f"{float(err.max()):.3e}, atol {atol}, rtol {rtol})")
+         f"{float(err.max()):.3e}, atol up to {atol}, rtol {rtol})")
+
+
+def check_attention(name, got, want, wmean_abs_v) -> float:
+    """bf16 attention kernels against their plain versions: the kernel
+    rounds P to bf16 where the plain version keeps it fp32 (flash) or
+    rounds the normalized P (decode), at most 2**-9 of the softmax-weighted
+    mean of |v| per element; both round the output to bf16."""
+    return check_close(name, got, want, atol=P_ROUND * wmean_abs_v.double()
+                       + BF16_ATOL, rtol=BF16_RTOL)
 
 
 def check_topk(name, got_s, got_i, want_s, want_i) -> float:
@@ -256,6 +286,36 @@ def _paged_bytes_ops(torch, q, k, tab, kv_len, window, scales):
         nbytes += 2 * int((rows // PAGE).unique().numel()) * kvh * 4
     ops = 4 * int(rows.numel()) * h * d                    # q.k and p.v
     return nbytes, ops
+
+
+def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window):
+    """Bytes of q, k, v and o, each moved once, and 4 * D flops per
+    unmasked (query, key) pair and head (causal)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    offs = (q_offset.long().cpu() if torch.is_tensor(q_offset)
+            else torch.full((b,), q_offset, dtype=torch.long))
+    lens = (kv_len.long().cpu() if kv_len is not None
+            else torch.full((b,), sk, dtype=torch.long))
+    q_pos = offs[:, None] + torch.arange(sq)                   # (B, Sq)
+    hi = torch.minimum(lens[:, None], q_pos + 1)
+    lo = (q_pos - window + 1).clamp(min=0) if window else torch.zeros_like(hi)
+    pairs = int((hi - lo).clamp(min=0).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 8 * b
+    return nbytes, 4 * pairs * h * d
+
+
+def _decode_bytes_ops(torch, q, k, kv_len, window):
+    """The live K/V rows, q and o, moved once; 4 * D flops per live
+    (token, head)."""
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    lens = kv_len.long().cpu().clamp(max=s)
+    lo = (lens - window).clamp(min=0) if window else torch.zeros_like(lens)
+    live = int((lens - lo).sum())
+    nbytes = (2 * live * kvh * d * k.element_size()
+              + 2 * q.numel() * q.element_size() + 4 * b)
+    return nbytes, 4 * live * h * d
 
 
 def phase_kernels(torch, timer, store, queries):
@@ -401,13 +461,121 @@ def phase_kernels(torch, timer, store, queries):
                                                impl="ref")),
         timer(lib_merge), bound_ms(nbytes, SLOTS * PARTITIONS * TOP_K,
                                    PEAK_FP32))
+
+    # ---- flash attention: one-shot prefill (8 x 1024, scalar offset 0)
+    # and a prefill chunk (1 x 256 at 768 of a 1024 view, per-row offset)
+    sdpa = F.scaled_dot_product_attention
+    flash_cases = (
+        ("one-shot bf16 (8, 1024) causal", torch.bfloat16, SLOTS, CTX, CTX,
+         0, None, None, None),
+        ("chunk bf16 (1, 256) at 768 of 1024", torch.bfloat16, 1, CHUNK, CTX,
+         CTX - CHUNK, CTX, None, None),
+        ("one-shot fp32 (2, 1024) causal", torch.float32, 2, CTX, CTX, 0,
+         None, None, None),
+        ("chunk bf16 (1, 256) window 300 softcap 50", torch.bfloat16, 1,
+         CHUNK, CTX, CTX - CHUNK, CTX, 300, 50.0),
+        (f"chunk fp32 (1, {RAGGED_CHUNK}) ragged, window 300 softcap 50",
+         torch.float32, 1, RAGGED_CHUNK, CTX, CTX - RAGGED_CHUNK, CTX, 300,
+         50.0))
+    for case, dt, b, sq, sk, off, kvl, window, cap in flash_cases:
+        q = torch.randn((b, sq, HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(dt)
+        k = torch.randn((b, sk, KV_HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(dt)
+        v = torch.randn((b, sk, KV_HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(dt)
+        kw = dict(causal=True, window=window, softcap=cap)
+        if kvl is not None:           # the chunked prefill's per-row call
+            kw.update(q_offset=torch.full((b,), off, dtype=torch.int32,
+                                          device="cuda"),
+                      kv_len=torch.full((b,), kvl, dtype=torch.int32,
+                                        device="cuda"))
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q, k, v, impl="ref", **kw)
+        if dt == torch.float32:
+            err = check_close(f"flash {case}", got, want, atol=FP32_ATTN_TOL)
+        else:
+            wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                        impl="ref", **kw)
+            err = check_attention(f"flash {case}", got, want, wmean)
+        lib_ms = None
+        if window is None and cap is None:
+            # yardstick: SDPA with GQA, causal from the chunk's offset
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            if off == 0 and sq == sk:
+                lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True))
+            else:
+                q_pos = off + torch.arange(sq, device="cuda")
+                mask = (torch.arange(sk, device="cuda")[None, :]
+                        <= q_pos[:, None])
+                lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                            enable_gqa=True))
+        nbytes, nops = _flash_bytes_ops(torch, q, k, kw.get("kv_len"),
+                                        kw.get("q_offset", 0), window)
+        r = report("flash_attention", case, err,
+                   timer(lambda: ops.flash_attention(q, k, v, **kw)),
+                   timer(lambda: ops.flash_attention(q, k, v, impl="ref",
+                                                     **kw)),
+                   lib_ms, bound_ms(nbytes, nops, PEAK_BF16
+                                    if dt == torch.bfloat16 else PEAK_FP32))
+        if case.startswith("one-shot bf16"):
+            rows["flash_attention"] = r
+        del q, k, v, got, want
+
+    # ---- dense decode: 8 slots of ctx + max_new, one of them dead
+    total = CTX + MAX_NEW
+    for case, dt, window, cap in (
+            ("bf16 cache", torch.bfloat16, None, None),
+            ("fp32 cache", torch.float32, None, None),
+            ("bf16 window 256 softcap 50", torch.bfloat16, 256, 50.0)):
+        q = torch.randn((SLOTS, HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(dt)
+        k = torch.randn((SLOTS, total, KV_HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(dt)
+        v = torch.randn((SLOTS, total, KV_HEADS, HEAD_DIM), generator=gen,
+                        device="cuda").to(dt)
+        kv_len = torch.randint(CTX + 1, total + 1, (SLOTS,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        kv_len[-1] = total               # a finished slot riding the step
+        kw = dict(window=window, softcap=cap)
+        got = ops.decode_attention(q, k, v, kv_len, **kw)
+        want = ops.decode_attention(q, k, v, kv_len, impl="ref", **kw)
+        if dt == torch.float32:
+            err = check_close(f"decode {case}", got, want, atol=FP32_ATTN_TOL)
+        else:
+            wmean = ops.decode_attention(q.float(), k.float(),
+                                         v.float().abs(), kv_len, impl="ref",
+                                         **kw)
+            err = check_attention(f"decode {case}", got, want, wmean)
+        lib_ms = None
+        if window is None:
+            # yardstick: SDPA over the dense cache, masked to kv_len
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            mask = (torch.arange(total, device="cuda")[None, :]
+                    < kv_len[:, None])[:, None, None]
+            qd = q[:, :, None]
+            lib_ms = timer(lambda: sdpa(qd, kt, vt, attn_mask=mask,
+                                        enable_gqa=True), cold=True)
+        nbytes, nops = _decode_bytes_ops(torch, q, k, kv_len, window)
+        r = report("decode_attention", case, err,
+                   timer(lambda: ops.decode_attention(q, k, v, kv_len, **kw),
+                         cold=True),
+                   timer(lambda: ops.decode_attention(q, k, v, kv_len,
+                                                      impl="ref", **kw),
+                         cold=True),
+                   lib_ms, bound_ms(nbytes, nops, PEAK_FP32))
+        if case == "bf16 cache":
+            rows["decode_attention"] = r
+        del q, k, v, got, want
     torch.cuda.synchronize()
     return rows
 
 
 def phase_model(torch):
     """A reduced llama: the kernels on the card against the plain versions
-    on the CPU, same fp32 weights, chunked prefill then paged decode."""
+    on the CPU, same fp32 weights: chunked prefill then paged decode, and
+    one-shot prefill then dense decode."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model, init_cache
     cfg = get_config("llama3-8b").reduced(num_layers=2)
@@ -429,11 +597,10 @@ def phase_model(torch):
     g = torch.Generator().manual_seed(4)
     prompts = torch.randint(2, cfg.vocab_size, (2, ctx), generator=g,
                             dtype=torch.int32)
-    logits = {}
+    paged, dense = {}, {}
     for dev, model, params in (("cpu", cpu, p_cpu), ("cuda", gpu, p_gpu)):
         cache = init_cache(cfg, 2 * nmax + 1, page, torch.float32, dev)
         t = tab.to(dev)
-        out = []
         last = []
         for slot in range(2):
             for off in range(0, ctx, chunk):
@@ -443,21 +610,161 @@ def phase_model(torch):
                     torch.full((1,), off, dtype=torch.int32, device=dev),
                     t[slot:slot + 1], kv_span=ctx)
             last.append(lg[0])
-        out.append(torch.stack(last))
+        out = [torch.stack(last)]
         cur = out[-1].argmax(-1).to(torch.int32)
         for s in range(steps):
             pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
             out.append(model.decode(params, cur[:, None], cache, pos, t,
                                     kv_span=ctx + steps))
             cur = out[-1].argmax(-1).to(torch.int32)
-        logits[dev] = torch.stack(out).cpu()
-    err = check_close("reduced model logits", logits["cuda"], logits["cpu"],
-                      atol=MODEL_LOGIT_TOL)
-    if not torch.equal(logits["cuda"].argmax(-1), logits["cpu"].argmax(-1)):
-        fail("reduced model: greedy tokens differ between card and CPU")
-    log(f"[model] {cfg.name}: chunked prefill + {steps} paged decode steps, "
-        f"card (kernels) vs CPU (plain): max logit err {err:.3e} "
-        f"(tol {MODEL_LOGIT_TOL}), greedy tokens equal")
+        paged[dev] = torch.stack(out).cpu()
+        # one-shot prefill into a dense cache, then dense decode
+        cache = init_cache(cfg, 2, ctx + steps, torch.float32, dev)
+        out = [model.prefill(params, prompts.to(dev), cache)]
+        cur = out[-1].argmax(-1).to(torch.int32)
+        for s in range(steps - 1):
+            pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
+            out.append(model.decode(params, cur[:, None], cache, pos))
+            cur = out[-1].argmax(-1).to(torch.int32)
+        dense[dev] = torch.stack(out).cpu()
+    for name, logits, what in (
+            ("chunked prefill + paged decode", paged,
+             f"chunked prefill + {steps} paged decode steps"),
+            ("one-shot prefill + dense decode", dense,
+             f"one-shot prefill + {steps - 1} dense decode steps")):
+        err = check_close(f"reduced model logits, {name}", logits["cuda"],
+                          logits["cpu"], atol=MODEL_LOGIT_TOL)
+        if not torch.equal(logits["cuda"].argmax(-1),
+                           logits["cpu"].argmax(-1)):
+            fail(f"reduced model, {name}: greedy tokens differ between "
+                 "card and CPU")
+        log(f"[model] {cfg.name}: {what}, card (kernels) vs CPU (plain): "
+            f"max logit err {err:.3e} (tol {MODEL_LOGIT_TOL}), greedy "
+            "tokens equal")
+
+
+def build_weights(torch):
+    """Full-width llama3-8b, seeded random bf16 weights, built once on the
+    card and shared by every serving phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("llama3-8b")
+    t0 = time.perf_counter()
+    params = Model(cfg, device="cuda").init(seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in _leaves(params))
+    log(f"[weights] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{nparams / 1e9:.2f} B bf16 params in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
+               stats=None, step_hist=None, layers=None):
+    """Warm up, serve the 16 measured requests with the launch counts set to
+    0 just before and read just after, then a profiled batch.  Fails unless
+    every request has ``MAX_NEW`` tokens and the exact top-5 and every
+    kernel in ``kernels`` launched.  ``layers``: a whole-batch path, whose
+    prefill batches are its flash launches over the layers.  Returns the
+    measured run's numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, percentile
+    errors = []
+    threading.excepthook = lambda a: errors.append(
+        f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+
+    def serve(rids, t_limit):
+        for i in rids:
+            eng.submit(Request(rid=i, query=f"q{i}",
+                               arrival=time.perf_counter(), top_k=TOP_K,
+                               max_new_tokens=MAX_NEW))
+        deadline = time.monotonic() + t_limit
+        while True:
+            try:
+                return eng.drain(rids[-1] + 1, timeout=5.0)
+            except TimeoutError:
+                if errors:
+                    fail(f"[{tag}] worker thread died: {errors}")
+                if time.monotonic() > deadline:
+                    raise
+
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        serve(list(range(WARMUP_REQ)), 300)
+        log(f"[{tag}] warm-up: {WARMUP_REQ} requests in "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if step_hist is not None:
+            steps_before, secs_before = step_hist.count, step_hist.total
+        if stats is not None:
+            stats.reset()                    # the measured window only
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = serve(list(range(WARMUP_REQ, WARMUP_REQ + N_REQ)), 600)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        retrieval = stats.snapshot() if stats is not None else None
+        # a further batch under the profiler: where the device time goes
+        from torch.profiler import ProfilerActivity, profile
+        first = WARMUP_REQ + N_REQ
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve(list(range(first, first + PROFILE_REQ)), 600)
+            torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    if errors:
+        fail(f"[{tag}] worker thread died: {errors}")
+
+    reqs = sorted((r for r in done if WARMUP_REQ <= r.rid < first),
+                  key=lambda r: r.rid)
+    if len(reqs) != N_REQ:
+        fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
+    ex_s, ex_i = exact
+    for r in reqs:
+        toks = r.output.split()
+        if len(toks) != MAX_NEW or not all(
+                0 <= int(t[3:]) < vocab for t in toks):
+            fail(f"[{tag}] request {r.rid}: {len(toks)} tokens, want "
+                 f"{MAX_NEW}")
+        got = torch.tensor([[int(c) for c in r.retrieved]])
+        if got.shape[1] != TOP_K:
+            fail(f"[{tag}] request {r.rid}: {got.shape[1]} chunks, want "
+                 f"{TOP_K}")
+        # exact search (nprobe=None): the ids of the plain full-corpus top-k
+        check_topk(f"[{tag}] request {r.rid} retrieval",
+                   ex_s[r.rid:r.rid + 1].cpu(), got,
+                   ex_s[r.rid:r.rid + 1].cpu(), ex_i[r.rid:r.rid + 1].cpu())
+    missing = [n for n in kernels if counts[n] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on this path: {missing}")
+    lat = [r.latency for r in reqs]
+    p50, p95 = percentile(lat, 50), percentile(lat, 95)
+    toks = N_REQ * MAX_NEW
+    log(f"[{tag}] {N_REQ}/{N_REQ} requests served, {MAX_NEW} tokens and "
+        f"{TOP_K} exact chunks each, in {wall:.3f} s on {smi}")
+    extra = ""
+    if step_hist is not None:
+        steps = step_hist.count - steps_before
+        step_ms = (step_hist.total - secs_before) / max(steps, 1) * 1e3
+        extra += f"; {steps} generator steps, mean {step_ms:.1f} ms"
+    if layers is not None:
+        extra += f"; {counts['flash_attention'] // layers} prefill batches"
+    log(f"[{tag}] latency p50 {p50:.3f} s p95 {p95:.3f} s; "
+        f"{toks / wall:.1f} output tokens/s{extra}; peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB ({smi})")
+    if retrieval is not None:
+        log(f"[{tag}] retrieval of the {N_REQ} requests: {retrieval}")
+    log(f"[{tag}] launches on this path: {json.dumps(counts)}")
+    breakdown(tag, _kernel_records(prof, torch), window, smi)
+    return dict(counts=counts, p50=p50, outputs={r.rid: r.output
+                                                 for r in reqs})
 
 
 class QueryEmbedder:
@@ -471,23 +778,11 @@ class QueryEmbedder:
         return self.queries[[int(t[1:]) for t in texts]]
 
 
-def phase_serve(torch, store, queries, exact, smi: str):
-    from repro_torch.configs import get_config
+def phase_serve(torch, cfg, params, store, queries, exact, smi: str):
+    """The continuous path: a paged, chunk-prefilled ContinuousGenerator."""
     from repro_torch.core.scheduler import BacklogScheduler
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import Model
     from repro_torch.serving import (ContinuousGenerator, GeneratorConfig,
-                                     RagdollEngine, Request, percentile)
-    cfg = get_config("llama3-8b")
-    t0 = time.perf_counter()
-    params = Model(cfg, device="cuda").init(seed=0, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    nparams = sum(t.numel() for t in _leaves(params))
-    log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"{nparams / 1e9:.2f} B bf16 params in "
-        f"{time.perf_counter() - t0:.1f} s")
+                                     RagdollEngine)
     gen = ContinuousGenerator(
         cfg, params, GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
                                      dtype=torch.bfloat16),
@@ -498,105 +793,68 @@ def phase_serve(torch, store, queries, exact, smi: str):
                         BacklogScheduler(max_batch=SLOTS),
                         initial_partitions=PARTITIONS - SPILLED,
                         device="cuda")
-    errors = []
-    threading.excepthook = lambda a: errors.append(
-        f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+    return serve_path(torch, eng, "serve", CONTINUOUS_KERNELS, exact, smi,
+                      cfg.vocab_size, stats=eng.retrieval_stats,
+                      step_hist=eng.registry.histogram("decode.step_seconds"))
 
-    def serve(rids, t_limit):
-        for i in rids:
-            eng.submit(Request(rid=i, query=f"q{i}", arrival=None,
-                               top_k=TOP_K, max_new_tokens=MAX_NEW))
-        deadline = time.monotonic() + t_limit
-        while True:
-            try:
-                return eng.drain(rids[-1] + 1, timeout=5.0)
-            except TimeoutError:
-                if errors:
-                    fail(f"worker thread died: {errors}")
-                if time.monotonic() > deadline:
-                    raise
 
-    eng.start()
-    try:
-        t0 = time.perf_counter()
-        serve(list(range(WARMUP_REQ)), 300)
-        log(f"[serve] warm-up: {WARMUP_REQ} requests in "
-            f"{time.perf_counter() - t0:.1f} s")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_hist = eng.registry.histogram("decode.step_seconds")
-        steps_before, secs_before = step_hist.count, step_hist.total
-        ops.reset_launch_counts()
-        eng.retrieval_stats.reset()          # the measured window only
-        t0 = time.perf_counter()
-        done = serve(list(range(WARMUP_REQ, WARMUP_REQ + N_REQ)), 600)
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        retrieval = eng.retrieval_stats.snapshot()
-        peak = torch.cuda.max_memory_allocated()
-        # a further batch under the profiler: where the device time goes
-        from torch.profiler import ProfilerActivity, profile
-        first = WARMUP_REQ + N_REQ
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            serve(list(range(first, first + PROFILE_REQ)), 600)
-            torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    finally:
-        eng.stop()
-    if errors:
-        fail(f"worker thread died: {errors}")
-
-    reqs = [r for r in done if r.rid >= WARMUP_REQ]
-    if len(reqs) != N_REQ:
-        fail(f"{len(reqs)} of {N_REQ} requests came back")
-    ex_s, ex_i = exact
-    for r in reqs:
-        toks = r.output.split()
-        if len(toks) != MAX_NEW or not all(
-                0 <= int(t[3:]) < cfg.vocab_size for t in toks):
-            fail(f"request {r.rid}: {len(toks)} tokens, want {MAX_NEW}")
-        got = torch.tensor([[int(c) for c in r.retrieved]])
-        if got.shape[1] != TOP_K:
-            fail(f"request {r.rid}: {got.shape[1]} chunks, want {TOP_K}")
-        # exact search (nprobe=None): the ids of the plain full-corpus top-k
-        check_topk(f"request {r.rid} retrieval", ex_s[r.rid:r.rid + 1].cpu(),
-                   got, ex_s[r.rid:r.rid + 1].cpu(),
-                   ex_i[r.rid:r.rid + 1].cpu())
-    missing = [n for n, c in counts.items() if c == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
-    lat = [r.latency for r in reqs]
-    steps = step_hist.count - steps_before
-    step_ms = (step_hist.total - secs_before) / max(steps, 1) * 1e3
-    toks = N_REQ * MAX_NEW
-    log(f"[serve] {N_REQ}/{N_REQ} requests served, {MAX_NEW} tokens and "
-        f"{TOP_K} exact chunks each, in {wall:.2f} s on {smi}")
-    log(f"[serve] latency p50 {percentile(lat, 50):.3f} s p95 "
-        f"{percentile(lat, 95):.3f} s; {toks / wall:.1f} output tokens/s; "
-        f"{steps} generator steps, mean {step_ms:.1f} ms; peak "
-        f"device memory {peak / 2 ** 30:.2f} GiB ({smi})")
-    log(f"[serve] retrieval of the {N_REQ} requests: {retrieval}")
-    log(f"[serve] launches on the main path: {json.dumps(counts)}")
-    breakdown(_kernel_records(prof, torch), window, smi)
-    return counts
+def phase_serve_batch(torch, cfg, params, store, queries, exact, smi: str,
+                      paged_outputs):
+    """The whole-batch path: a Generator (one-shot prefill, dense cache)
+    behind RagdollEngine, then behind SerialRAGEngine."""
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.serving import (Generator, GeneratorConfig,
+                                     RagdollEngine, SerialRAGEngine)
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                        dtype=torch.bfloat16)
+    results = {}
+    for tag in ("serve-batch", "serve-serial"):
+        gen = Generator(cfg, params, g, device="cuda")
+        emb = QueryEmbedder(queries)
+        if tag == "serve-batch":
+            eng = RagdollEngine(store, emb, gen,
+                                BacklogScheduler(max_batch=SLOTS),
+                                BacklogScheduler(max_batch=SLOTS),
+                                initial_partitions=PARTITIONS - SPILLED,
+                                device="cuda")
+            stats = eng.retrieval_stats
+        else:
+            eng = SerialRAGEngine(store, emb, gen, batch_size=SERIAL_BATCH,
+                                  device="cuda")
+            stats = None
+        results[tag] = serve_path(torch, eng, tag, WHOLE_BATCH_KERNELS,
+                                  exact, smi, cfg.vocab_size, stats=stats,
+                                  layers=cfg.num_layers)
+    ratio = results["serve-serial"]["p50"] / results["serve-batch"]["p50"]
+    log(f"[serve-serial] p50 serial / ragdoll (whole-batch) = {ratio:.3f} "
+        f"({smi})")
+    same = sum(paged_outputs[rid] == out
+               for rid, out in results["serve-batch"]["outputs"].items())
+    log(f"[serve-batch] information only: {same}/{N_REQ} requests got the "
+        f"same {MAX_NEW} tokens from the whole-batch and the paged paths "
+        "(bf16 rounding differs between their kernels; token identity is "
+        "held in fp32 on the CPU)")
+    return results
 
 
 CATEGORIES = (
     ("paged decode attention", ("paged_decode_kernel",)),
+    ("dense decode attention", ("dense_decode_kernel",)),
+    ("flash attention (prefill)", ("flash_bf16_kernel", "flash_fp32_kernel")),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("retrieval top-k and merge", ("topk_chunk_kernel", "merge_kernel")),
-    ("matmul (projections, MLP, lm_head, prefill attention)",
+    ("matmul (projections, MLP, lm_head)",
      ("gemm", "xmma", "nvjet", "cutlass")),
     ("copy host to device", ("Memcpy HtoD",)),
     ("copy device to host", ("Memcpy DtoH",)),
 )
 
 
-def breakdown(records, window_s: float, smi: str) -> None:
+def breakdown(tag, records, window_s: float, smi: str) -> None:
     """Device busy share of a serving window and its time by kind."""
     if not records:
-        log("[profile] the profiler recorded no device activity: not measured")
+        log(f"[profile {tag}] the profiler recorded no device activity: "
+            "not measured")
         return
     busy, cur = 0.0, None
     for start, end in sorted((s, s + d) for _, s, d in records):
@@ -614,13 +872,13 @@ def breakdown(records, window_s: float, smi: str) -> None:
         cats[label] = cats.get(label, 0.0) + d / 1e6
         names[name] = names.get(name, 0.0) + d / 1e6
     total = sum(cats.values())
-    log(f"[profile] {PROFILE_REQ} requests: wall {window_s:.2f} s, device "
-        f"busy {busy:.2f} s ({busy / window_s:.1%}), idle "
+    log(f"[profile {tag}] {PROFILE_REQ} requests: wall {window_s:.2f} s, "
+        f"device busy {busy:.2f} s ({busy / window_s:.1%}), idle "
         f"{1 - busy / window_s:.1%} ({smi})")
     for label, t in sorted(cats.items(), key=lambda kv: -kv[1]):
-        log(f"[profile]   {t:8.3f} s {t / total:6.1%}  {label}")
+        log(f"[profile {tag}]   {t:8.3f} s {t / total:6.1%}  {label}")
     for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"[profile]   top {t:8.3f} s  {name[:110]}")
+        log(f"[profile {tag}]   top {t:8.3f} s  {name[:110]}")
 
 
 def _leaves(tree):
@@ -637,6 +895,10 @@ def _leaves(tree):
 SOURCES = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                 "src/repro/kernels/rmsnorm.py:22"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:88"),
+    "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:76"),
     "paged_decode_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:124"),
     "retrieval_topk": ("cuda", "src/repro_torch/csrc/topk_retrieval.cu",
@@ -657,13 +919,18 @@ def main() -> int:
         store, queries, exact = phase_corpus(torch, store_root)
         rows = phase_kernels(torch, Timer(torch), store, queries)
         phase_model(torch)
-        counts = phase_serve(torch, store, queries, exact, smi)
+        cfg, params = build_weights(torch)
+        paged = phase_serve(torch, cfg, params, store, queries, exact, smi)
+        batch = phase_serve_batch(torch, cfg, params, store, queries, exact,
+                                  smi, paged["outputs"])
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
+    runs = [paged["counts"]] + [r["counts"] for r in batch.values()]
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         kernels.append(dict(name=kname, route=route, source=source,
-                            replaces=replaces, launches=counts[kname],
+                            replaces=replaces,
+                            launches=sum(c[kname] for c in runs),
                             **rows[kname]))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -11,10 +11,10 @@ Hopper kernel picks its own tiles.  Dispatch:
 
 There is no fallback: a kernel that cannot build or launch raises.
 
-``flash_attention`` is plain PyTorch on every device: the chunked prefill
-passes a per-row ``q_offset``, which the JAX package also routes to its
-plain ``kv_scan`` tier.  A hand-written flash kernel with per-row offsets
-replaces it in a later slice.
+``flash_attention`` takes ``q_offset`` as an int (one-shot prefill) or a
+per-row ``(B,)`` tensor (chunked prefill); the one Hopper kernel serves
+both, where the JAX package routes per-row offsets to its plain
+``kv_scan`` tier.  That tier is the port's plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +22,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
@@ -32,6 +34,8 @@ NEG_INF = ref.NEG_INF
 # every Hopper kernel wrapper, by name; each carries a ``launches`` count
 KERNELS = {
     "rmsnorm": rn.rmsnorm_triton,
+    "flash_attention": fa.flash_attention_cuda,
+    "decode_attention": da.decode_attention_cuda,
     "paged_decode_attention": pa.paged_decode_attention_cuda,
     "retrieval_topk": tk.topk_cuda,
     "retrieval_topk_merge": tk.topk_merge_cuda,
@@ -60,7 +64,7 @@ def _use_kernel(t: torch.Tensor, impl: Optional[str]) -> bool:
 
 
 # ===========================================================================
-# Flash attention (chunked prefill): plain PyTorch
+# Flash attention (one-shot and chunked prefill)
 # ===========================================================================
 
 def flash_attention(
@@ -77,59 +81,34 @@ def flash_attention(
     impl: Optional[str] = None,
     block_kv: int = 256,
 ) -> torch.Tensor:
-    if impl == "ref":
-        return ref.attention_reference(
-            q, k, v, causal=causal, window=window, softcap=softcap,
-            kv_len=kv_len, q_offset=q_offset, scale=scale)
-    if impl is not None:
-        raise ValueError(f"unknown attention impl {impl!r}")
-    return _attention_kv_scan(
-        q, k, v, causal=causal, window=window, softcap=softcap,
-        kv_len=kv_len, q_offset=q_offset, scale=scale, block_kv=block_kv)
+    """``block_kv`` tiles the plain version's scan; the kernel picks its
+    own tiles."""
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
+              q_offset=q_offset, scale=scale)
+    if _use_kernel(q, impl):
+        return fa.flash_attention_cuda(q, k, v, **kw)
+    return fa.flash_attention_plain(q, k, v, block_kv=block_kv, **kw)
 
 
-def _attention_kv_scan(q, k, v, *, causal, window, softcap, kv_len,
-                       q_offset, scale, block_kv):
-    """Online-softmax attention over KV blocks (``repro``'s ``kv_scan``):
-    memory O(Sq + block), fp32 accumulation, GQA without repeating KV."""
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    dv = v.shape[-1]
-    g = h // kvh
-    dev = q.device
-    scale = scale if scale is not None else d ** -0.5
-    block_kv = min(block_kv, sk)
-    q32 = q.float().reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4) * scale
-    if torch.is_tensor(q_offset):                        # per-row (B,)
-        q_pos = q_offset[:, None] + torch.arange(sq, device=dev)
-    else:
-        q_pos = (torch.arange(sq, device=dev) + q_offset)[None].expand(b, sq)
-    valid = kv_len if kv_len is not None else torch.full(
-        (b,), sk, dtype=torch.int64, device=dev)
-    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32, device=dev)
-    for start in range(0, sk, block_kv):
-        stop = min(start + block_kv, sk)
-        kb = k[:, start:stop].float().permute(0, 2, 1, 3)   # (B,KV,bk,D)
-        vb = v[:, start:stop].float().permute(0, 2, 1, 3)
-        s = torch.einsum("bkgqd,bksd->bkgqs", q32, kb)
-        s = ref._softcap(s, softcap)
-        k_pos = torch.arange(start, stop, device=dev)
-        mask = (k_pos[None, :] < valid[:, None])[:, None, :]  # (B,1,bk)
-        if causal:
-            mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
-        if window is not None:
-            mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
-        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgqs,bksd->bkgqd", p, vb)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+# ===========================================================================
+# Decode attention over a dense cache
+# ===========================================================================
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, D)
+    k_cache: torch.Tensor,  # (B, S, KV, D)
+    v_cache: torch.Tensor,  # (B, S, KV, D)
+    kv_len: torch.Tensor,   # (B,)
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if _use_kernel(q, impl):
+        return da.decode_attention_cuda(q, k_cache, v_cache, kv_len, **kw)
+    return da.decode_attention_plain(q, k_cache, v_cache, kv_len, **kw)
 
 
 # ===========================================================================

@@ -1,16 +1,23 @@
-"""GQA attention on a paged KV cache: chunked prefill and paged decode.
+"""GQA attention on a dense or a paged KV cache.
 
-The two branches of ``repro.models.attention.attention_forward`` that the
-paged serving path runs (``mixer="attn"``/``"local"``):
+The branches of ``repro.models.attention.attention_forward`` that the
+serving paths run (``mixer="attn"``/``"local"``):
 
-* ``mode="prefill"`` with per-row ``pos``: a prompt chunk at positions
-  ``[pos, pos + S)`` writes its KV into the pool and attends over the
-  pages written so far, gathered to a dense view of ``kv_span`` tokens;
-* ``mode="decode"``: one token per row writes its KV and attends through
-  the block table with ``ops.paged_decode_attention``.
+* ``mode="prefill"``, ``pos=None``: one-shot prefill of a whole prompt at
+  positions ``0..S-1``; its KV lands in ``cache[:, :S]`` of a dense
+  ``(B, S_cache, KV, hd)`` cache and it attends causally over itself;
+* ``mode="prefill"`` with per-row ``pos`` and a block table: a prompt
+  chunk at positions ``[pos, pos + S)`` writes its KV into the pool and
+  attends over the pages written so far, gathered to a dense view of
+  ``kv_span`` tokens;
+* ``mode="decode"``: one token per row writes its KV at ``pos`` and
+  attends over the dense cache (``ops.decode_attention``) or, with a
+  block table, through the pool (``ops.paged_decode_attention``).
 
-JAX rebuilt the pool arrays on every step; here the pool tensors in
-``cache`` are updated in place (``_paged_scatter``).
+JAX rebuilt the cache arrays on every call; here the tensors in ``cache``
+are updated in place (``_row_update``, ``_paged_scatter``).  Dense
+chunked prefill (a chunk offset without a block table) is not a branch:
+no generator reaches it, since chunked prefill requires the paged pool.
 """
 from __future__ import annotations
 
@@ -48,10 +55,12 @@ def _project_qkv(p: dict, x: torch.Tensor):
 def attention_forward(
     p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     mixer: str,                      # "attn" | "local"
-    mode: str,                       # "prefill" (chunked) | "decode"
-    cache: dict,                     # {"k","v"} pooled (P, page, KV, hd)
-    pos: torch.Tensor,               # (B,) chunk offsets or decode positions
-    block_tab: torch.Tensor,         # (B, nmax) page ids
+    mode: str,                       # "prefill" | "decode"
+    cache: dict,                     # {"k","v"}: dense (B, S_cache, KV, hd)
+                                     #   or pooled (P, page, KV, hd)
+    pos: Optional[torch.Tensor] = None,     # (B,) chunk offsets or decode
+                                            # positions; None: one-shot
+    block_tab: Optional[torch.Tensor] = None,   # (B, nmax) page ids (paged)
     kv_span: Optional[int] = None,   # dense length of the gathered view
 ) -> torch.Tensor:
     """Returns the attention output; ``cache`` is written in place."""
@@ -59,13 +68,31 @@ def attention_forward(
         raise NotImplementedError(f"mixer {mixer!r}")
     if "k_scale" in cache:
         raise NotImplementedError("int8 KV pages: a later slice")
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r}")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     window = cfg.sliding_window if mixer == "local" else None
+    softcap = cfg.attn_logit_softcap
     rot = int(hd * cfg.rope_fraction)
     q, k, v = _project_qkv(p, x)
 
+    if mode == "prefill" and pos is None:
+        cos, sin = layers.rope_cos_sin(torch.arange(s, device=x.device), rot,
+                                       cfg.rope_theta)
+        cos, sin = cos[None, :, None], sin[None, :, None]
+        q = layers.apply_rope(q, cos, sin, rot)
+        k = layers.apply_rope(k, cos, sin, rot)
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=softcap)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
     if mode == "prefill":
+        if block_tab is None:
+            raise NotImplementedError(
+                "chunked prefill into a dense cache: no generator reaches it")
         positions = pos[:, None] + torch.arange(s, device=x.device)  # (B,S)
         cos, sin = layers.rope_cos_sin(positions, rot, cfg.rope_theta)
         cos, sin = cos[:, :, None], sin[:, :, None]
@@ -76,23 +103,37 @@ def attention_forward(
         kd = ref.gather_paged_kv(cache["k"], block_tab, kv_span)
         vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span)
         out = ops.flash_attention(
-            q, kd, vd, causal=True, window=window,
-            softcap=cfg.attn_logit_softcap, kv_len=pos + s, q_offset=pos)
+            q, kd, vd, causal=True, window=window, softcap=softcap,
+            kv_len=pos + s, q_offset=pos)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
-    if mode != "decode":
-        raise NotImplementedError(f"mode {mode!r}: one-shot prefill and "
-                                  "the dense cache come with a later slice")
     cos, sin = layers.rope_cos_sin(pos, rot, cfg.rope_theta)   # (B, rot/2)
     cos, sin = cos[:, None, None], sin[:, None, None]
     q = layers.apply_rope(q, cos, sin, rot)
     k = layers.apply_rope(k, cos, sin, rot)
-    _paged_scatter(cache["k"], k, block_tab, pos[:, None])
-    _paged_scatter(cache["v"], v, block_tab, pos[:, None])
-    out = ops.paged_decode_attention(
-        q[:, 0], cache["k"], cache["v"], block_tab, pos + 1,
-        kv_span=kv_span, window=window, softcap=cfg.attn_logit_softcap)
+    if block_tab is None:
+        _row_update(cache["k"], k, pos)
+        _row_update(cache["v"], v, pos)
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1,
+                                   window=window, softcap=softcap)
+    else:
+        _paged_scatter(cache["k"], k, block_tab, pos[:, None])
+        _paged_scatter(cache["v"], v, block_tab, pos[:, None])
+        out = ops.paged_decode_attention(
+            q[:, 0], cache["k"], cache["v"], block_tab, pos + 1,
+            kv_span=kv_span, window=window, softcap=softcap)
     return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+
+
+def _row_update(cache: torch.Tensor, new: torch.Tensor,
+                pos: torch.Tensor) -> None:
+    """cache (B, S, ...), new (B, 1, ...), pos (B,): row b's token lands at
+    ``pos[b]``, in place.  A position past the end is clamped to the last
+    row, as ``jax.lax.dynamic_update_slice`` clamps its start (no
+    generator writes there; checking would cost a device sync a step)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = pos.long().clamp(0, cache.shape[1] - 1)
+    cache[rows, at] = new[:, 0].to(cache.dtype)
 
 
 def _paged_scatter(pool: torch.Tensor, new: torch.Tensor,
@@ -108,8 +149,9 @@ def _paged_scatter(pool: torch.Tensor, new: torch.Tensor,
     pool[pages, (positions % page).long()] = new.to(pool.dtype)
 
 
-def make_attn_cache_spec(cfg: ModelConfig, pages: int, page_size: int,
+def make_attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
                          dtype) -> dict:
-    """Per-layer pool shapes: ``{"k","v": ((pages, page, KV, hd), dtype)}``."""
-    shape = (pages, page_size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    """Per-layer shapes ``{"k","v": ((batch, cache_len, KV, hd), dtype)}``
+    (a paged pool: ``(pages, page, KV, hd)``)."""
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": (shape, dtype), "v": (shape, dtype)}

@@ -1,4 +1,4 @@
-"""Model facade: init / chunk prefill / paged decode + paged cache specs."""
+"""Model facade: init / prefill / chunk prefill / decode + cache specs."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -10,21 +10,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, transformer
 
 
-def make_cache_specs(cfg: ModelConfig, pages: int, page_size: int,
+def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=torch.bfloat16) -> Dict[str, Any]:
-    """Per-layer pool shapes of the paged layout: ``{"blocks": [{"k": (shape,
-    dtype), "v": ...}] * num_layers}`` with shape ``(pages, page, KV, hd)``
-    (``pages`` counts the trash page 0)."""
-    return {"blocks": [attention.make_attn_cache_spec(cfg, pages, page_size,
+    """Per-layer cache shapes: ``{"blocks": [{"k": (shape, dtype), "v":
+    ...}] * num_layers}`` with shape ``(batch, cache_len, KV, hd)``.  The
+    layout serves both caches: a dense cache has a row of ``cache_len``
+    positions per sequence, the paged pool passes ``(pages, page_size)``
+    (``pages`` counting the trash page 0)."""
+    return {"blocks": [attention.make_attn_cache_spec(cfg, batch, cache_len,
                                                       dtype)
                        for _ in range(cfg.num_layers)]}
 
 
-def init_cache(cfg: ModelConfig, pages: int, page_size: int,
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device: DeviceLike = None
                ) -> Dict[str, Any]:
+    """Zeroed caches of :func:`make_cache_specs` on ``device``."""
     device = resolve_device(device)
-    specs = make_cache_specs(cfg, pages, page_size, dtype)
+    specs = make_cache_specs(cfg, batch, cache_len, dtype)
     return {"blocks": [{name: torch.zeros(shape, dtype=dt, device=device)
                         for name, (shape, dt) in layer.items()}
                        for layer in specs["blocks"]]}
@@ -47,7 +50,10 @@ class Model:
         gen.manual_seed(seed)
         return transformer.init_params(self.cfg, gen, dtype, self.device)
 
-    def decode(self, params, inputs, cache, pos, block_tab,
+    def prefill(self, params, inputs, cache) -> torch.Tensor:
+        return transformer.prefill(params, self.cfg, inputs, cache)
+
+    def decode(self, params, inputs, cache, pos, block_tab=None,
                kv_span: Optional[int] = None) -> torch.Tensor:
         return transformer.decode_step(params, self.cfg, inputs, cache, pos,
                                        block_tab=block_tab, kv_span=kv_span)

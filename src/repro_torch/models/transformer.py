@@ -1,11 +1,12 @@
-"""Dense transformer on a paged KV cache (family ``dense``).
+"""Dense transformer on a dense or a paged KV cache (family ``dense``).
 
 Parameters are a plain dict of tensors in the JAX package's layouts, with
 ``blocks`` a list of per-layer dicts (JAX stacked them on a leading
 repeats axis and scanned; PyTorch runs eagerly, so the stack is a Python
-loop).  Two entry points share them: ``decode_step`` (one token per slot
-at per-slot positions) and ``chunk_prefill_step`` (one prompt chunk at
-per-slot offsets).  Both write the pooled caches in place.
+loop).  Three entry points share them: ``prefill`` (whole prompts into a
+dense cache), ``decode_step`` (one token per slot at per-slot positions,
+dense or paged) and ``chunk_prefill_step`` (one prompt chunk at per-slot
+offsets, paged).  All write the caches in place.
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
 
 def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 kind: LayerKind, *, mode: str, cache: dict,
-                pos: torch.Tensor, block_tab: torch.Tensor,
+                pos: Optional[torch.Tensor],
+                block_tab: Optional[torch.Tensor],
                 kv_span: Optional[int]) -> torch.Tensor:
     mixer, _ = kind
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -68,8 +70,8 @@ def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _run_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
-               caches: List[dict], pos: torch.Tensor,
-               block_tab: torch.Tensor, kv_span: Optional[int]
+               caches: List[dict], pos: Optional[torch.Tensor],
+               block_tab: Optional[torch.Tensor], kv_span: Optional[int]
                ) -> torch.Tensor:
     for lp, kind, cache in zip(p["blocks"], cfg.layer_kinds(), caches):
         x = apply_layer(lp, x, cfg, kind, mode=mode, cache=cache, pos=pos,
@@ -93,11 +95,27 @@ def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.softcap(logits, cfg.final_logit_softcap)
 
 
+def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
+            cache: dict) -> torch.Tensor:
+    """Causal pass over whole prompts ``inputs`` (B, S) at positions
+    ``0..S-1``; their KV lands in ``cache[:, :S]`` of every layer's dense
+    ``(B, S_cache, KV, hd)`` cache, in place.  Returns the last-position
+    logits (B, V)."""
+    x = _embed_inputs(p, cfg, inputs)
+    x = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
+                   pos=None, block_tab=None, kv_span=None)
+    x = layers.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    return unembed(p, cfg, x)[:, 0]
+
+
 def decode_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
-                cache: dict, pos: torch.Tensor, *, block_tab: torch.Tensor,
+                cache: dict, pos: torch.Tensor, *,
+                block_tab: Optional[torch.Tensor] = None,
                 kv_span: Optional[int] = None) -> torch.Tensor:
     """One decode step at per-slot positions ``pos`` (B,); ``inputs``
-    (B, 1) token ids.  Writes ``cache`` in place; returns logits (B, V)."""
+    (B, 1) token ids.  ``cache`` is dense, or pooled pages read and
+    written through ``block_tab`` (B, nmax) with a ``kv_span``-token
+    view.  Writes ``cache`` in place; returns logits (B, V)."""
     x = _embed_inputs(p, cfg, inputs)
     x = _run_stack(p, cfg, x, mode="decode", caches=cache["blocks"],
                    pos=pos, block_tab=block_tab, kv_span=kv_span)

@@ -1,16 +1,24 @@
-"""RAGDoll serving engine (real, thread-driven), continuous path.
+"""RAGDoll serving engines (real, thread-driven).
 
 ``RagdollEngine`` runs decoupled retrieval and generation pipelines: a
 retrieval ``PipelineWorker`` embeds each batch of queries and searches
-the IVF store (partitions streamed from disk, scored on the device),
-then a generation ``StepPumpWorker`` admits requests into free KV slots
-of a paged :class:`~repro_torch.serving.generator.ContinuousGenerator`
-at any decode step and forwards them the moment they finish.  Admission
-is owned by a :class:`~repro_torch.serving.reqsched.RequestScheduler`.
+the IVF store (partitions streamed from disk, scored on the device).
+The generation stage has two disciplines, chosen by the generator type:
 
-This slice serves the engine without a placement optimizer and with one
-retrieval shard; the placement policy (``optimizer``), sharded retrieval
-and the serial baseline engine come with later slices of the port.
+* a whole-batch :class:`~repro_torch.serving.generator.Generator` runs
+  behind a classic ``PipelineWorker`` (pop a batch, generate, forward);
+* a :class:`~repro_torch.serving.generator.ContinuousGenerator` runs
+  behind a ``StepPumpWorker``: requests are admitted into free KV slots
+  at any decode step and leave the moment they finish.  Admission is
+  owned by a :class:`~repro_torch.serving.reqsched.RequestScheduler`.
+
+``SerialRAGEngine`` is the baseline shape (vLLMRAG/AccRAG-style) that the
+paper measures against: one worker retrieves, then generates, each batch
+in arrival order.
+
+The engines run without a placement optimizer and with one retrieval
+shard; the placement policy (``optimizer``) and sharded retrieval come
+with later slices of the port.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ from typing import Dict, List, Optional
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.pipeline import (Pipeline, PipelineWorker, StageQueue,
-                                       StepPumpWorker)
+                                       StepPumpWorker, build_pipeline)
 from repro_torch.core.prefetch import PrefetchPolicy
 from repro_torch.core.scheduler import BacklogScheduler
 from repro_torch.obs.metrics import MetricsRegistry
@@ -28,14 +36,14 @@ from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.retrieval.cache import HotPartitionSet, PartitionCache
 from repro_torch.retrieval.streamer import PartitionStreamer
 from repro_torch.retrieval.vectorstore import SearchStats, VectorStore
-from repro_torch.serving.generator import ContinuousGenerator
+from repro_torch.serving.generator import ContinuousGenerator, Generator
 from repro_torch.serving.reqsched import RequestScheduler
 from repro_torch.serving.request import Request
 
 
 class RagdollEngine:
     def __init__(self, store: VectorStore, embedder,
-                 generator: ContinuousGenerator,
+                 generator: Generator,
                  ret_scheduler: BacklogScheduler,
                  gen_scheduler: BacklogScheduler,
                  optimizer=None,
@@ -50,17 +58,16 @@ class RagdollEngine:
             raise NotImplementedError("placement optimizer: a later slice")
         if retrieval_shards != 1:
             raise NotImplementedError("sharded retrieval: a later slice")
-        if not isinstance(generator, ContinuousGenerator):
-            raise NotImplementedError(
-                "the whole-batch Generator: a later slice")
         self.device = resolve_device(device)
         self.store = store
         self.embedder = embedder
         self.generator = generator
+        self.continuous = isinstance(generator, ContinuousGenerator)
         self.tracer = tracer or NULL_TRACER
         self.registry = registry if registry is not None \
             else MetricsRegistry()
-        generator.bind_obs(self.tracer, self.registry)
+        if self.continuous:
+            generator.bind_obs(self.tracer, self.registry)
         p0 = (initial_partitions if initial_partitions is not None
               else len(store.partitions))
         self.pcache = PartitionCache(store, target=p0)
@@ -82,20 +89,26 @@ class RagdollEngine:
         self._done_cv = threading.Condition(self._done_lock)
         # open async "request" spans (submit -> harvest), keyed by rid
         self._req_spans: Dict[int, object] = {}
-        rq, cq, dq = (StageQueue("retrieval"), StageQueue("context"),
-                      StageQueue("done"))
-        rw = PipelineWorker("retrieval", rq, cq, self._retrieve_batch,
-                            ret_scheduler)
-        self.scheduler = RequestScheduler(
-            generator, cq, aging_s=aging_s, partial_swap=partial_swap,
-            tracer=self.tracer, registry=self.registry)
-        gw = StepPumpWorker(
-            "generation", cq, dq,
-            capacity_fn=self.scheduler.capacity,
-            admit_fn=self.scheduler.admit,
-            step_fn=self._generate_step)
-        self.pipeline = Pipeline(retrieval_queue=rq, context_queue=cq,
-                                 done_queue=dq, workers=[rw, gw])
+        if self.continuous:
+            rq, cq, dq = (StageQueue("retrieval"), StageQueue("context"),
+                          StageQueue("done"))
+            rw = PipelineWorker("retrieval", rq, cq, self._retrieve_batch,
+                                ret_scheduler)
+            self.scheduler: Optional[RequestScheduler] = RequestScheduler(
+                generator, cq, aging_s=aging_s, partial_swap=partial_swap,
+                tracer=self.tracer, registry=self.registry)
+            gw = StepPumpWorker(
+                "generation", cq, dq,
+                capacity_fn=self.scheduler.capacity,
+                admit_fn=self.scheduler.admit,
+                step_fn=self._generate_step)
+            self.pipeline = Pipeline(retrieval_queue=rq, context_queue=cq,
+                                     done_queue=dq, workers=[rw, gw])
+        else:
+            self.scheduler = None
+            self.pipeline = build_pipeline(self._retrieve_batch,
+                                           self._generate_batch,
+                                           ret_scheduler, gen_scheduler)
         self.gen_scheduler = gen_scheduler
 
     # ------------------------------------------------------------- stages
@@ -135,6 +148,22 @@ class RagdollEngine:
             lat.observe(r.latency)
             wait.observe(r.waiting)
 
+    def _generate_batch(self, reqs: List[Request]) -> List[Request]:
+        t0 = time.perf_counter()
+        with self.tracer.span("generate.batch", batch=len(reqs),
+                              trace_ids=[r.rid for r in reqs]):
+            outs = self.generator.generate([r.prompt for r in reqs])
+        t1 = time.perf_counter()
+        for r, o in zip(reqs, outs):
+            r.output = o
+            r.t_gen_start, r.t_gen_end = t0, t1
+        self._harvest_obs(reqs)
+        with self._done_cv:
+            self.completed.extend(reqs)
+            self._done_cv.notify_all()
+        return reqs
+
+    # --------------------------------------- continuous generation stage
     def _generate_step(self) -> Optional[List[Request]]:
         """One decode step over the slot table; returns rows that left."""
         t0 = time.perf_counter()
@@ -168,6 +197,8 @@ class RagdollEngine:
         admit from the context queue -> decode step (the ``StepPumpWorker``
         loop body minus the thread).  The deterministic seam for tests.
         Returns the number of requests completed so far."""
+        if not self.continuous:
+            raise ValueError("pump_once requires a continuous generator")
         free = self.scheduler.capacity()
         items = self.pipeline.context_queue.pop_batch(free) if free > 0 \
             else []
@@ -191,7 +222,8 @@ class RagdollEngine:
         if self.tracer.enabled:
             self._req_spans[req.rid] = self.tracer.begin(
                 "request", rid=req.rid, trace_ids=[req.rid])
-        self.scheduler.note_queued(req)
+        if self.scheduler is not None:
+            self.scheduler.note_queued(req)
         self.pipeline.retrieval_queue.put(req)
 
     def drain(self, n: int, timeout: float = 120.0) -> List[Request]:
@@ -205,9 +237,99 @@ class RagdollEngine:
                 if left <= 0 or not self._done_cv.wait(timeout=left):
                     if len(self.completed) >= n:
                         break
+                    stuck = (self.scheduler.in_flight_rids()
+                             if self.scheduler is not None else [])
+                    snap = (self.scheduler.snapshot()
+                            if self.scheduler is not None else {})
                     raise TimeoutError(
                         f"drain({n}) timed out after {timeout:.1f}s with "
                         f"{len(self.completed)}/{n} completed; in-flight "
-                        f"rids={self.scheduler.in_flight_rids()}; "
-                        f"scheduler={self.scheduler.snapshot()}")
+                        f"rids={stuck}; scheduler={snap}")
+            return list(self.completed)
+
+
+class SerialRAGEngine:
+    """Baseline: serial retrieve-then-generate, arrival order, one thread.
+
+    It searches without a partition streamer, as the reference does: each
+    spilled partition is read from disk when its sweep reaches it.
+    ``device`` (CUDA unless the caller asks for the CPU) must be the one
+    the store and the generator run on."""
+
+    def __init__(self, store: VectorStore, embedder, generator: Generator,
+                 batch_size: int = 4, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if store.device != self.device or generator.device != self.device:
+            raise ValueError(f"store on {store.device} and generator on "
+                             f"{generator.device}, engine on {self.device}")
+        self.store = store
+        self.embedder = embedder
+        self.generator = generator
+        self.batch_size = batch_size
+        self.queue: List[Request] = []
+        self.completed: List[Request] = []
+        self._lock = threading.Lock()
+        # one condition doubles as the submit wakeup (worker waits for
+        # arrivals) and the completion wakeup (drain waits for results)
+        self._cv = threading.Condition(self._lock)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()       # wake the worker so it can exit
+        self._thread.join(timeout=5.0)
+
+    def submit(self, req: Request) -> None:
+        with self._cv:
+            self.queue.append(req)
+            self._cv.notify_all()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            with self._cv:
+                while not self.queue and not self._stop.is_set():
+                    self._cv.wait()     # stop() notifies under the cv
+                batch = self.queue[:self.batch_size]
+                self.queue = self.queue[len(batch):]
+            if not batch:
+                continue
+            t0 = time.perf_counter()
+            queries = self.embedder.embed([r.query for r in batch])
+            scores, ids = self.store.search(queries, batch[0].top_k)
+            chunks = self.store.get_chunks(ids)
+            t1 = time.perf_counter()
+            for r, ch in zip(batch, chunks):
+                r.retrieved = ch
+                r.prompt = " ".join(ch) + " " + r.query
+                r.t_ret_start, r.t_ret_end = t0, t1
+            outs = self.generator.generate([r.prompt for r in batch])
+            t2 = time.perf_counter()
+            for r, o in zip(batch, outs):
+                r.output = o
+                r.t_gen_start, r.t_gen_end = t1, t2
+            with self._cv:
+                self.completed.extend(batch)
+                self._cv.notify_all()
+
+    def drain(self, n: int, timeout: float = 120.0) -> List[Request]:
+        """Block until ``n`` requests have completed.  Raises
+        :class:`TimeoutError` naming the still-queued rids instead of
+        silently returning fewer than ``n``."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while len(self.completed) < n:
+                left = deadline - time.monotonic()
+                if left <= 0 or not self._cv.wait(timeout=left):
+                    if len(self.completed) >= n:
+                        break
+                    queued = [r.rid for r in self.queue]
+                    raise TimeoutError(
+                        f"drain({n}) timed out after {timeout:.1f}s with "
+                        f"{len(self.completed)}/{n} completed; queued "
+                        f"rids={queued}")
             return list(self.completed)

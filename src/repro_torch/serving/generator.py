@@ -1,18 +1,32 @@
-"""Continuous (iteration-level) generation over a paged KV cache.
+"""Generation workers: whole-batch and continuous, on a dense or paged cache.
 
-The paged, chunked-prefill discipline of ``repro.serving.generator``:
-requests ``join`` a fixed-capacity **slot table** at any decode step,
-their prompts are prefilled ``prefill_chunk`` tokens per ``step``
-interleaved with live decode, every ``step`` advances all live slots one
-greedy token, and ``harvest`` returns rows the moment they exhaust their
-token budget (or emit EOS).  KV lives in a shared
-:class:`~repro_torch.serving.kvpool.PagedKVCache` pool; a join reserves
-only ``ceil((ctx + budget) / page_size)`` pages.
+The two disciplines of ``repro.serving.generator``, on the ``Model`` path:
 
-Not in this slice of the port, and raising ``NotImplementedError``: the
-whole-batch ``Generator`` and the dense cache (one-shot prefill), the
-layer-streamed executor, prefix sharing, int8 KV pages, and preemption
-to a host swap pool.
+``Generator``
+    The whole-batch loop: prefill the batch together (one-shot, into a
+    dense ``(B, ctx + new, KV, hd)`` cache), decode it together, return
+    when every row is done.  It serves ``SerialRAGEngine`` and the
+    whole-batch branch of ``RagdollEngine``.
+
+``ContinuousGenerator``
+    Iteration-level scheduling over a fixed-capacity **slot table**:
+    requests ``join`` at any decode step, every ``step`` advances all
+    live slots one greedy token, and ``harvest`` returns rows the moment
+    they exhaust their token budget (or emit EOS).  Two KV layouts:
+
+    * **dense** (default): one cache row of ``ctx + new`` positions per
+      slot; ``join`` prefills at batch=1 and scatters the row into the
+      slot (``_scatter_row``); dead slots keep riding the batched decode.
+    * **paged** (``paged=True``): KV lives in a shared
+      :class:`~repro_torch.serving.kvpool.PagedKVCache` pool and a join
+      reserves only ``ceil((ctx + budget) / page_size)`` pages.  With
+      ``prefill_chunk=N`` the prompt is prefilled ``N`` tokens per
+      ``step`` interleaved with live decode; without it the join prefills
+      one-shot and scatters the row into the slot's pages.
+
+Not in the port yet, and raising ``NotImplementedError``: the
+layer-streamed executor, prefix sharing, int8 KV pages, and preemption to
+a host swap pool.
 """
 from __future__ import annotations
 
@@ -25,13 +39,10 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, init_cache
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
 from repro_torch.serving.kvpool import SWAP_SLICE, PagedKVCache
-
-NEXT_SLICE = ("the whole-batch Generator slice (one-shot prefill, dense "
-              "cache, flash and dense decode kernels)")
 
 
 class HashTokenizer:
@@ -59,6 +70,61 @@ class GeneratorConfig:
     max_new_tokens: int = 16
     dtype: object = torch.float32
     eos_id: Optional[int] = None   # None: always decode max_new_tokens
+
+
+def _trim_at_eos(tokens: List[int], eos_id: Optional[int]) -> List[int]:
+    if eos_id is None:
+        return tokens
+    for j, t in enumerate(tokens):
+        if t == eos_id:
+            return tokens[:j + 1]
+    return tokens
+
+
+class _GeneratorBase:
+    """Shared model/tokenizer substrate for both batching disciplines.
+
+    ``device`` defaults to CUDA and raises when it is absent."""
+
+    def __init__(self, cfg: ModelConfig, params, gen_cfg: GeneratorConfig,
+                 streamed: bool = False, policy=None,
+                 device: DeviceLike = None):
+        if streamed or policy is not None:
+            raise NotImplementedError("streamed: the layer-streaming slice")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.gen_cfg = gen_cfg
+        self.tok = HashTokenizer(cfg.vocab_size)
+        self.model = Model(cfg, self.device)
+        self.params = params
+
+    def _device_ints(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+
+class Generator(_GeneratorBase):
+    """Whole-batch prefill + greedy decode over a fixed-context batch."""
+
+    def generate(self, prompts: List[str]) -> List[str]:
+        g = self.gen_cfg
+        b = len(prompts)
+        toks = self._device_ints(
+            np.stack([self.tok.encode(p, g.ctx_len) for p in prompts]))
+        cache = init_cache(self.cfg, b, g.ctx_len + g.max_new_tokens,
+                           g.dtype, self.device)
+        logits = self.model.prefill(self.params, toks, cache)
+        cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        outs = [cur]                # stay on the device: one copy at the end
+        for t in range(g.max_new_tokens - 1):
+            pos = torch.full((b,), g.ctx_len + t, dtype=torch.int32,
+                             device=self.device)
+            logits = self.model.decode(self.params, cur, cache, pos)
+            cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            outs.append(cur)
+        mat = torch.cat(outs, dim=1).cpu().numpy()     # (B, new)
+        return [self.tok.decode(_trim_at_eos([int(t) for t in row],
+                                             g.eos_id))
+                for row in mat]
 
 
 # ---------------------------------------------------------------------------
@@ -160,13 +226,15 @@ class _ChunkJob:
     offset: int = 0           # next unwritten position
 
 
-class ContinuousGenerator:
-    """Decode-step batching over a paged pool with chunked prefill.
+class ContinuousGenerator(_GeneratorBase):
+    """Decode-step batching over a dense cache or a paged pool.
 
-    Dead slots keep riding the batched decode: their block-table rows
-    point at the trash page, so their writes never land in a live page.
-    Outputs are token-identical to the JAX ``ContinuousGenerator`` on the
-    same weights (``tests/test_torch_engine.py``).
+    Dead slots keep riding the batched decode: dense rows are fully
+    overwritten by the next join's scatter; paged block-table rows point
+    at the trash page, so their writes never land in a live page.
+    Outputs are token-identical to the JAX ``ContinuousGenerator`` and to
+    the whole-batch :class:`Generator` on the same weights
+    (``tests/test_torch_engine.py``, ``tests/test_torch_serve_batch.py``).
     """
 
     def __init__(self, cfg: ModelConfig, params, gen_cfg: GeneratorConfig,
@@ -181,19 +249,14 @@ class ContinuousGenerator:
                  overlap_swap: bool = False,
                  device: DeviceLike = None,
                  tracer=None, registry=None):
-        if streamed or policy is not None:
-            raise NotImplementedError("streamed: the layer-streaming slice")
-        if not paged or prefill_chunk is None:
-            raise NotImplementedError(
-                f"dense cache / one-shot prefill: {NEXT_SLICE}")
+        if prefill_chunk is not None and not paged:
+            raise ValueError("prefill_chunk requires paged=True")
+        if kv_format is not None and not paged:
+            raise ValueError("kv_format requires paged=True")
         if prefix_cache or prefix_page_budget is not None or overlap_swap:
             raise NotImplementedError(f"prefix cache / overlap: {SWAP_SLICE}")
-        self.device = resolve_device(device)
-        self.cfg = cfg
-        self.gen_cfg = gen_cfg
-        self.tok = HashTokenizer(cfg.vocab_size)
-        self.model = Model(cfg, self.device)
-        self.params = params
+        super().__init__(cfg, params, gen_cfg, streamed=streamed,
+                         policy=policy, device=device)
         self.tracer = tracer or NULL_TRACER
         self.registry = registry or NULL_REGISTRY
         # slot -> the joining request's trace-id scope, so decode spans
@@ -203,14 +266,20 @@ class ContinuousGenerator:
         self.table = SlotTable(num_slots)
         total = gen_cfg.ctx_len + gen_cfg.max_new_tokens
         self._total = total
+        self.paged = paged
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
         self._prefilling: Dict[int, _ChunkJob] = {}
-        self.kv = PagedKVCache(
-            cfg, num_slots, total, page_size, num_pages=page_budget,
-            dtype=gen_cfg.dtype, host_pages=host_page_budget,
-            kv_format=kv_format, device=self.device)
-        self.cache = self.kv.init_stacked()
+        if paged:
+            self.kv: Optional[PagedKVCache] = PagedKVCache(
+                cfg, num_slots, total, page_size, num_pages=page_budget,
+                dtype=gen_cfg.dtype, host_pages=host_page_budget,
+                kv_format=kv_format, device=self.device)
+            self.cache = self.kv.init_stacked()
+        else:
+            self.kv = None
+            self.cache = init_cache(cfg, num_slots, total, gen_cfg.dtype,
+                                    self.device)
         # host-side per-slot scalars (tiny; copied to the device per step)
         self._cur = np.zeros(num_slots, np.int32)
         self._pos = np.zeros(num_slots, np.int32)
@@ -231,14 +300,26 @@ class ContinuousGenerator:
         return sorted(ids, key=str)
 
     @property
+    def free_slots(self) -> int:
+        return self.table.free_slots
+
+    @property
     def active_slots(self) -> int:
         return self.table.active_slots
 
     @property
     def admit_capacity(self) -> int:
         """Joins guaranteed to succeed right now (slots AND pages)."""
+        if not self.paged:
+            return self.table.free_slots
         worst = self.gen_cfg.ctx_len + self.gen_cfg.max_new_tokens
         return min(self.table.free_slots, self.kv.admit_capacity(worst))
+
+    def _scatter_row(self, row_cache, slot: int) -> None:
+        """Overwrite slot ``slot``'s dense KV row with a batch=1 cache."""
+        for tc, rc in zip(self.cache["blocks"], row_cache["blocks"]):
+            for name in ("k", "v"):
+                tc[name][slot] = rc[name][0]
 
     def _emit(self, ref: SlotRef, token: int) -> None:
         """Append one token; finish + free the slot on EOS / budget end."""
@@ -251,23 +332,27 @@ class ContinuousGenerator:
         if st.remaining <= 0 or (eos is not None and token == eos):
             st = self.table.release(ref)
             self._cur[ref.index] = 0
-            # the freed slot's table points at the trash page, so its
-            # parked writes can never hit a reissued page
-            self.kv.release(ref.index)
+            # park the dead slot's writes on its last position: dense rows
+            # are fully overwritten by the next join's scatter; a paged
+            # slot's table points at the trash page, so its writes can
+            # never hit a reissued page
+            if self.paged:
+                self.kv.release(ref.index)
             self._slot_scope.pop(ref.index, None)
             self._finished.append(
                 (st.key, self.tok.decode(st.tokens), list(st.tokens)))
 
-    def _device_ints(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-
     # ------------------------------------------------------------- public
     def join(self, key: Any, prompt: str,
              max_new_tokens: Optional[int] = None) -> Optional[SlotRef]:
-        """Lease a slot for ``prompt``; None when the table is full or the
-        page pool cannot cover the request's worst case.  The prompt's
-        chunks ride the following ``step`` calls; the first token appears
-        after the last chunk lands."""
+        """Prefill ``prompt`` into a free slot; None when the table is full
+        or (paged) the page pool cannot cover the request's worst case.
+
+        The first token is emitted by the prefill itself (as in the
+        whole-batch loop), so a budget of 1 finishes without any step.
+        With chunked prefill the slot is leased at once, but the prompt's
+        chunks ride the following ``step`` calls and the first token
+        appears after the last chunk lands."""
         g = self.gen_cfg
         req = g.max_new_tokens if max_new_tokens is None else max_new_tokens
         # prefill always emits the first token, so the budget floor is 1
@@ -276,17 +361,29 @@ class ContinuousGenerator:
         if ref is None:
             return None
         ptoks = self.tok.encode(prompt, g.ctx_len)
-        if not self.kv.admit(ref.index, g.ctx_len + budget):
+        if self.paged and not self.kv.admit(ref.index, g.ctx_len + budget):
             self.table.release(ref)         # page backpressure
             return None
         if self.tracer.enabled:
             self._slot_scope[ref.index] = self.tracer.current_scope()
-        # park decode writes on the last position: its page is either
-        # unallocated (-> trash) or self-overwritten by the final decode
-        # step before it is ever read
-        self._prefilling[ref.index] = _ChunkJob(ref=ref, toks=ptoks)
-        self._cur[ref.index] = 0
-        self._pos[ref.index] = self._total - 1
+        if self.prefill_chunk is not None:
+            # park decode writes on the last position: its page is either
+            # unallocated (-> trash) or self-overwritten by the final
+            # decode step before it is ever read
+            self._prefilling[ref.index] = _ChunkJob(ref=ref, toks=ptoks)
+            self._cur[ref.index] = 0
+            self._pos[ref.index] = self._total - 1
+            return ref
+        with self.tracer.span("prefill", slot=ref.index, tokens=g.ctx_len):
+            row = init_cache(self.cfg, 1, self._total, g.dtype, self.device)
+            logits = self.model.prefill(self.params,
+                                        self._device_ints(ptoks[None]), row)
+            if self.paged:
+                self.kv.scatter_row_stacked(self.cache, row, ref.index,
+                                            g.ctx_len)
+            else:
+                self._scatter_row(row, ref.index)
+        self._emit(ref, int(torch.argmax(logits[0])))
         return ref
 
     def _advance_prefills(self) -> int:
@@ -336,10 +433,12 @@ class ContinuousGenerator:
                 if r.index not in self._prefilling]
         if not refs:
             return progressed
-        # allocate the page each live slot's pending write needs
-        for ref in refs:
-            self.kv.ensure(ref.index, int(self._pos[ref.index]) + 1)
-        bt = self.kv.device_tab()
+        bt, span_len = None, None
+        if self.paged:
+            # allocate the page each live slot's pending write needs
+            for ref in refs:
+                self.kv.ensure(ref.index, int(self._pos[ref.index]) + 1)
+            bt, span_len = self.kv.device_tab(), self._total
         span = (self.tracer.span(
                     "decode.step", slots=len(refs),
                     trace_ids=self._scope_ids(r.index for r in refs))
@@ -348,7 +447,7 @@ class ContinuousGenerator:
             cur = self._device_ints(self._cur)[:, None]
             pos = self._device_ints(self._pos)
             logits = self.model.decode(self.params, cur, self.cache, pos, bt,
-                                       kv_span=self._total)
+                                       kv_span=span_len)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         for ref in refs:
             self._emit(ref, int(nxt[ref.index]))
@@ -363,3 +462,33 @@ class ContinuousGenerator:
         """Drain (key, text, tokens) for rows finished since last call."""
         out, self._finished = self._finished, []
         return out
+
+    def run(self, prompts: List[str],
+            schedule: Optional[Sequence[int]] = None) -> List[str]:
+        """Convenience driver: join everything (as slots free), pump, drain.
+
+        ``schedule[i]`` caps how many queued prompts may join before step
+        ``i`` (joins beyond the schedule are unthrottled): the equivalence
+        tests randomize join/leave interleavings with it.
+        """
+        pending = list(enumerate(prompts))[::-1]    # pop() = arrival order
+        results: List[Optional[str]] = [None] * len(prompts)
+        tick = 0
+        while pending or self.active_slots:
+            allow = len(pending)
+            if schedule is not None and tick < len(schedule):
+                allow = min(allow, schedule[tick])
+            joined = 0
+            while pending and joined < allow and self.admit_capacity > 0:
+                key, prompt = pending.pop()
+                if self.join(key, prompt) is None:
+                    raise RuntimeError(f"join of prompt {key} refused "
+                                       "with capacity to spare")
+                joined += 1
+            self.step()
+            for key, text, _ in self.harvest():
+                results[key] = text
+            tick += 1
+        for key, text, _ in self.harvest():
+            results[key] = text
+        return results     # type: ignore[return-value]

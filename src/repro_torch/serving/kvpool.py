@@ -16,6 +16,8 @@ The device tier of ``repro.serving.kvpool``:
     the shared ``(num_slots, max_blocks)`` int32 block table and its
     device mirror.  Position ``p`` of slot ``s`` lives at
     ``(block_tab[s, p // page_size], p % page_size)`` in every layer.
+    ``scatter_row_stacked`` writes a one-shot prefill's dense row into a
+    joining slot's pages.
 
 The host swap tier (``HostPagePool``, preemption, partial swap,
 swap/decode overlap) and copy-on-write prefix pages come with the swap
@@ -224,3 +226,20 @@ class PagedKVCache:
 
     def admit_capacity(self, length: int) -> int:
         return self.pool.admit_capacity(length)
+
+    # ------------------------------------------------------ one-shot join
+    def scatter_row_stacked(self, cache, row_cache, slot: int,
+                            length: int) -> None:
+        """Write a batch=1 dense prefill row's ``[0:length]`` prefix into
+        the slot's pages, in place (``cache`` is the pooled dict of
+        :meth:`init_stacked`, ``row_cache`` a dense one of one row)."""
+        self.ensure(slot, length)
+        idx = np.arange(length)
+        pages = torch.from_numpy(
+            self._tab[slot, idx // self.page_size].astype(np.int64)).to(
+                self.device)
+        offs = torch.from_numpy(idx % self.page_size).to(self.device)
+        for pool, row in zip(cache["blocks"], row_cache["blocks"]):
+            for name in ("k", "v"):
+                pool[name][pages, offs] = row[name][0, :length].to(
+                    pool[name].dtype)

@@ -80,3 +80,99 @@ def test_topk_kernels_on_card(cuda_device):
     w = _t(rng.normal(size=(4096,)).astype(np.float32)).to(cuda_device)
     np.testing.assert_allclose(_np(ops.rmsnorm(x, w)),
                                _np(ops.rmsnorm(x, w, impl="ref")), atol=1e-5)
+
+
+# ------------------------------------------------ flash and dense decode
+BF16_ULP = 2.0 ** -8
+
+
+def _bf16_bound(want, wmean_abs_v):
+    """The bf16 kernels round P to bf16 (2**-9 relative, so at most 2**-9
+    of the softmax-weighted mean of |v| per element) where the plain
+    versions keep it fp32 (flash) or round the normalized P (decode);
+    both round the output to bf16."""
+    return BF16_ULP * np.abs(want) + BF16_ULP * wmean_abs_v + 1e-6
+
+
+def _flash_case(dev, dtype, d, *, per_row, window, softcap, seed=11):
+    """B=3, H=8, KV=2, Sq=70 (ragged against 64- and 32-row tiles) over
+    Sk=150 (ragged against 64- and 32-key tiles)."""
+    rng = np.random.default_rng(seed)
+    b, sq, sk, h, kvh = 3, 70, 150, 8, 2
+    q = _t(rng.normal(size=(b, sq, h, d)).astype(np.float32))
+    k = _t(rng.normal(size=(b, sk, kvh, d)).astype(np.float32))
+    v = _t(rng.normal(size=(b, sk, kvh, d)).astype(np.float32))
+    if per_row:
+        off = np.array([0, 37, 80], np.int32)       # chunk starts
+        kw = dict(q_offset=_t(off).to(dev), kv_len=_t(off + sq).to(dev))
+    else:
+        kw = dict(q_offset=0, kv_len=_t(np.array([150, 90, 70], np.int32))
+                  .to(dev))
+    kw.update(causal=True, window=window, softcap=softcap)
+    return [x.to(dev, dtype) for x in (q, k, v)], kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+@pytest.mark.parametrize("per_row,window,softcap", [
+    (False, None, None), (True, None, None), (True, 40, 30.0),
+    (False, 33, None)])
+def test_flash_attention_kernel_on_card(cuda_device, dtype, d, per_row,
+                                        window, softcap):
+    """Every compiled (dtype, head_dim) variant: scalar and per-row
+    q_offset, window and softcap, ragged Sq and Sk.  fp32 at 2e-5."""
+    (q, k, v), kw = _flash_case(cuda_device, dtype, d, per_row=per_row,
+                                window=window, softcap=softcap)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
+def _decode_case(dev, dtype, h, d, seed=12):
+    """B=4 against S=300, kv_len 1, 77, 256, 300 (the last a dead slot's
+    whole row)."""
+    rng = np.random.default_rng(seed)
+    b, s, kvh = 4, 300, 2
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32)).to(dev, dtype)
+    k = _t(rng.normal(size=(b, s, kvh, d)).astype(np.float32)).to(dev, dtype)
+    v = _t(rng.normal(size=(b, s, kvh, d)).astype(np.float32)).to(dev, dtype)
+    return q, k, v, _t(np.array([1, 77, 256, 300], np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(4, 16), (8, 16), (4, 128), (8, 128)])
+@pytest.mark.parametrize("window,softcap", [(None, None), (50, 5.0)])
+def test_dense_decode_kernel_on_card(cuda_device, dtype, h, d, window,
+                                     softcap):
+    """Every compiled (query heads per kv head, head_dim) variant, fp32
+    (2e-5) and bf16 caches."""
+    q, k, v, kv_len = _decode_case(cuda_device, dtype, h, d)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, kv_len, **kw)
+    want = ops.decode_attention(q, k, v, kv_len, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.decode_attention(q.float(), k.float(), v.float().abs(),
+                                 kv_len, impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())

@@ -199,6 +199,6 @@ def test_kernel_route_raises_instead_of_falling_back(monkeypatch, tmp_path):
 def test_launch_counts_start_at_zero_and_reset():
     ops.reset_launch_counts()
     assert set(ops.launch_counts()) == {
-        "rmsnorm", "paged_decode_attention", "retrieval_topk",
-        "retrieval_topk_merge"}
+        "rmsnorm", "flash_attention", "decode_attention",
+        "paged_decode_attention", "retrieval_topk", "retrieval_topk_merge"}
     assert all(v == 0 for v in ops.launch_counts().values())
