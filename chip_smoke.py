@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device  -- a CUDA card must be present; prints its name and power limit.
-2. build   -- compiles every hand-written kernel from ``src/repro_torch``.
+2. build   -- compiles every hand-written kernel from ``src/repro_torch``;
+              prints the registers and spills of the redesigned attention
+              kernels and their launch shapes at the main paths' sizes.
 3. corpus  -- ``blob_corpus(1_000_000, 768)`` in 64 IVF partitions, a
               quarter of them spilled to disk under ``build/``.
 4. kernels -- each kernel against its plain PyTorch version at the main
@@ -53,6 +55,8 @@ PEAK_BF16 = 989e12          # tensor cores, bf16 in, fp32 accumulation
 CTX, MAX_NEW, PAGE, CHUNK, SLOTS = 1024, 32, 16, 256, 8
 HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 RAGGED_CHUNK = 200          # a prefill chunk shorter than the kernel's tiles
+# short and long slots in one decode step: empty, partial and full splits
+MIXED_LENGTHS = (1, 17, 300, 1056, 1, 17, 300, 1056)
 SERIAL_BATCH = 4            # launch/serve.py --serial
 N_REQ, WARMUP_REQ, PROFILE_REQ, TOP_K = 16, 2, 8, 5
 CORPUS_N, CORPUS_DIM, PARTITIONS, SPILLED = 1_000_000, 768, 64, 16
@@ -91,7 +95,8 @@ def _kernel_records(prof, torch):
 
 class Timer:
     """Device time of one call: the profiler's (CUPTI) records of the
-    kernels the call launched, summed, averaged over ``iters`` calls.
+    kernels the call launched, summed, averaged over ``iters`` calls; a
+    trace short of any call's records is taken again.
     ``cold`` overwrites the 50 MB L2 (a 256 MiB device-to-device copy,
     left out of the sum) before each call, for inputs the main path finds
     cold: the KV pages of a layer and a freshly copied partition."""
@@ -112,17 +117,31 @@ class Timer:
     def __call__(self, fn, cold: bool = False) -> float:
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
+
+        def device_records(calls):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    if cold:
+                        self.dst.copy_(self.src)
+                    fn()
+                torch.cuda.synchronize()
+            return [r for r in _kernel_records(prof, torch)
+                    if not (cold and r[0].startswith("Memcpy DtoD"))]
+
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(self.iters):
-                if cold:
-                    self.dst.copy_(self.src)
-                fn()
-            torch.cuda.synchronize()
-        us = sum(d for name, _, d in _kernel_records(prof, torch)
-                 if not (cold and name.startswith("Memcpy DtoD")))
+        per_call = len(device_records(1))
+        # a trace that lost records would read as a faster kernel: take
+        # only a trace that holds every launch of every call
+        for _ in range(3):
+            recs = device_records(self.iters)
+            if len(recs) >= per_call * self.iters:
+                break
+        else:
+            fail(f"the profiler recorded {len(recs)} device records for "
+                 f"{self.iters} calls of {per_call}")
+        us = sum(d for _, _, d in recs)
         if us <= 0:
             fail("the profiler recorded no device time")
         return us / self.iters / 1e3
@@ -188,8 +207,40 @@ def phase_device(torch):
     return name, smi
 
 
-def phase_build():
+# the redesigned kernels' variants on the main paths (demangled names)
+REDESIGNED = ("flash_wgmma_kernel<128,",
+              "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
+              "decode_combine_kernel<__nv_bfloat16>")
+
+
+def ptxas_entries(log_text: str):
+    """(kernel, registers, spill line) of each entry in a -Xptxas -v log."""
+    out, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            name, spill = line.split("Function properties for", 1)[1].strip(), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            out.append((name, line.split("Used", 1)[1].split(",")[0].strip(),
+                        spill))
+            name = None
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(n for n, _, _ in out),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(out):
+            out = [(n.replace("(anonymous namespace)::", ""), r, sp)
+                   for n, (_, r, sp) in zip(names, out)]
+    return out
+
+
+def phase_build(torch):
     from repro_torch.kernels import _build, rmsnorm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.decode_attention import DENSE_GRANULE
     t0 = time.perf_counter()
     libs = _build.build()
     t_nvcc = time.perf_counter() - t0
@@ -200,6 +251,32 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] nvcc {t_nvcc:.1f} s for {sorted(libs)} "
         f"in {path.parent.relative_to(ROOT)}")
+    # the redesigned kernels: registers and spills, and their launch shapes
+    # at the main paths' sizes
+    for name in ("flash_attention", "paged_attention", "decode_attention"):
+        text = (libs[name].parent / f"{name}.log").read_text()
+        for kern, regs, spill in ptxas_entries(text):
+            if any(k in kern for k in REDESIGNED):
+                log(f"[build] {kern[:150]}: {regs}; {spill}")
+    for case, b, sq in (("one-shot", SLOTS, CTX), ("chunk", 1, CHUNK)):
+        shp = fa.launch_shape(b, sq, HEADS, HEAD_DIM)
+        log(f"[build] flash_wgmma_kernel {case} ({b} x {sq}): "
+            f"{shp['blocks']} persistent blocks x {shp['threads']} threads "
+            f"over {shp['items']} q tiles of {shp['rows']} rows, "
+            f"{shp['consumers']} consumer warpgroup(s) of 64 rows, "
+            f"{shp['stages']} K/V stages, {shp['smem']} B shared")
+    warps, stages, unit = pa.launch_shape()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    total = CTX + MAX_NEW
+    for kname, span, gran in (("paged_decode_kernel", -(-total // PAGE) * PAGE,
+                               PAGE),
+                              ("dense_decode_kernel", total, DENSE_GRANULE)):
+        splits, split_len = pa.decode_splits(SLOTS, KV_HEADS, span, gran, sms)
+        log(f"[build] {kname} ({SLOTS} slots x {span} tokens): grid "
+            f"({KV_HEADS}, {SLOTS}, {splits}) x {warps * 32} threads, "
+            f"{splits} splits of {split_len} tokens, {stages}-stage cp.async "
+            f"ring of {unit} tokens; merge pass "
+            f"{'grid (%d, %d)' % (KV_HEADS, SLOTS) if splits > 1 else 'none'}")
 
 
 def phase_corpus(torch, store_root: Path):
@@ -232,8 +309,10 @@ def phase_corpus(torch, store_root: Path):
     return store, queries, exact
 
 
-def _paged_case(torch, gen, *, q_dtype, kv_dtype, dead_slot=True):
-    """The decode step's shapes: 8 slots over ctx + max_new tokens."""
+def _paged_case(torch, gen, *, q_dtype, kv_dtype, dead_slot=True,
+                lengths=None):
+    """The decode step's shapes: 8 slots over ctx + max_new tokens
+    (``lengths``: the slots' kv_len in place of ctx+1 .. ctx+max_new)."""
     h, kvh, d = 32, 8, 128
     total = CTX + MAX_NEW
     nmax = -(-total // PAGE)
@@ -256,6 +335,8 @@ def _paged_case(torch, gen, *, q_dtype, kv_dtype, dead_slot=True):
     tab = perm[:SLOTS * nmax].reshape(SLOTS, nmax).to(torch.int32)
     kv_len = torch.randint(CTX + 1, total + 1, (SLOTS,), generator=gen,
                            device="cuda", dtype=torch.int32)
+    if lengths is not None:
+        kv_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     if dead_slot:                  # a finished slot riding the step
         tab[-1] = 0
         kv_len[-1] = total
@@ -359,14 +440,18 @@ def phase_kernels(torch, timer, store, queries):
             rows["rmsnorm"] = r
 
     # ---- paged decode attention: H=32, KV=8, D=128, page 16, 8 slots
-    cases = (("bf16 pages", torch.bfloat16, torch.bfloat16, None, None),
-             ("fp32 pages", torch.float32, torch.float32, None, None),
-             ("int8 pages + scales", torch.float32, torch.int8, None, None),
+    mixed = MIXED_LENGTHS
+    cases = (("bf16 pages", torch.bfloat16, torch.bfloat16, None, None, None),
+             ("fp32 pages", torch.float32, torch.float32, None, None, None),
+             ("int8 pages + scales", torch.float32, torch.int8, None, None,
+              None),
              ("bf16 window 256 softcap 50", torch.bfloat16, torch.bfloat16,
-              256, 50.0))
-    for case, qdt, kvdt, window, cap in cases:
+              256, 50.0, None),
+             (f"bf16 pages, kv_len {mixed}", torch.bfloat16, torch.bfloat16,
+              None, None, mixed))
+    for case, qdt, kvdt, window, cap, lengths in cases:
         q, k, v, tab, kv_len, (ks, vs) = _paged_case(
-            torch, gen, q_dtype=qdt, kv_dtype=kvdt)
+            torch, gen, q_dtype=qdt, kv_dtype=kvdt, lengths=lengths)
         kw = dict(window=window, softcap=cap, k_scale=ks, v_scale=vs)
         got = ops.paged_decode_attention(q, k, v, tab, kv_len, **kw)
         want = ops.paged_decode_attention(q, k, v, tab, kv_len, impl="ref",
@@ -525,10 +610,12 @@ def phase_kernels(torch, timer, store, queries):
 
     # ---- dense decode: 8 slots of ctx + max_new, one of them dead
     total = CTX + MAX_NEW
-    for case, dt, window, cap in (
-            ("bf16 cache", torch.bfloat16, None, None),
-            ("fp32 cache", torch.float32, None, None),
-            ("bf16 window 256 softcap 50", torch.bfloat16, 256, 50.0)):
+    for case, dt, window, cap, lengths in (
+            ("bf16 cache", torch.bfloat16, None, None, None),
+            ("fp32 cache", torch.float32, None, None, None),
+            ("bf16 window 256 softcap 50", torch.bfloat16, 256, 50.0, None),
+            (f"bf16 cache, kv_len {MIXED_LENGTHS}", torch.bfloat16, None,
+             None, MIXED_LENGTHS)):
         q = torch.randn((SLOTS, HEADS, HEAD_DIM), generator=gen,
                         device="cuda").to(dt)
         k = torch.randn((SLOTS, total, KV_HEADS, HEAD_DIM), generator=gen,
@@ -537,6 +624,8 @@ def phase_kernels(torch, timer, store, queries):
                         device="cuda").to(dt)
         kv_len = torch.randint(CTX + 1, total + 1, (SLOTS,), generator=gen,
                                device="cuda", dtype=torch.int32)
+        if lengths is not None:
+            kv_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         kv_len[-1] = total               # a finished slot riding the step
         kw = dict(window=window, softcap=cap)
         got = ops.decode_attention(q, k, v, kv_len, **kw)
@@ -838,9 +927,10 @@ def phase_serve_batch(torch, cfg, params, store, queries, exact, smi: str,
 
 
 CATEGORIES = (
-    ("paged decode attention", ("paged_decode_kernel",)),
-    ("dense decode attention", ("dense_decode_kernel",)),
-    ("flash attention (prefill)", ("flash_bf16_kernel", "flash_fp32_kernel")),
+    # the split kernels and their merge passes (*_decode_combine_kernel)
+    ("paged decode attention", ("paged_decode_",)),
+    ("dense decode attention", ("dense_decode_",)),
+    ("flash attention (prefill)", ("flash_wgmma_kernel", "flash_fp32_kernel")),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("retrieval top-k and merge", ("topk_chunk_kernel", "merge_kernel")),
     ("matmul (projections, MLP, lm_head)",
@@ -912,7 +1002,7 @@ def main() -> int:
     import torch
     t_start = time.perf_counter()
     name, smi = phase_device(torch)
-    phase_build()
+    phase_build(torch)
     store_root = ROOT / "build" / "smoke_corpus"
     shutil.rmtree(store_root, ignore_errors=True)
     try:

@@ -92,6 +92,13 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def aligned16(t):
+    """``t`` contiguous and starting on a 16-byte boundary, as the kernels'
+    16-byte copies and TMA loads need (a copy only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if err != 0:

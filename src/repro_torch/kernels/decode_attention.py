@@ -9,9 +9,11 @@ softmax.
 
 What bounds it on the H100: bytes (each live K/V row read once, about 4
 flops a byte in bf16).  The design, in ``csrc/decode_attention.cu``: the
-paged kernel's device code (``csrc/decode_tiles.cuh``) with the row
-address ``b * S + t`` in place of the block-table lookup; one block per
-(kv head, sequence) walks the sequence's live tokens only.
+paged kernel's split-K device code (``csrc/decode_tiles.cuh``) with the
+row address ``b * S + t`` in place of the block-table lookup: blocks over
+(kv head, sequence, split) stage the live rows of their split through a
+``cp.async`` ring, and a second kernel merges the splits in a fixed
+order.  The split count comes from ``S`` (and the window), on the host.
 """
 from __future__ import annotations
 
@@ -21,7 +23,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import split_plan
 from repro_torch.kernels.ref import NEG_INF, _softcap
+
+# a dense cache's splits are made of this many tokens (two per stage unit)
+DENSE_GRANULE = 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -33,7 +39,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("decode_attention")
     fn = lib.decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 5 + [_F, _I, _F, _I, _I, _P]
+        fn.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _F, _I, _I, _I, _I, _P]
         fn.restype = _I
     return lib
 
@@ -65,18 +71,24 @@ def decode_attention_cuda(
         raise ValueError(f"unsupported query dtype {q.dtype}")
     if k_cache.dtype not in _DTYPE_CODE or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"unsupported cache dtype {k_cache.dtype}")
+    if d * k_cache.element_size() % 16:
+        raise ValueError(f"a cache row must be a multiple of 16 bytes, got "
+                         f"{d} x {k_cache.element_size()}")
     lib = _lib()
     q = q.contiguous()
-    k_cache = k_cache.contiguous()
-    v_cache = v_cache.contiguous()
+    k_cache = _build.aligned16(k_cache)
+    v_cache = _build.aligned16(v_cache)
     lens = kv_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     scale = scale if scale is not None else d ** -0.5
+    span = s if window is None else min(s, int(window))
+    splits, split_len, scratch = split_plan(q, kvh, span, DENSE_GRANULE)
     err = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, s, h, kvh, d, float(scale),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        b, s, h, kvh, d, float(scale),
         0 if window is None else int(window),
-        0.0 if softcap is None else float(softcap),
+        0.0 if softcap is None else float(softcap), splits, split_len,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "decode_attention")

@@ -10,16 +10,22 @@ tensor (chunked prefill: each row's chunk start), which the Pallas kernel
 did not take.
 
 What bounds it on the H100: operations (about 400 flops a byte at the
-one-shot llama3-8b prefill).  The design, in ``csrc/flash_attention.cu``:
-one block per (batch, q head, q tile) loops over the kv tiles its causal
-and window reach can touch, with the softmax state in registers; bf16
-runs both products on the tensor cores (``mma.sync``), fp32 on the CUDA
-cores in the JAX order of operations.
+one-shot llama3-8b prefill), which only ``wgmma`` reaches at the tensor
+cores' full rate.  The design, in ``csrc/flash_attention.cu``: each (q
+head, batch, q tile) loops over the kv tiles its causal and window reach
+can touch, with the softmax state in registers.  bf16 is a persistent,
+warp-specialised kernel (one block an SM over the q tiles, heaviest causal
+tiles first): a producer thread issues TMA loads of the q rows and of
+128-key K and V tiles into a ring of 3 stages (mbarrier completion),
+and one or two consumer warpgroups of 64 q rows run S = QK^T and O += PV
+as ``wgmma`` (P from registers), the softmax of one tile under the PV of
+the one before and under the other warpgroup's products.  fp32 runs on the CUDA cores in the JAX order of
+operations.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -39,13 +45,21 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [_P] * 6 + [_I] * 7 + [_F, _I, _I, _F, _I, _P]
         fn.restype = _I
+        lib.flash_attention_shape.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+        lib.flash_attention_shape.restype = None
     return lib
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, from a 16-byte boundary (the kernel's vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def launch_shape(b: int, sq: int, h: int, d: int) -> Dict[str, int]:
+    """The bf16 kernel's launch for these sizes (no launch): consumer
+    warpgroups, q rows a work item, ring stages, threads and dynamic
+    shared bytes a block, work items (q tiles x heads x batch) and blocks
+    (one an SM at most: the kernel is persistent)."""
+    info = (_I * 7)()
+    _lib().flash_attention_shape(b, sq, h, d, info)
+    keys = ("consumers", "rows", "stages", "threads", "smem", "items",
+            "blocks")
+    return dict(zip(keys, info))
 
 
 def flash_attention_cuda(
@@ -81,7 +95,7 @@ def flash_attention_cuda(
     if per_row and q_offset.shape != (b,):
         raise ValueError("a q_offset tensor must be (B,)")
     lib = _lib()
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = (_build.aligned16(x) for x in (q, k, v))
     lens = None if kv_len is None else kv_len.to(torch.int32).contiguous()
     offs = q_offset.to(torch.int32).contiguous() if per_row else None
     out = torch.empty_like(q)

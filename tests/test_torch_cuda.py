@@ -96,7 +96,7 @@ def _bf16_bound(want, wmean_abs_v):
 
 def _flash_case(dev, dtype, d, *, per_row, window, softcap, seed=11):
     """B=3, H=8, KV=2, Sq=70 (ragged against 64- and 32-row tiles) over
-    Sk=150 (ragged against 64- and 32-key tiles)."""
+    Sk=150 (ragged against 128- and 32-key tiles)."""
     rng = np.random.default_rng(seed)
     b, sq, sk, h, kvh = 3, 70, 150, 8, 2
     q = _t(rng.normal(size=(b, sq, h, d)).astype(np.float32))
@@ -173,6 +173,163 @@ def test_dense_decode_kernel_on_card(cuda_device, dtype, h, d, window,
         return
     wmean = ops.decode_attention(q.float(), k.float(), v.float().abs(),
                                  kv_len, impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
+# ------------------------------------------------ split-K decode, wgmma flash
+BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-5      # one bf16 rounding of the output
+
+
+def _split_len(dev, b, kvh, span, granule):
+    from repro_torch.kernels.paged_attention import decode_splits
+    props = torch.cuda.get_device_properties(dev)
+    return decode_splits(b, kvh, span, granule, props.multi_processor_count)
+
+
+def _wide_paged_case(dev, kv_dtype, lengths, *, page=16, nmax=70, h=8,
+                     kvh=2, d=128, seed=21):
+    """A table of nmax pages a slot (several splits), one slot a length;
+    a length of -1 is a dead slot: every entry on trash page 0, kv_len the
+    whole table."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    pages = b * nmax + 1
+    shape = (pages, page, kvh, d)
+    if kv_dtype == torch.int8:
+        k = _t(rng.integers(-127, 128, size=shape).astype(np.int8))
+        v = _t(rng.integers(-127, 128, size=shape).astype(np.int8))
+        kw = dict(k_scale=_t(rng.uniform(0.005, 0.02, (pages, kvh))
+                             .astype(np.float32)).to(dev),
+                  v_scale=_t(rng.uniform(0.005, 0.02, (pages, kvh))
+                             .astype(np.float32)).to(dev))
+    else:
+        k = _t(rng.normal(size=shape).astype(np.float32)).to(kv_dtype)
+        v = _t(rng.normal(size=shape).astype(np.float32)).to(kv_dtype)
+        kw = {}
+    q_dtype = torch.bfloat16 if kv_dtype == torch.bfloat16 else torch.float32
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32)).to(dev, q_dtype)
+    tab = rng.permutation(np.arange(1, pages))[:b * nmax].reshape(b, nmax)
+    lens = np.array(lengths, np.int32)
+    for i, n in enumerate(lengths):
+        if n < 0:
+            tab[i] = 0
+            lens[i] = nmax * page
+    return ([q, k.to(dev), v.to(dev), _t(tab.astype(np.int32)).to(dev),
+             _t(lens).to(dev)], kw)
+
+
+def _check_decode(got, want):
+    if got.dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+    else:
+        np.testing.assert_allclose(_np(got.float()), _np(want.float()),
+                                   rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32,
+                                      torch.int8])
+@pytest.mark.parametrize("window,softcap", [(None, None), (100, 30.0)])
+def test_paged_decode_splits_on_card(cuda_device, kv_dtype, window, softcap):
+    """Page 16 over 70 pages: lengths 1, 16, 17, one split's length and one
+    past it, 1056, and a dead slot on trash page 0; the window empties
+    whole splits.  Two calls give the same bits."""
+    splits, split_len = _split_len(cuda_device, 7, 2, 70 * 16, 16)
+    assert splits > 1
+    lengths = [1, 16, 17, split_len, split_len + 1, 1056, -1]
+    args, kw = _wide_paged_case(cuda_device, kv_dtype, lengths)
+    kw.update(window=window, softcap=softcap)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(*args, **kw)
+    again = ops.paged_decode_attention(*args, **kw)
+    want = ops.paged_decode_attention(*args, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 2
+    assert torch.equal(got, again)
+    _check_decode(got, want)
+
+
+@pytest.mark.cuda
+def test_paged_decode_one_split_on_card(cuda_device):
+    """A batch that fills the grid alone: one split, no merge pass."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    from repro_torch.kernels.paged_attention import BLOCKS_PER_SM
+    b = -(-BLOCKS_PER_SM * props.multi_processor_count // 2)
+    assert _split_len(cuda_device, b, 2, 4 * 16, 16)[0] == 1
+    rng = np.random.default_rng(5)
+    lengths = [int(n) for n in rng.integers(1, 4 * 16 + 1, size=b)]
+    args, kw = _wide_paged_case(cuda_device, torch.bfloat16, lengths,
+                                nmax=4)
+    got = ops.paged_decode_attention(*args)
+    want = ops.paged_decode_attention(*args, impl="ref")
+    _check_decode(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, 5.0)])
+def test_dense_decode_splits_on_card(cuda_device, dtype, window, softcap):
+    """S = 1056 in splits, kv_len 1, 17, 300, 1056 (the last a dead
+    slot's whole row).  Two calls give the same bits."""
+    rng = np.random.default_rng(13)
+    b, s, h, kvh, d = 4, 1056, 8, 2, 128
+    assert _split_len(cuda_device, b, kvh, s, 16)[0] > 1
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32)).to(cuda_device,
+                                                              dtype)
+    k = _t(rng.normal(size=(b, s, kvh, d)).astype(np.float32)).to(
+        cuda_device, dtype)
+    v = _t(rng.normal(size=(b, s, kvh, d)).astype(np.float32)).to(
+        cuda_device, dtype)
+    kv_len = _t(np.array([1, 17, 300, 1056], np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=softcap)
+    got = ops.decode_attention(q, k, v, kv_len, **kw)
+    again = ops.decode_attention(q, k, v, kv_len, **kw)
+    want = ops.decode_attention(q, k, v, kv_len, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.decode_attention(q.float(), k.float(), v.float().abs(),
+                                 kv_len, impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("per_row,window,softcap", [
+    (False, None, None), (True, None, None), (True, 70, 30.0),
+    (False, 150, None)])
+def test_flash_attention_large_tiles_on_card(cuda_device, d, per_row,
+                                             window, softcap):
+    """bf16 with a grid large enough for 128-row q tiles (two consumer
+    warpgroups): Sq = 300 and Sk = 333 cross the 64- and 128-row tiles and
+    the 128-key tiles; windows of 70 and 150 skip whole kv tiles.  Every
+    row keeps a live key in its reach (a row with none is outside the
+    kernel's contract: see csrc/flash_attention.cu)."""
+    rng = np.random.default_rng(17)
+    b, sq, sk, h, kvh = 4, 300, 333, 32, 8
+    from repro_torch.kernels.flash_attention import launch_shape
+    assert launch_shape(b, sq, h, d)["consumers"] == 2
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for shape in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    if per_row:
+        off = np.array([0, 10, 33, 0], np.int32)
+        kw = dict(q_offset=_t(off).to(cuda_device),
+                  kv_len=_t(off + sq).to(cuda_device))
+    else:
+        kw = dict(q_offset=0, kv_len=_t(np.array([333, 300, 229, 164],
+                                                 np.int32)).to(cuda_device))
+    kw.update(causal=True, window=window, softcap=softcap)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                impl="ref", **kw)
     err = np.abs(_np(got.float()) - _np(want.float()))
     assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
         float(err.max())

@@ -202,3 +202,35 @@ def test_launch_counts_start_at_zero_and_reset():
         "rmsnorm", "flash_attention", "decode_attention",
         "paged_decode_attention", "retrieval_topk", "retrieval_topk_merge"}
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# ------------------------------------------------- split-K decode planning
+@pytest.mark.parametrize("batch,kv_heads,span,granule,sms", [
+    (8, 8, 1056, 16, 132),      # llama3-8b decode step: 9 splits of 8 pages
+    (1, 8, 1056, 16, 132),      # one slot: capped by the shortest split
+    (3, 2, 40, 8, 132),         # a table shorter than one split
+    (8, 8, 115, 16, 132),       # a window of 100 over pages of 16
+    (4, 2, 300, 16, 132),       # a dense cache of 300, granules of 16
+    (264, 2, 64, 16, 132),      # the batch fills the grid alone
+    (4096, 8, 1056, 16, 132),   # far past the target grid
+    (2, 2, 1, 16, 8),           # one token
+])
+def test_decode_splits_from_shapes(batch, kv_heads, span, granule, sms):
+    """At least one split; whole granules covering the span with no empty
+    tail split; no split shorter than the floor unless the span is; as
+    many blocks as the target where the span allows it; one split once
+    the batch alone reaches the target."""
+    from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM,
+                                                     MIN_SPLIT_TOKENS,
+                                                     decode_splits)
+    splits, split_len = decode_splits(batch, kv_heads, span, granule, sms)
+    units = -(-span // granule)
+    assert splits >= 1 and split_len % granule == 0
+    assert splits * split_len >= span > (splits - 1) * split_len
+    assert split_len >= min(MIN_SPLIT_TOKENS, units * granule)
+    target = BLOCKS_PER_SM * sms
+    if batch * kv_heads >= target:
+        assert splits == 1
+    elif split_len > -(-MIN_SPLIT_TOKENS // granule) * granule:
+        # longer than the floor only to keep the grid near the target
+        assert batch * kv_heads * splits >= target * 0.5
