@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               quarter of them spilled to disk under ``build/``.
 4. kernels -- each kernel against its plain PyTorch version at the main
               paths' shapes, with its time, the plain version's, one
-              library call's and the card's bound for the same work.
+              library call's and the card's bound for the same work; the
+              RMSNorm fused with the residual add (``add_rmsnorm``) also
+              with its wrapper's host time per call.
 5. model   -- a reduced llama on the card (kernels) against the same
               weights on the CPU (plain versions): logits and tokens of
               chunked prefill + paged decode, and of one-shot prefill +
@@ -30,13 +32,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Each serving path is driven with the launch counts set to 0 just before its
 16 measured requests and read just after; a kernel the path should run
-that launched no time fails the run.  The line before the last is
+that launched no time fails the run.  Each then profiles one decode step
+of its model and prints its device kernels, fused and with every residual
+add a launch of its own.  The line before the last is
 ``{"kernels": [...]}`` (``launches``: the sum over the three measured
 runs); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -147,6 +153,73 @@ class Timer:
         return us / self.iters / 1e3
 
 
+def host_us(torch, fn, calls: int = 1000, rounds: int = 5) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls with no
+    synchronisation between them (the launch queue absorbs the kernels);
+    the least of ``rounds`` such runs, since other work on a shared host
+    only ever adds time."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / calls * 1e6
+
+
+@functools.lru_cache(maxsize=None)
+def _triton_add_rmsnorm():
+    """A Triton kernel of the fused norm (yardstick only), or None."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    try:
+        import triton
+        import triton.language as tl
+    except ImportError:
+        return None
+
+    @triton.jit
+    def add_rmsnorm_kernel(x_ptr, r_ptr, w_ptr, s_ptr, y_ptr, d, eps,
+                           BLOCK: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        offs = tl.arange(0, BLOCK)
+        live = offs < d
+        a = tl.load(x_ptr + row * d + offs, mask=live, other=0.0)
+        b = tl.load(r_ptr + row * d + offs, mask=live, other=0.0)
+        s = (a.to(tl.float32) + b.to(tl.float32)).to(s_ptr.dtype.element_ty)
+        tl.store(s_ptr + row * d + offs, s, mask=live)
+        sf = s.to(tl.float32)
+        var = tl.sum(sf * sf, axis=0) / d
+        wf = tl.load(w_ptr + offs, mask=live, other=0.0).to(tl.float32)
+        tl.store(y_ptr + row * d + offs,
+                 (sf * tl.rsqrt(var + eps) * wf).to(y_ptr.dtype.element_ty),
+                 mask=live)
+
+    return triton, add_rmsnorm_kernel
+
+
+def triton_add_rmsnorm_us(torch, x, r, w):
+    """Host microseconds per call of a Triton launch of the same fused
+    norm, wrapper and output allocation included: the yardstick for the
+    port's ctypes launch.  The port runs no Triton; None without it."""
+    built = _triton_add_rmsnorm()
+    if built is None:
+        return None
+    triton, kernel = built
+    d = x.shape[-1]
+    block = triton.next_power_of_2(d)
+
+    def call():
+        s, y = torch.empty_like(x), torch.empty_like(x)
+        kernel[(x.shape[0],)](x, r, w, s, y, d, 1e-5, BLOCK=block,
+                              num_warps=min(16, max(1, block // 256)))
+        return s, y
+
+    return host_us(torch, call)
+
+
 def bound_ms(nbytes: float, ops: float, peak: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
@@ -210,7 +283,10 @@ def phase_device(torch):
 # the redesigned kernels' variants on the main paths (demangled names)
 REDESIGNED = ("flash_wgmma_kernel<128,",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
-              "decode_combine_kernel<__nv_bfloat16>")
+              "decode_combine_kernel<__nv_bfloat16>",
+              "topk_stream_kernel",
+              "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, true, 8>",
+              "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, false, 8>")
 
 
 def ptxas_entries(log_text: str):
@@ -237,15 +313,16 @@ def ptxas_entries(log_text: str):
 
 
 def phase_build(torch):
-    from repro_torch.kernels import _build, rmsnorm
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.decode_attention import DENSE_GRANULE
     t0 = time.perf_counter()
     libs = _build.build()
     t_nvcc = time.perf_counter() - t0
-    rmsnorm._kernel()                    # imports triton (compiles at launch)
     for name, path in libs.items():
+        if name == "rmsnorm":           # one line per variant: see below
+            continue
         for line in (path.parent / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -253,7 +330,8 @@ def phase_build(torch):
         f"in {path.parent.relative_to(ROOT)}")
     # the redesigned kernels: registers and spills, and their launch shapes
     # at the main paths' sizes
-    for name in ("flash_attention", "paged_attention", "decode_attention"):
+    for name in ("flash_attention", "paged_attention", "decode_attention",
+                 "topk_retrieval", "rmsnorm"):
         text = (libs[name].parent / f"{name}.log").read_text()
         for kern, regs, spill in ptxas_entries(text):
             if any(k in kern for k in REDESIGNED):
@@ -436,6 +514,50 @@ def phase_kernels(torch, timer, store, queries):
                    timer(lambda: ops.rmsnorm(x, w, 1e-5, impl="ref")),
                    timer(lambda: F.rms_norm(x, (4096,), w, 1e-5)),
                    bound_ms(nbytes, 4 * x.numel(), PEAK_FP32))
+
+    # ---- add_rmsnorm: the residual add fused into the norm (64 of a
+    # forward's 65 norms); its kernel is the rmsnorm entry's main-path case
+    q_host = torch.from_numpy(queries[:SLOTS]).cuda()
+    db_host = q_host[:3].clone()         # a 3-row database: host cost only
+    topk_us = host_us(torch, lambda: ops.retrieval_topk(q_host, db_host,
+                                                        TOP_K))
+    for t, dt in ((SLOTS, torch.bfloat16), (CHUNK, torch.bfloat16),
+                  (SLOTS, torch.float32), (CHUNK, torch.float32)):
+        x = torch.randn((t, 4096), generator=gen, device="cuda").to(dt)
+        res = torch.randn((t, 4096), generator=gen, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn((4096,), generator=gen,
+                                   device="cuda")).to(dt)
+        got_s, got = ops.add_rmsnorm(x, res, w, 1e-5)
+        if not torch.equal(got_s, x + res):
+            fail(f"add_rmsnorm ({t}, 4096) {dt}: s differs from x + r")
+        want = ops.rmsnorm(got_s, w, 1e-5, impl="ref")
+        if dt == torch.float32:
+            err = check_close("add_rmsnorm", got, want, atol=RMSNORM_FP32_TOL)
+        else:
+            err = check_close("add_rmsnorm", got, want, atol=BF16_ATOL,
+                              rtol=BF16_RTOL)
+        # read x, r and w once, write s and y once.  A decode step's 8 rows
+        # are launch-bound and just written (timed warm, as the plain norm
+        # is); a prefill chunk's 256 rows are byte-bound (timed cold)
+        nbytes = 4 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        cold = t == CHUNK
+        case = f"({t}, 4096) {str(dt)[6:]}{', L2 flushed' if cold else ''}"
+        r = report("rmsnorm", f"add_rmsnorm {case}", err,
+                   timer(lambda: ops.add_rmsnorm(x, res, w, 1e-5), cold=cold),
+                   timer(lambda: ops.add_rmsnorm(x, res, w, 1e-5,
+                                                 impl="ref"), cold=cold),
+                   timer(lambda: F.rms_norm(x + res, (4096,), w, 1e-5),
+                         cold=cold),
+                   bound_ms(nbytes, 5 * x.numel(), PEAK_FP32))
+        fused_us = host_us(torch, lambda: ops.add_rmsnorm(x, res, w, 1e-5))
+        plain_us = host_us(torch, lambda: ops.rmsnorm(x, w, 1e-5))
+        tri = triton_add_rmsnorm_us(torch, x, res, w)
+        log(f"[kernel] host us per call (least of 5 x 1000 calls, no "
+            f"sync) at {case}: "
+            f"add_rmsnorm {fused_us:.2f}, rmsnorm {plain_us:.2f}, "
+            f"retrieval_topk {topk_us:.2f} (ctypes launches); a Triton "
+            f"launch of the same fused norm (yardstick) "
+            f"{'not measured' if tri is None else f'{tri:.2f}'}")
         if t == SLOTS and dt == torch.bfloat16:
             rows["rmsnorm"] = r
 
@@ -484,17 +606,25 @@ def phase_kernels(torch, timer, store, queries):
             rows["paged_decode_attention"] = r
 
     # ---- retrieval top-k: 8 queries against one partition, k = 5
+    from repro_torch.kernels.topk_retrieval import launch_shape
     resident = sorted((len(p.doc_ids), pid)
                       for pid, p in store.partitions.items() if p.resident)
     pid = resident[len(resident) // 2][1]       # the median-sized partition
     part = torch.from_numpy(store.partitions[pid].embeddings).cuda()
     q8 = torch.from_numpy(queries[:SLOTS]).cuda()
     rng_db = torch.randn((1037, 768), generator=gen, device="cuda")
+    shp = launch_shape(SLOTS, part.shape[0], CORPUS_DIM)
+    log(f"[kernel] topk_stream_kernel ({SLOTS} x {CORPUS_DIM} against "
+        f"{part.shape[0]} rows): grid ({shp['blocks']}, "
+        f"{shp['query_tiles']}) x {shp['threads']} threads over tiles of "
+        f"{shp['rows']} rows, one launch")
+    topk_rows = {}
     for case, db, k in ((f"partition {pid} ({part.shape[0]} rows)", part,
                          TOP_K),
                         ("ragged 1037 rows", rng_db, TOP_K),
                         ("3 rows, k=5 > N", rng_db[:3], TOP_K),
-                        ("ragged 1037 rows, k=64", rng_db, 64)):
+                        ("ragged 1037 rows, k=64", rng_db, 64),
+                        (f"partition {pid}, k=64", part, 64)):
         got_s, got_i = ops.retrieval_topk(q8, db, k)
         want_s, want_i = ops.retrieval_topk(q8, db, k, impl="ref")
         err = check_topk(f"topk {case}", got_s, got_i, want_s, want_i)
@@ -509,8 +639,13 @@ def phase_kernels(torch, timer, store, queries):
                    timer(lambda: torch.topk(q8 @ db.T, min(k, n), dim=-1),
                          cold=True),
                    bound_ms(nbytes, 2 * q8.shape[0] * n * 768, PEAK_FP32))
-        if db is part:
+        topk_rows[case] = r
+        if db is part and k == TOP_K:
             rows["retrieval_topk"] = r
+    r = topk_rows["ragged 1037 rows, k=64"]
+    log(f"[kernel] retrieval_topk ragged 1037 rows, k=64: kernel "
+        f"{r['ms']:.4f} ms, torch.topk(q8 @ db.T, 64) {r['library_ms']:.4f} "
+        f"ms: {r['ms'] / r['library_ms']:.2f}x the library call")
     del part
 
     # ---- merge: (8, 64, 5) boards under a probe mask, two rows unprobed
@@ -856,6 +991,53 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
                                                  for r in reqs})
 
 
+def decode_step_kernels(torch, tag, model, params, cache, block_tab=None,
+                        span=None) -> None:
+    """Profiles one decode step of ``SLOTS`` slots at position ``CTX`` and
+    prints its device kernels (copies and memsets left out), then the same
+    step with every residual add a launch of its own; fails unless fusing
+    the adds into the norms saved at least one launch per fused norm."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers
+    cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((SLOTS,), CTX, dtype=torch.int32, device="cuda")
+
+    def count() -> int:
+        """The median kernel count of three profiled steps: one trace can
+        read a few kernels off."""
+        model.decode(params, cur, cache, pos, block_tab, kv_span=span)
+        torch.cuda.synchronize()
+        counts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model.decode(params, cur, cache, pos, block_tab, kv_span=span)
+                torch.cuda.synchronize()
+            names = [name for name, _, _ in _kernel_records(prof, torch)]
+            counts.append(sum(1 for name in names
+                              if not name.startswith(("Memcpy", "Memset"))))
+        return sorted(counts)[1]
+
+    fused = count()
+    add_rms_norm = layers.add_rms_norm
+
+    def unfused(x, r, w, eps):
+        s = x + r
+        return s, layers.rms_norm(s, w, eps)
+
+    layers.add_rms_norm = unfused
+    try:
+        apart = count()
+    finally:
+        layers.add_rms_norm = add_rms_norm
+    saved = 2 * model.cfg.num_layers      # every norm but layer 0's norm1
+    log(f"[{tag}] one decode step ({SLOTS} slots): {fused} device kernels; "
+        f"{apart} with each residual add a launch of its own: "
+        f"{apart - fused} fewer")
+    if apart - fused < saved:
+        fail(f"[{tag}] fusing the residual adds saved {apart - fused} "
+             f"launches a decode step, want at least {saved}")
+
+
 class QueryEmbedder:
     """Maps request text ``q<i>`` to the i-th perturbed corpus query."""
 
@@ -882,9 +1064,12 @@ def phase_serve(torch, cfg, params, store, queries, exact, smi: str):
                         BacklogScheduler(max_batch=SLOTS),
                         initial_partitions=PARTITIONS - SPILLED,
                         device="cuda")
-    return serve_path(torch, eng, "serve", CONTINUOUS_KERNELS, exact, smi,
-                      cfg.vocab_size, stats=eng.retrieval_stats,
-                      step_hist=eng.registry.histogram("decode.step_seconds"))
+    out = serve_path(torch, eng, "serve", CONTINUOUS_KERNELS, exact, smi,
+                     cfg.vocab_size, stats=eng.retrieval_stats,
+                     step_hist=eng.registry.histogram("decode.step_seconds"))
+    decode_step_kernels(torch, "serve", gen.model, params, gen.cache,
+                        gen.kv.device_tab(), gen._total)
+    return out
 
 
 def phase_serve_batch(torch, cfg, params, store, queries, exact, smi: str,
@@ -892,6 +1077,7 @@ def phase_serve_batch(torch, cfg, params, store, queries, exact, smi: str,
     """The whole-batch path: a Generator (one-shot prefill, dense cache)
     behind RagdollEngine, then behind SerialRAGEngine."""
     from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.models.model import init_cache
     from repro_torch.serving import (Generator, GeneratorConfig,
                                      RagdollEngine, SerialRAGEngine)
     g = GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
@@ -914,6 +1100,9 @@ def phase_serve_batch(torch, cfg, params, store, queries, exact, smi: str,
         results[tag] = serve_path(torch, eng, tag, WHOLE_BATCH_KERNELS,
                                   exact, smi, cfg.vocab_size, stats=stats,
                                   layers=cfg.num_layers)
+        cache = init_cache(cfg, SLOTS, CTX + MAX_NEW, torch.bfloat16, "cuda")
+        decode_step_kernels(torch, tag, gen.model, params, cache)
+        del cache
     ratio = results["serve-serial"]["p50"] / results["serve-batch"]["p50"]
     log(f"[serve-serial] p50 serial / ragdoll (whole-batch) = {ratio:.3f} "
         f"({smi})")
@@ -932,7 +1121,7 @@ CATEGORIES = (
     ("dense decode attention", ("dense_decode_",)),
     ("flash attention (prefill)", ("flash_wgmma_kernel", "flash_fp32_kernel")),
     ("rmsnorm", ("rmsnorm_kernel",)),
-    ("retrieval top-k and merge", ("topk_chunk_kernel", "merge_kernel")),
+    ("retrieval top-k and merge", ("topk_stream_kernel", "merge_kernel")),
     ("matmul (projections, MLP, lm_head)",
      ("gemm", "xmma", "nvjet", "cutlass")),
     ("copy host to device", ("Memcpy HtoD",)),
@@ -983,7 +1172,7 @@ def _leaves(tree):
 
 
 SOURCES = {
-    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+    "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:22"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:88"),

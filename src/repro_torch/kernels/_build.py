@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "decode_attention", "flash_attention",
-           "topk_retrieval")
+           "topk_retrieval", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +97,13 @@ def aligned16(t):
     16-byte copies and TMA loads need (a copy only when it is not)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def current_stream(device) -> int:
+    """The raw handle of the current CUDA stream on ``device``; cheaper on
+    the host than ``torch.cuda.current_stream(device).cuda_stream``."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -107,7 +107,7 @@ def flash_attention_cuda(
         b, sq, sk, h, kvh, d, 0 if per_row else int(q_offset), float(scale),
         int(causal), 0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention")
     flash_attention_cuda.launches += 1
     return out

@@ -33,7 +33,7 @@ NEG_INF = ref.NEG_INF
 
 # every Hopper kernel wrapper, by name; each carries a ``launches`` count
 KERNELS = {
-    "rmsnorm": rn.rmsnorm_triton,
+    "rmsnorm": rn.rmsnorm_cuda,          # both forms count here
     "flash_attention": fa.flash_attention_cuda,
     "decode_attention": da.decode_attention_cuda,
     "paged_decode_attention": pa.paged_decode_attention_cuda,
@@ -180,5 +180,15 @@ def retrieval_topk_merge(
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             *, impl: Optional[str] = None) -> torch.Tensor:
     if _use_kernel(x, impl):
-        return rn.rmsnorm_triton(x, w, eps)
+        return rn.rmsnorm_cuda(x, w, eps)
     return rn.rmsnorm_plain(x, w, eps)
+
+
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6, *, impl: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add fused into the norm after it: returns ``(s, y)``
+    with ``s = x + r`` in x's dtype and ``y = rmsnorm(s, w, eps)``."""
+    if _use_kernel(x, impl):
+        return rn.add_rmsnorm_cuda(x, r, w, eps)
+    return rn.add_rmsnorm_plain(x, r, w, eps)

@@ -167,7 +167,7 @@ def paged_decode_attention_cuda(
         0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), splits, split_len,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.current_stream(q.device))
     _build.check(lib, err, "paged_decode_attention")
     paged_decode_attention_cuda.launches += 1
     return out

@@ -31,6 +31,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return ops.rmsnorm(x, w, eps)
 
 
+def add_rms_norm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
+                 eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x + r, rms_norm(x + r))``: a residual add and the norm after it."""
+    return ops.add_rmsnorm(x, r, w, eps)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x

@@ -6,11 +6,14 @@ repeats axis and scanned; PyTorch runs eagerly, so the stack is a Python
 loop).  Three entry points share them: ``prefill`` (whole prompts into a
 dense cache), ``decode_step`` (one token per slot at per-slot positions,
 dense or paged) and ``chunk_prefill_step`` (one prompt chunk at per-slot
-offsets, paged).  All write the caches in place.
+offsets, paged).  All write the caches in place.  Each residual add is
+fused into the norm that follows it (``layers.add_rms_norm``): a layer
+hands its MLP output on, pending, to the next layer's first norm or the
+final norm.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,28 +58,45 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     return p
 
 
-def apply_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                kind: LayerKind, *, mode: str, cache: dict,
+def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
+                cfg: ModelConfig, kind: LayerKind, *, mode: str, cache: dict,
                 pos: Optional[torch.Tensor],
                 block_tab: Optional[torch.Tensor],
-                kv_span: Optional[int]) -> torch.Tensor:
+                kv_span: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer on the residual stream ``x`` with the previous layer's
+    output ``delta`` still to add (None before the first layer).  Each
+    residual add rides in the norm after it (``add_rms_norm``), so the
+    layer returns its stream and its own MLP output, pending."""
     mixer, _ = kind
-    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + attention.attention_forward(
+    if delta is None:
+        h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    else:
+        x, h = layers.add_rms_norm(x, delta, p["norm1"], cfg.norm_eps)
+    a = attention.attention_forward(
         p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
         block_tab=block_tab, kv_span=kv_span)
-    h2 = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + layers.apply_mlp(p["ffn"], h2, cfg.mlp_kind)
+    x, h2 = layers.add_rms_norm(x, a, p["norm2"], cfg.norm_eps)
+    return x, layers.apply_mlp(p["ffn"], h2, cfg.mlp_kind)
 
 
 def _run_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                caches: List[dict], pos: Optional[torch.Tensor],
                block_tab: Optional[torch.Tensor], kv_span: Optional[int]
-               ) -> torch.Tensor:
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers over ``x``; returns the stream and the last layer's
+    pending output, which the final norm adds."""
+    delta = None
     for lp, kind, cache in zip(p["blocks"], cfg.layer_kinds(), caches):
-        x = apply_layer(lp, x, cfg, kind, mode=mode, cache=cache, pos=pos,
-                        block_tab=block_tab, kv_span=kv_span)
-    return x
+        x, delta = apply_layer(lp, x, delta, cfg, kind, mode=mode,
+                               cache=cache, pos=pos, block_tab=block_tab,
+                               kv_span=kv_span)
+    return x, delta
+
+
+def _final_norm(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                delta: torch.Tensor) -> torch.Tensor:
+    """The last layer's pending output added in the final norm."""
+    return layers.add_rms_norm(x, delta, p["final_norm"], cfg.norm_eps)[1]
 
 
 def _embed_inputs(p: Params, cfg: ModelConfig,
@@ -102,9 +122,9 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
     ``(B, S_cache, KV, hd)`` cache, in place.  Returns the last-position
     logits (B, V)."""
     x = _embed_inputs(p, cfg, inputs)
-    x = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
-                   pos=None, block_tab=None, kv_span=None)
-    x = layers.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    x, delta = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
+                          pos=None, block_tab=None, kv_span=None)
+    x = _final_norm(p, cfg, x[:, -1:], delta[:, -1:])
     return unembed(p, cfg, x)[:, 0]
 
 
@@ -117,9 +137,9 @@ def decode_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
     written through ``block_tab`` (B, nmax) with a ``kv_span``-token
     view.  Writes ``cache`` in place; returns logits (B, V)."""
     x = _embed_inputs(p, cfg, inputs)
-    x = _run_stack(p, cfg, x, mode="decode", caches=cache["blocks"],
-                   pos=pos, block_tab=block_tab, kv_span=kv_span)
-    x = layers.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x, delta = _run_stack(p, cfg, x, mode="decode", caches=cache["blocks"],
+                          pos=pos, block_tab=block_tab, kv_span=kv_span)
+    x = _final_norm(p, cfg, x, delta)
     return unembed(p, cfg, x)[:, 0]
 
 
@@ -132,7 +152,7 @@ def chunk_prefill_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
     spans the cache written so far, viewed ``kv_span`` tokens wide.
     Returns the chunk's last-position logits (B, V)."""
     x = _embed_inputs(p, cfg, inputs)
-    x = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
-                   pos=offset, block_tab=block_tab, kv_span=kv_span)
-    x = layers.rms_norm(x[:, -1:], p["final_norm"], cfg.norm_eps)
+    x, delta = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
+                          pos=offset, block_tab=block_tab, kv_span=kv_span)
+    x = _final_norm(p, cfg, x[:, -1:], delta[:, -1:])
     return unembed(p, cfg, x)[:, 0]

@@ -333,3 +333,145 @@ def test_flash_attention_large_tiles_on_card(cuda_device, d, per_row,
     err = np.abs(_np(got.float()) - _np(want.float()))
     assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
         float(err.max())
+
+
+# ------------------------------------------------------ streaming top-k
+TOPK_SCORE_TOL = 1e-4       # fp32 dot products of unit vectors
+TIE_GAP = 1e-5              # ids must match where neighbours differ by more
+
+
+def _unit_rows(seed, n, d):
+    x = np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _check_topk(got, want, n, k):
+    """Scores to 1e-4; ids equal wherever the plain version's neighbours
+    are more than 1e-5 apart; among the kernel's equal scores lower rows
+    first; a (-1e30, -1) tail past n."""
+    (gs, gi), (ws, wi) = [(_np(s), _np(i)) for s, i in (got, want)]
+    assert gs.shape == gi.shape == ws.shape
+    np.testing.assert_allclose(gs, ws, atol=TOPK_SCORE_TOL)
+    w64 = ws.astype(np.float64)
+    close = np.abs(np.diff(w64, axis=1)) <= TIE_GAP
+    sep = np.ones(w64.shape, bool)
+    sep[:, 1:] &= ~close
+    sep[:, :-1] &= ~close
+    assert ((gi == wi) | ~sep).all()
+    tie = (gi[:, 1:] >= 0) & (gi[:, :-1] >= 0) & (gs[:, 1:] == gs[:, :-1])
+    assert (~tie | (gi[:, 1:] > gi[:, :-1])).all()
+    if n < k:
+        assert (gi[:, n:] == -1).all() and (gs[:, n:] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 768])
+@pytest.mark.parametrize("k", [1, 5, 64])
+@pytest.mark.parametrize("n", [3, 127, 1037, 15580])
+@pytest.mark.parametrize("q", [1, 8, 9, 33])
+def test_topk_stream_on_card(cuda_device, q, n, k, d):
+    """Q against the 8-query tile, N against the 32-row tiles and the
+    grid (15580 rows: 128 blocks of 3-4 tiles), k against the two list
+    registers, D = 768 at one bulk copy per tile."""
+    db = _t(_unit_rows(n * 7 + d, n, d)).to(cuda_device)
+    qs = _t(_unit_rows(q + 1, q, d)).to(cuda_device)
+    before = ops.launch_counts()["retrieval_topk"]
+    got = ops.retrieval_topk(qs, db, k)
+    want = ops.retrieval_topk(qs, db, k, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["retrieval_topk"] == before + 1
+    _check_topk(got, want, n, k)
+    again = ops.retrieval_topk(qs, db, k)       # the tickets were left at 0
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [66, 1000, 1001])
+def test_topk_other_widths_on_card(cuda_device, d):
+    """Widths off the float4 grid (the wrapper pads them) and past the
+    main path's 768; fp32 scores and ids as the plain version."""
+    db = _t(_unit_rows(5, 3000, d)).to(cuda_device)
+    qs = _t(_unit_rows(6, 9, d)).to(cuda_device)
+    _check_topk(ops.retrieval_topk(qs, db, 5),
+                ops.retrieval_topk(qs, db, 5, impl="ref"), 3000, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_topk_exact_ties_on_card(cuda_device, k):
+    """Seven copies of one row in different tiles and blocks of a 15580-row
+    partition, and queries 0 and 8 (two query tiles) equal to it: equal
+    bits for every copy, the lowest rows first."""
+    n, d = 15580, 768
+    db = _unit_rows(3, n, d)
+    copies = np.array([3, 40, 41, 1000, 7777, 12000, 15579])
+    db[copies] = db[copies[0]]
+    qs = _unit_rows(4, 9, d)
+    qs[0] = qs[8] = db[copies[0]]
+    db, qs = _t(db).to(cuda_device), _t(qs).to(cuda_device)
+    got = ops.retrieval_topk(qs, db, k)
+    _check_topk(got, ops.retrieval_topk(qs, db, k, impl="ref"), n, k)
+    s, i = _np(got[0]), _np(got[1])
+    top = min(k, len(copies))
+    for row in (0, 8):
+        np.testing.assert_array_equal(i[row, :top], copies[:top])
+        assert (s[row, :top] == s[row, 0]).all()
+
+
+# ------------------------------------------------------------ RMSNorm
+def _norm_inputs(dev, dtype, rows, d, seed=21):
+    rng = np.random.default_rng(seed)
+    x, r = (_t(rng.normal(size=(rows, d)).astype(np.float32)).to(dev, dtype)
+            for _ in range(2))
+    w = _t((1 + 0.1 * rng.normal(size=(d,))).astype(np.float32))
+    return x, r, w.to(dev, dtype)
+
+
+def _assert_norm_close(got, want, dtype):
+    """fp32 to 1e-5; bf16 to about one bf16 ulp twice (rsqrt and the sum
+    order move the fp32 value before it rounds)."""
+    got, want = got.double(), want.double()
+    tol = (1e-5 if dtype == torch.float32
+           else 1e-5 + 1.6e-2 * want.abs())
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_on_card(cuda_device, dtype, rows):
+    """One launch; s bit-equal to the eager x + r on the card; y within
+    the rmsnorm tolerance of the plain norm of s."""
+    x, r, w = _norm_inputs(cuda_device, dtype, rows, 4096)
+    before = ops.launch_counts()["rmsnorm"]
+    s, y = ops.add_rmsnorm(x, r, w, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert s.dtype == y.dtype == dtype and s.shape == y.shape == x.shape
+    assert torch.equal(s, x + r)
+    _assert_norm_close(y, ops.rmsnorm(s, w, 1e-5, impl="ref"), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype,wdtype,d", [
+    (torch.bfloat16, torch.bfloat16, 64),     # the reduced model's width
+    (torch.float32, torch.float32, 64),
+    (torch.bfloat16, torch.float32, 4096),    # fp32 weight, bf16 rows
+    (torch.float16, torch.float16, 4096),
+    (torch.float32, torch.float32, 100),      # not a whole vector: scalar
+    (torch.bfloat16, torch.bfloat16, 100)])
+def test_rmsnorm_forms_on_card(cuda_device, fused, dtype, wdtype, d):
+    """Both forms at every compiled (dtype, weight dtype, vector) variant,
+    on a (2, 3, d) input."""
+    x, r, w = _norm_inputs(cuda_device, dtype, 6, d, seed=d)
+    x, r, w = x.reshape(2, 3, d), r.reshape(2, 3, d), w.to(wdtype)
+    if fused:
+        s, y = ops.add_rmsnorm(x, r, w, 1e-6)
+        assert torch.equal(s, x + r)
+    else:
+        s, y = x, ops.rmsnorm(x, w, 1e-6)
+    assert y.shape == x.shape
+    _assert_norm_close(y.float(), ops.rmsnorm(s, w, 1e-6, impl="ref").float(),
+                       torch.float32 if dtype == torch.float32 else dtype)

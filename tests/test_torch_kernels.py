@@ -48,6 +48,34 @@ def test_rmsnorm_matches_jax(shape):
     np.testing.assert_allclose(_np(got), _np(want_ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(4, 64), (2, 7, 96)])
+def test_add_rmsnorm_matches_jax(shape):
+    """The fused form's plain version against ``x + r`` then the Pallas
+    kernel (interpret mode) and the JAX oracle: s exactly, y to 1e-5."""
+    rng = np.random.default_rng(3)
+    x, r = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    w = rng.normal(size=shape[-1:]).astype(np.float32)
+    s_jax = jnp.asarray(x) + jnp.asarray(r)
+    want_pallas = rmsnorm_pallas(s_jax, jnp.asarray(w), 1e-5, interpret=True)
+    want_ref = jref.rmsnorm_reference(s_jax, jnp.asarray(w), 1e-5)
+    s, y = ops.add_rmsnorm(_t(x), _t(r), _t(w), 1e-5)
+    np.testing.assert_array_equal(_np(s), np.asarray(s_jax))
+    np.testing.assert_allclose(_np(y), _np(want_pallas), atol=1e-5)
+    np.testing.assert_allclose(_np(y), _np(want_ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_plain_is_add_then_norm(dtype):
+    """On the CPU the fused op is exactly the eager add and the plain norm."""
+    g = torch.Generator().manual_seed(5)
+    x, r = (torch.randn((3, 5, 64), generator=g).to(dtype) for _ in range(2))
+    w = torch.randn((64,), generator=g).to(dtype)
+    s, y = ops.add_rmsnorm(x, r, w, 1e-6)
+    assert s.dtype == y.dtype == dtype
+    assert torch.equal(s, x + r)
+    assert torch.equal(y, ops.rmsnorm(x + r, w, 1e-6))
+
+
 # ------------------------------------------------------ paged decode attn
 def _paged_inputs(quant: bool):
     """B=3, H=4, KV=2, D=16, page 8, nmax 5, ragged kv_len."""
@@ -179,15 +207,15 @@ def test_topk_merge_matches_jax_with_fully_masked_rows():
 
 # ---------------------------------------------------------- no fallback
 def test_kernel_route_raises_instead_of_falling_back(monkeypatch, tmp_path):
-    """A tensor on a device without a kernel raises; the Triton route
-    raises without Triton; the CUDA route raises without nvcc."""
+    """A tensor on a device without a kernel raises; a kernel wrapper
+    raises on CPU tensors; the CUDA route raises without nvcc."""
     x = torch.empty((2, 8), device="meta")
     with pytest.raises(ValueError):
         ops.rmsnorm(x, torch.empty((8,), device="meta"))
     if torch.cuda.is_available():
         return
     with pytest.raises((ValueError, ImportError)):
-        trn.rmsnorm_triton(torch.ones(2, 8), torch.ones(8))
+        trn.rmsnorm_cuda(torch.ones(2, 8), torch.ones(8))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "kernels")
