@@ -29,13 +29,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
               then behind ``SerialRAGEngine`` (the paper's serial baseline,
               as ``launch/serve.py --serial`` runs it): the same 16
               requests and checks.
+8. serve-swap -- memory pressure: the same weights and 16 requests (the
+              last 4 priority 1) through an int8-paged, chunk-prefilled
+              ``ContinuousGenerator`` whose page budget is the device bytes
+              of two worst-case bf16 requests, with a host pool for every
+              slot and overlapped swaps, behind ``RagdollEngine(
+              partial_swap=True)`` pumped single-threaded; at least one
+              swap, every swap back in, nothing left parked, and every
+              request's tokens equal to the same int8 generator's with
+              pages for every slot and no host pool.
 
 Each serving path is driven with the launch counts set to 0 just before its
 16 measured requests and read just after; a kernel the path should run
 that launched no time fails the run.  Each then profiles one decode step
 of its model and prints its device kernels, fused and with every residual
 add a launch of its own.  The line before the last is
-``{"kernels": [...]}`` (``launches``: the sum over the three measured
+``{"kernels": [...]}`` (``launches``: the sum over the four measured
 runs); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -81,6 +90,9 @@ CONTINUOUS_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
                       "retrieval_topk_merge", "flash_attention")
 WHOLE_BATCH_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
                        "retrieval_topk", "retrieval_topk_merge")
+SWAP_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
+                "retrieval_topk_merge", "flash_attention")
+SWAP_PRIORITY_REQ = 4       # serve-swap: the last 4 requests are priority 1
 
 
 def log(msg: str) -> None:
@@ -137,9 +149,14 @@ class Timer:
 
         fn()
         torch.cuda.synchronize()
-        per_call = len(device_records(1))
         # a trace that lost records would read as a faster kernel: take
-        # only a trace that holds every launch of every call
+        # only a trace that holds every launch of every call (a one-call
+        # trace that lost them all is taken again too)
+        per_call = 0
+        for _ in range(3):
+            per_call = len(device_records(1))
+            if per_call:
+                break
         for _ in range(3):
             recs = device_records(self.iters)
             if len(recs) >= per_call * self.iters:
@@ -282,6 +299,7 @@ def phase_device(torch):
 
 # the redesigned kernels' variants on the main paths (demangled names)
 REDESIGNED = ("flash_wgmma_kernel<128,",
+              "merge_kernel",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
               "decode_combine_kernel<__nv_bfloat16>",
               "topk_stream_kernel",
@@ -567,6 +585,8 @@ def phase_kernels(torch, timer, store, queries):
              ("fp32 pages", torch.float32, torch.float32, None, None, None),
              ("int8 pages + scales", torch.float32, torch.int8, None, None,
               None),
+             ("int8 pages + scales, bf16 q (serve-swap)", torch.bfloat16,
+              torch.int8, None, None, None),
              ("bf16 window 256 softcap 50", torch.bfloat16, torch.bfloat16,
               256, 50.0, None),
              (f"bf16 pages, kv_len {mixed}", torch.bfloat16, torch.bfloat16,
@@ -648,21 +668,53 @@ def phase_kernels(torch, timer, store, queries):
         f"ms: {r['ms'] / r['library_ms']:.2f}x the library call")
     del part
 
-    # ---- merge: (8, 64, 5) boards under a probe mask, two rows unprobed
-    s = torch.sort(torch.randn((SLOTS, PARTITIONS, TOP_K), generator=gen,
-                               device="cuda"), dim=-1, descending=True).values
-    ids = torch.randint(0, CORPUS_N, (SLOTS, PARTITIONS, TOP_K),
-                        generator=gen, device="cuda", dtype=torch.int32)
-    mask = torch.rand((SLOTS, PARTITIONS), generator=gen,
-                      device="cuda") < 0.25
-    mask[1] = False
-    mask[5] = False
-    mask[5, 7] = True                   # one probed board, short of k ...
-    s[5, 7, 2:] = ops.NEG_INF           # ... with the sentinel tail
-    ids[5, 7, 2:] = -1
+    # ---- merge: (8, 64, 5) boards under a probe mask, two rows unprobed;
+    # both selections (k rounds, the sorted warp list) timed at k = 5 and
+    # k = 64 beside an empty launch, the floor of any launch
+    from repro_torch.kernels import topk_retrieval as tk
+
+    def merge_case(parts, k):
+        s = torch.sort(torch.randn((SLOTS, parts, k), generator=gen,
+                                   device="cuda"), dim=-1,
+                       descending=True).values
+        ids = torch.randint(0, CORPUS_N, (SLOTS, parts, k), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        mask = torch.rand((SLOTS, parts), generator=gen,
+                          device="cuda") < 0.25
+        mask[1] = False
+        mask[5] = False
+        mask[5, min(7, parts - 1)] = True   # one probed board, short of k
+        s[5, min(7, parts - 1), 2:] = ops.NEG_INF   # ... the sentinel tail
+        ids[5, min(7, parts - 1), 2:] = -1
+        return s, ids, mask
+
+    def merge_exact(what, got, want):
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"merge {what}: ids and scores must equal the plain "
+                 "version's exactly")
+
+    for parts, k in ((PARTITIONS, TOP_K), (PARTITIONS, 64), (8, 64),
+                     (32, 16), (16, 32)):
+        s, ids, mask = merge_case(parts, k)
+        want = ops.retrieval_topk_merge(s, ids, mask, k, impl="ref")
+        times = []
+        for rounds in (True, False):
+            if rounds and parts * k > tk.MERGE_ROUNDS_MAX:
+                continue
+            name = "k rounds" if rounds else "warp list"
+            merge_exact(f"({SLOTS}, {parts}, {k}) {name}",
+                        tk._merge_selection(s, ids, mask, k, rounds), want)
+            ms = timer(lambda: tk._merge_selection(s, ids, mask, k, rounds))
+            times.append(f"{name} {ms:.4f}")
+        log(f"[kernel] retrieval_topk_merge ({SLOTS}, {parts}, {k}) "
+            f"selection ms: {', '.join(times)}")
+    # the launch floor: an (almost) empty kernel, a spin of zero cycles
+    empty_ms = timer(lambda: torch.cuda._sleep(0))
+    s, ids, mask = merge_case(PARTITIONS, TOP_K)
     got_s, got_i = ops.retrieval_topk_merge(s, ids, mask, TOP_K)
     want_s, want_i = ops.retrieval_topk_merge(s, ids, mask, TOP_K,
                                               impl="ref")
+    merge_exact("main path case", (got_s, got_i), (want_s, want_i))
     err = check_topk("merge", got_s, got_i, want_s, want_i)
     if not (bool((got_i[1] == -1).all()) and bool((got_i[5, 2:] == -1).all())
             and bool((got_s[1] == ops.NEG_INF).all())):
@@ -681,6 +733,9 @@ def phase_kernels(torch, timer, store, queries):
                                                impl="ref")),
         timer(lib_merge), bound_ms(nbytes, SLOTS * PARTITIONS * TOP_K,
                                    PEAK_FP32))
+    log(f"[kernel] empty launch (torch.cuda._sleep(0)): {empty_ms:.4f} ms "
+        "device time, the floor under the merge's "
+        f"{rows['retrieval_topk_merge']['ms']:.4f} ms")
 
     # ---- flash attention: one-shot prefill (8 x 1024, scalar offset 0)
     # and a prefill chunk (1 x 256 at 768 of a 1024 view, per-row offset)
@@ -885,6 +940,28 @@ def build_weights(torch):
     return cfg, params
 
 
+def check_requests(torch, tag, reqs, exact, vocab) -> None:
+    """Fails unless all ``N_REQ`` requests came back, each with
+    ``MAX_NEW`` tokens and the exact top-5 of the full corpus."""
+    if len(reqs) != N_REQ:
+        fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
+    ex_s, ex_i = exact
+    for r in reqs:
+        toks = r.output.split()
+        if len(toks) != MAX_NEW or not all(
+                0 <= int(t[3:]) < vocab for t in toks):
+            fail(f"[{tag}] request {r.rid}: {len(toks)} tokens, want "
+                 f"{MAX_NEW}")
+        got = torch.tensor([[int(c) for c in r.retrieved]])
+        if got.shape[1] != TOP_K:
+            fail(f"[{tag}] request {r.rid}: {got.shape[1]} chunks, want "
+                 f"{TOP_K}")
+        # exact search (nprobe=None): the ids of the plain full-corpus top-k
+        check_topk(f"[{tag}] request {r.rid} retrieval",
+                   ex_s[r.rid:r.rid + 1].cpu(), got,
+                   ex_s[r.rid:r.rid + 1].cpu(), ex_i[r.rid:r.rid + 1].cpu())
+
+
 def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
                stats=None, step_hist=None, layers=None):
     """Warm up, serve the 16 measured requests with the launch counts set to
@@ -940,7 +1017,9 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             serve(list(range(first, first + PROFILE_REQ)), 600)
             torch.cuda.synchronize()
-        window = time.perf_counter() - t0
+            window = time.perf_counter() - t0   # not the profiler's stop
+        log(f"[profile {tag}] stopping the profiler took "
+            f"{time.perf_counter() - t0 - window:.2f} s more")
     finally:
         eng.stop()
     if errors:
@@ -948,23 +1027,7 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
 
     reqs = sorted((r for r in done if WARMUP_REQ <= r.rid < first),
                   key=lambda r: r.rid)
-    if len(reqs) != N_REQ:
-        fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
-    ex_s, ex_i = exact
-    for r in reqs:
-        toks = r.output.split()
-        if len(toks) != MAX_NEW or not all(
-                0 <= int(t[3:]) < vocab for t in toks):
-            fail(f"[{tag}] request {r.rid}: {len(toks)} tokens, want "
-                 f"{MAX_NEW}")
-        got = torch.tensor([[int(c) for c in r.retrieved]])
-        if got.shape[1] != TOP_K:
-            fail(f"[{tag}] request {r.rid}: {got.shape[1]} chunks, want "
-                 f"{TOP_K}")
-        # exact search (nprobe=None): the ids of the plain full-corpus top-k
-        check_topk(f"[{tag}] request {r.rid} retrieval",
-                   ex_s[r.rid:r.rid + 1].cpu(), got,
-                   ex_s[r.rid:r.rid + 1].cpu(), ex_i[r.rid:r.rid + 1].cpu())
+    check_requests(torch, tag, reqs, exact, vocab)
     missing = [n for n in kernels if counts[n] == 0]
     if missing:
         fail(f"[{tag}] kernels never launched on this path: {missing}")
@@ -1115,6 +1178,132 @@ def phase_serve_batch(torch, cfg, params, store, queries, exact, smi: str,
     return results
 
 
+def _swap_generator(torch, cfg, params, page_budget, host_pages):
+    from repro_torch.serving import ContinuousGenerator, GeneratorConfig
+    return ContinuousGenerator(
+        cfg, params, GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                                     dtype=torch.bfloat16),
+        num_slots=SLOTS, paged=True, page_size=PAGE, prefill_chunk=CHUNK,
+        kv_format="int8", page_budget=page_budget,
+        host_page_budget=host_pages, overlap_swap=True, device="cuda")
+
+
+def _pump(eng, rids):
+    """fig8's deterministic drive: retrieve the batch, then pump the
+    engine single-threaded until every request is done."""
+    from repro_torch.serving import Request
+    reqs = [Request(rid=i, query=f"q{i}", arrival=time.perf_counter(),
+                    top_k=TOP_K, max_new_tokens=MAX_NEW,
+                    priority=int(i >= rids[-1] + 1 - SWAP_PRIORITY_REQ))
+            for i in rids]
+    eng._retrieve_batch(reqs)
+    eng.pipeline.context_queue.put_many(reqs)
+    target = len(eng.completed) + len(reqs)
+    guard = 0
+    while eng.pump_once() < target:
+        guard += 1
+        if guard > 400 * len(reqs):
+            fail("[serve-swap] the pump stalled")
+    return reqs
+
+
+def phase_serve_swap(torch, cfg, params, store, queries, exact, smi: str):
+    """Memory pressure: int8 pages under the device-byte grant of two
+    worst-case bf16 requests, a host pool for every slot, overlapped
+    swaps and partial-swap preemption by the priority scheduler, driven
+    through ``pump_once``; the same int8 generator with pages for every
+    slot and no host pool gives the tokens to match."""
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RagdollEngine, percentile
+    worst = -(-(CTX + MAX_NEW) // PAGE)
+    bf16_page = PAGE * cfg.kv_cache_bytes_per_token(2)
+    int8_page = (PAGE * cfg.kv_cache_bytes_per_token(1)
+                 + cfg.kv_scale_bytes_per_page())
+    budget = (2 * worst * bf16_page) // int8_page
+    rids = list(range(N_REQ))
+    results = {}
+    for label, pages, host in (("no preemption", SLOTS * worst, 0),
+                               ("swap", budget, SLOTS * worst)):
+        gen = _swap_generator(torch, cfg, params, pages, host)
+        eng = RagdollEngine(store, QueryEmbedder(queries), gen,
+                            BacklogScheduler(max_batch=N_REQ),
+                            BacklogScheduler(max_batch=SLOTS),
+                            initial_partitions=PARTITIONS - SPILLED,
+                            partial_swap=True, device="cuda")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = _pump(eng, rids)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            done = sorted(eng.completed, key=lambda r: r.rid)
+            check_requests(torch, f"serve-swap {label}", done, exact,
+                           cfg.vocab_size)
+            kv = gen.kv
+            if gen.parked_slots or kv.outstanding or kv.pool.inflight_pages:
+                fail(f"[serve-swap {label}] left {gen.parked_slots} parked, "
+                     f"{kv.outstanding} copies queued")
+            lat = {c: [r.latency for r in done if r.priority == c]
+                   for c in (0, 1)}
+            log(f"[serve-swap] {label}: {N_REQ}/{N_REQ} requests, "
+                f"{MAX_NEW} tokens and {TOP_K} exact chunks each, in "
+                f"{wall:.3f} s, {N_REQ * MAX_NEW / wall:.1f} output tokens/s;"
+                f" page budget {kv.pool.capacity} int8 pages "
+                f"({kv.page_nbytes(gen.cache)} B each), host pages "
+                f"{kv.host.capacity}; peak device memory "
+                f"{peak / 2 ** 30:.2f} GiB ({smi})")
+            log(f"[serve-swap] {label}: swaps out {gen.swap_outs} in "
+                f"{gen.swap_ins}, swap bytes out {kv.swap_out_bytes} in "
+                f"{kv.swap_in_bytes}, swap_stall_s {kv.swap_stall_s:.4f}, "
+                f"peak_in_flight {gen.peak_in_flight}; latency priority 1 "
+                f"p50 {percentile(lat[1], 50):.3f} s p95 "
+                f"{percentile(lat[1], 95):.3f} s, priority 0 p50 "
+                f"{percentile(lat[0], 50):.3f} s p95 "
+                f"{percentile(lat[0], 95):.3f} s ({smi})")
+            results[label] = dict(counts=counts, outputs={
+                r.rid: r.output for r in done})
+            if label == "swap":
+                if not gen.swap_outs >= 1 or gen.swap_ins != gen.swap_outs:
+                    fail(f"[serve-swap] swaps out {gen.swap_outs} in "
+                         f"{gen.swap_ins}: want at least one, all back in")
+                missing = [n for n in SWAP_KERNELS if counts[n] == 0]
+                if missing:
+                    fail(f"[serve-swap] kernels never launched on this "
+                         f"path: {missing}")
+                log(f"[serve-swap] launches on this path: "
+                    f"{json.dumps(counts)}")
+                # where the device time goes: a further batch, profiled
+                from torch.profiler import ProfilerActivity, profile
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    _pump(eng, list(range(N_REQ, N_REQ + PROFILE_REQ)))
+                    torch.cuda.synchronize()
+                    window = time.perf_counter() - t0
+                log(f"[profile serve-swap] stopping the profiler took "
+                    f"{time.perf_counter() - t0 - window:.2f} s more")
+                breakdown("serve-swap", _kernel_records(prof, torch),
+                          window, smi)
+                decode_step_kernels(torch, "serve-swap", gen.model, params,
+                                    gen.cache, gen.kv.device_tab(),
+                                    gen._total)
+        finally:
+            eng.streamer.close()
+        del gen, eng
+    if results["swap"]["outputs"] != results["no preemption"]["outputs"]:
+        diff = [rid for rid, out in results["swap"]["outputs"].items()
+                if out != results["no preemption"]["outputs"][rid]]
+        fail(f"[serve-swap] requests {diff} got other tokens with "
+             "preemption than without")
+    log(f"[serve-swap] {N_REQ}/{N_REQ} requests: the same {MAX_NEW} tokens "
+        "with preemption as without")
+    return results["swap"]["counts"]
+
+
 CATEGORIES = (
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
@@ -1202,9 +1391,11 @@ def main() -> int:
         paged = phase_serve(torch, cfg, params, store, queries, exact, smi)
         batch = phase_serve_batch(torch, cfg, params, store, queries, exact,
                                   smi, paged["outputs"])
+        swap = phase_serve_swap(torch, cfg, params, store, queries, exact,
+                                smi)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
-    runs = [paged["counts"]] + [r["counts"] for r in batch.values()]
+    runs = [paged["counts"], swap] + [r["counts"] for r in batch.values()]
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         kernels.append(dict(name=kname, route=route, source=source,

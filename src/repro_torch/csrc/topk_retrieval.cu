@@ -44,11 +44,27 @@
 //     Ties compare global rows, so the order is lax.top_k's whatever the
 //     blocks' order.
 //
-// retrieval_topk_merge -- what bounds it: bytes and launch latency; the
-// (Q, P, k) boards are a few KB.  One warp per query walks the P*k flat
-// entries k times, each round taking the first entry (in the order
-// above) that comes strictly after the previous pick: no sort, no
-// scratch, and masked entries enter as (-1e30, -1).
+// retrieval_topk_merge -- what bounds it: latency.  The (Q, P, k) boards
+// are a few KB (20 KB at the main path's (8, 64, 5)), so the byte bound is
+// nanoseconds and the floor is a launch plus one dependent load.  The TPU
+// kernel fused the boards in one block.  Here one warp takes a query:
+//   * One load round trip.  A lane loads its 16 entries of a 512-entry
+//     chunk of the row at once, as four 16-byte loads each of scores and
+//     ids where the row allows it (else 16 scalar loads), and the warp
+//     stages the chunk's mask bytes in shared memory, one byte a
+//     partition.  Entries stay in registers; a row longer than one chunk
+//     is taken chunk by chunk.
+//   * Selection on registers.  kRounds: k rounds, each a lane's best
+//     entry after the previous pick, then one warp_first (ids ride
+//     along), for rows of one chunk and k <= kRoundsMaxK.  Otherwise the
+//     entries are offered to the sorted WarpList of the streaming top-k
+//     (threshold ballots, a bitonic merge when many enter), and the k
+//     picks' ids are read back at the end (the row is in L1).  Measured
+//     on the H100 (chip_smoke.py) at 8 queries: the rounds are faster at
+//     k = 5, 16 and 32, the list at k = 64.
+//   * Queries spread over blocks of kMergeWarps warps, one SM each.
+// Masked entries enter as (-1e30, -1) at their flat position, so the order
+// is the plain version's exactly.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -59,8 +75,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInf = -1e30f;
 
@@ -75,6 +89,7 @@ constexpr int kMaxK = 64;           // two list entries a lane
 constexpr int kMaxBlocks = 128;     // <= 4 lanes' worth of lists to merge
 constexpr int kScoreStride = kRows + 4;   // conflict-free score transpose
 constexpr int kFewInserts = 4;      // more candidates than this: one merge
+constexpr int kRoundsMaxK = 32;     // merge: k rounds up to this k (else the list)
 
 __device__ __forceinline__ bool before(float sa, int pa, float sb, int pb) {
   return sa > sb || (sa == sb && pa < pb);
@@ -89,31 +104,6 @@ __device__ __forceinline__ void warp_first(float& s, int& p) {
       s = so;
       p = po;
     }
-  }
-}
-
-// One warp: the first k of entries [0, n) in (score desc, position asc)
-// order.  score(i) gives entry i's score.  Calls emit(r, score, pos) for
-// r in [0, k) on lane 0; pos is -1 where fewer than k entries exist.
-template <typename Score, typename Emit>
-__device__ void warp_select(int n, int k, Score score, Emit emit) {
-  const int lane = threadIdx.x & 31;
-  float last_s = INFINITY;
-  int last_p = -1;
-  for (int r = 0; r < k; ++r) {
-    float bs = -INFINITY;
-    int bp = INT_MAX;
-    for (int i = lane; i < n; i += 32) {
-      const float v = score(i);
-      if (before(last_s, last_p, v, i) && before(v, i, bs, bp)) {
-        bs = v;
-        bp = i;
-      }
-    }
-    warp_first(bs, bp);
-    if (lane == 0) emit(r, bs, bp == INT_MAX ? -1 : bp);
-    last_s = bs;
-    last_p = bp;
   }
 }
 
@@ -478,24 +468,140 @@ topk_stream_kernel(const float* __restrict__ q, const float* __restrict__ db,
   if (tid == 0) tickets[blockIdx.y] = 0;      // ready for the next launch
 }
 
-// (Q, M) scores/ids with M = P * k, optional (Q, P) mask -> (Q, k).
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMergeWarps = 2;       // queries a merge block takes
+constexpr int kPerLane = 16;         // entries a lane holds of a chunk
+constexpr int kChunk = 32 * kPerLane;
+constexpr int kMaskBytes = kChunk + 8;   // partitions a chunk can span
+
+__device__ __forceinline__ void warp_first3(float& s, int& p, int& id) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float so = __shfl_xor_sync(kFull, s, off);
+    const int po = __shfl_xor_sync(kFull, p, off);
+    const int io = __shfl_xor_sync(kFull, id, off);
+    if (before(so, po, s, p)) {
+      s = so;
+      p = po;
+      id = io;
+    }
+  }
+}
+
+// (Q, M) scores/ids with M = P * kk, optional (Q, P) mask -> (Q, k).
+// kRounds needs M <= kChunk.
+template <bool kRounds>
+__global__ void __launch_bounds__(kMergeWarps * 32)
 merge_kernel(const float* __restrict__ s, const int32_t* __restrict__ ids,
              const uint8_t* __restrict__ mask, float* __restrict__ out_s,
              int32_t* __restrict__ out_i, int Q, int P, int kk, int k) {
-  const int qi = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  __shared__ uint8_t smask[kMergeWarps][kMaskBytes];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * kMergeWarps + warp;
   if (qi >= Q) return;
   const int M = P * kk;
   const float* row_s = s + static_cast<size_t>(qi) * M;
   const int32_t* row_i = ids + static_cast<size_t>(qi) * M;
   const uint8_t* row_m = mask == nullptr ? nullptr : mask + static_cast<size_t>(qi) * P;
-  auto live = [&](int i) { return row_m == nullptr || row_m[i / kk] != 0; };
-  warp_select(M, k, [&](int i) { return live(i) ? row_s[i] : kNegInf; },
-              [&](int r, float sc, int pos) {
-                out_s[static_cast<size_t>(qi) * k + r] = pos < 0 ? kNegInf : sc;
-                out_i[static_cast<size_t>(qi) * k + r] =
-                    (pos < 0 || !live(pos)) ? -1 : row_i[pos];
-              });
+  const bool vec = M % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(row_s) | reinterpret_cast<uintptr_t>(row_i)) & 15) == 0;
+  float* res_s = out_s + static_cast<size_t>(qi) * k;
+  int32_t* res_i = out_i + static_cast<size_t>(qi) * k;
+
+  WarpList list;
+  list.reset();
+  for (int c0 = 0; c0 < M; c0 += kChunk) {
+    float sc[kPerLane];
+    int id[kPerLane], pos[kPerLane];
+    // entry j of this lane: 16-byte groups g = lane + 32 * (j / 4), or
+    // scalars lane + 32 * j; past M it is (-inf, INT_MAX), after all
+    if (vec) {
+#pragma unroll
+      for (int v = 0; v < kPerLane / 4; ++v) {
+        const int e = c0 + 4 * (lane + 32 * v);
+        float4 a = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+        int4 b = make_int4(-1, -1, -1, -1);
+        if (e < M) {
+          a = __ldg(reinterpret_cast<const float4*>(row_s + e));
+          b = __ldg(reinterpret_cast<const int4*>(row_i + e));
+        }
+        sc[4 * v] = a.x, sc[4 * v + 1] = a.y, sc[4 * v + 2] = a.z, sc[4 * v + 3] = a.w;
+        id[4 * v] = b.x, id[4 * v + 1] = b.y, id[4 * v + 2] = b.z, id[4 * v + 3] = b.w;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) pos[4 * v + t] = e < M ? e + t : INT_MAX;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) {
+        const int e = c0 + lane + 32 * j;
+        sc[j] = e < M ? __ldg(row_s + e) : -INFINITY;
+        id[j] = e < M ? __ldg(row_i + e) : -1;
+        pos[j] = e < M ? e : INT_MAX;
+      }
+    }
+    if (row_m != nullptr) {         // the chunk's partitions' mask bytes
+      const int p_lo = c0 / kk;
+      const int p_n = (min(M, c0 + kChunk) - 1) / kk - p_lo + 1;
+      __syncwarp();                 // the previous chunk's reads are done
+      for (int i = lane; i < p_n; i += 32) smask[warp][i] = __ldg(row_m + p_lo + i);
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j)
+        if (pos[j] != INT_MAX && !smask[warp][pos[j] / kk - p_lo]) {
+          sc[j] = kNegInf;
+          id[j] = -1;
+        }
+    }
+    if constexpr (kRounds) {
+      // k rounds: each lane's best entry after the last pick, then the
+      // warp's; lane r % 32 keeps round r's pick
+      float ls = INFINITY, o0s = kNegInf, o1s = kNegInf;
+      int lp = -1, o0i = -1, o1i = -1;
+      for (int r = 0; r < k; ++r) {
+        float bs = -INFINITY;
+        int bp = INT_MAX, bi = -1;
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j)
+          if (before(ls, lp, sc[j], pos[j]) && before(sc[j], pos[j], bs, bp)) {
+            bs = sc[j];
+            bp = pos[j];
+            bi = id[j];
+          }
+        warp_first3(bs, bp, bi);
+        if (lane == (r & 31)) {
+          const float fs = bp == INT_MAX ? kNegInf : bs;
+          const int fi = bp == INT_MAX ? -1 : bi;
+          if (r < 32) o0s = fs, o0i = fi;
+          else o1s = fs, o1i = fi;
+        }
+        ls = bs;
+        lp = bp;
+      }
+      if (lane < k) res_s[lane] = o0s, res_i[lane] = o0i;
+      if (lane + 32 < k) res_s[lane + 32] = o1s, res_i[lane + 32] = o1i;
+      return;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j)
+        list.offer(sc[j], pos[j], pos[j] != INT_MAX, lane, k);
+    }
+  }
+  if constexpr (!kRounds) {
+    // the picks' ids: the entry's own, or -1 past M or under the mask
+    const float ss[2] = {list.s0, list.s1};
+    const int rr[2] = {list.r0, list.r1};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = lane + 32 * h;
+      if (i < k) {
+        const int p = rr[h];
+        const bool none = p == INT_MAX;
+        const bool masked = !none && row_m != nullptr && !__ldg(row_m + p / kk);
+        res_s[i] = none ? kNegInf : ss[h];
+        res_i[i] = none || masked ? -1 : __ldg(row_i + p);
+      }
+    }
+  }
 }
 
 int sm_count() {
@@ -546,14 +652,22 @@ extern "C" int retrieval_topk(const void* queries, const void* database, void* p
   return cudaGetLastError();
 }
 
+// The merge's selection for a row of M = P * k entries: 1 = k rounds over
+// registers, 2 = the sorted warp list.
+static int merge_variant(int M, int k) { return M <= kChunk && k <= kRoundsMaxK ? 1 : 2; }
+
 // part_scores (Q, P, k) fp32, part_ids (Q, P, k) int32, mask (Q, P) uint8
-// -> (Q, k) fp32 scores, int32 ids.
+// or null -> (Q, k) fp32 scores, int32 ids.  variant 0 picks by shape
+// (merge_variant); 1 or 2 forces one (1 needs P * k <= 512).
 extern "C" int retrieval_topk_merge(const void* part_scores, const void* part_ids,
                                     const void* mask, void* out_s, void* out_i, int Q,
-                                    int P, int k, void* stream) {
-  if (Q <= 0 || P <= 0 || k <= 0) return cudaErrorInvalidValue;
-  const int blocks = (Q + kWarps - 1) / kWarps;
-  merge_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                    int P, int k, int variant, void* stream) {
+  if (Q <= 0 || P <= 0 || k <= 0 || k > kMaxK) return cudaErrorInvalidValue;
+  if (variant == 0) variant = merge_variant(P * k, k);
+  if (variant == 1 && P * k > kChunk) return cudaErrorInvalidValue;
+  const int blocks = (Q + kMergeWarps - 1) / kMergeWarps;
+  auto kernel = variant == 1 ? merge_kernel<true> : merge_kernel<false>;
+  kernel<<<blocks, kMergeWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_scores), static_cast<const int32_t*>(part_ids),
       static_cast<const uint8_t*>(mask), static_cast<float*>(out_s),
       static_cast<int32_t*>(out_i), Q, P, k, k);

@@ -30,6 +30,7 @@ from repro_torch.kernels.ref import topk_merge_reference as topk_merge_plain
 from repro_torch.kernels.ref import topk_reference as topk_plain
 
 MAX_K = 64          # the kernels' bound on k (a warp's list holds 64)
+MERGE_ROUNDS_MAX = 512   # the merge's k-rounds selection: one row chunk
 MAX_DIM = 7000      # the wrapper's bound on D (the kernel streams any)
 QUERY_TILE = 8      # queries a top-k block scores: one ticket each
 _P = ctypes.c_void_p
@@ -50,7 +51,7 @@ def _lib() -> ctypes.CDLL:
                                f"{lib.topk_max_blocks()} != {_MAX_BLOCKS}")
         lib.retrieval_topk.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         lib.retrieval_topk.restype = _I
-        lib.retrieval_topk_merge.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.retrieval_topk_merge.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         lib.retrieval_topk_merge.restype = _I
     return lib
 
@@ -110,10 +111,9 @@ def topk_cuda(queries: torch.Tensor, database: torch.Tensor, k: int
     return out_s.view(torch.float32), out_i
 
 
-def topk_merge_cuda(part_scores: torch.Tensor, part_ids: torch.Tensor,
-                    mask: torch.Tensor, k: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(Q, P, k) boards + (Q, P) mask on CUDA -> (Q, k) scores, int32 ids."""
+def _merge(part_scores: torch.Tensor, part_ids: torch.Tensor,
+           mask: torch.Tensor, k: int, variant: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_k(k)
     qn, parts, kk = part_scores.shape
     if part_ids.shape != part_scores.shape or mask.shape != (qn, parts):
@@ -121,6 +121,8 @@ def topk_merge_cuda(part_scores: torch.Tensor, part_ids: torch.Tensor,
                          f"{tuple(part_ids.shape)} {tuple(mask.shape)}")
     if kk != k:
         raise ValueError(f"board depth {kk} != k={k}")
+    if variant == 1 and parts * k > MERGE_ROUNDS_MAX:
+        raise ValueError(f"k rounds over a row of {parts * k} entries")
     if not (part_scores.is_cuda and part_ids.is_cuda and mask.is_cuda):
         raise ValueError("topk_merge_cuda takes CUDA tensors")
     lib = _lib()
@@ -131,11 +133,32 @@ def topk_merge_cuda(part_scores: torch.Tensor, part_ids: torch.Tensor,
     out_i = torch.empty((qn, k), dtype=torch.int32, device=s.device)
     err = lib.retrieval_topk_merge(
         s.data_ptr(), i.data_ptr(), m.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), qn, parts, k,
+        out_i.data_ptr(), qn, parts, k, variant,
         _build.current_stream(s.device))
     _build.check(lib, err, "retrieval_topk_merge")
-    topk_merge_cuda.launches += 1
     return out_s, out_i
+
+
+def topk_merge_cuda(part_scores: torch.Tensor, part_ids: torch.Tensor,
+                    mask: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, P, k) boards + (Q, P) mask on CUDA -> (Q, k) scores, int32 ids.
+
+    The selection follows the shape: k rounds over registers for rows of
+    at most ``MERGE_ROUNDS_MAX`` entries and k <= 32, else the sorted
+    warp list."""
+    out = _merge(part_scores, part_ids, mask, k, 0)
+    topk_merge_cuda.launches += 1
+    return out
+
+
+def _merge_selection(part_scores: torch.Tensor, part_ids: torch.Tensor,
+                     mask: torch.Tensor, k: int, rounds: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge with its selection forced (k rounds, or the warp list)
+    whatever the shape: the card tests hold both against the plain
+    version, ``chip_smoke.py`` times both.  Not counted as a launch."""
+    return _merge(part_scores, part_ids, mask, k, 1 if rounds else 2)
 
 
 topk_cuda.launches = 0

@@ -14,6 +14,11 @@ serving paths run (``mixer="attn"``/``"local"``):
   attends over the dense cache (``ops.decode_attention``) or, with a
   block table, through the pool (``ops.paged_decode_attention``).
 
+An int8 pool (``cache`` has ``k_scale``/``v_scale`` leaves of ``(P, KV)``
+fp32) quantizes on append (``kernels/quant.py``); chunked prefill then
+attends over the dequantized gather, and decode hands the scales to the
+paged kernel, which dequantizes as it reads.
+
 JAX rebuilt the cache arrays on every call; here the tensors in ``cache``
 are updated in place (``_row_update``, ``_paged_scatter``).  Dense
 chunked prefill (a chunk offset without a block table) is not a branch:
@@ -26,7 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, quant, ref
 from repro_torch.models import layers
 
 
@@ -66,8 +71,6 @@ def attention_forward(
     """Returns the attention output; ``cache`` is written in place."""
     if mixer not in ("attn", "local"):
         raise NotImplementedError(f"mixer {mixer!r}")
-    if "k_scale" in cache:
-        raise NotImplementedError("int8 KV pages: a later slice")
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r}")
     b, s, _ = x.shape
@@ -98,10 +101,22 @@ def attention_forward(
         cos, sin = cos[:, :, None], sin[:, :, None]
         q = layers.apply_rope(q, cos, sin, rot)
         k = layers.apply_rope(k, cos, sin, rot)
-        _paged_scatter(cache["k"], k, block_tab, positions)
-        _paged_scatter(cache["v"], v, block_tab, positions)
-        kd = ref.gather_paged_kv(cache["k"], block_tab, kv_span)
-        vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span)
+        if "k_scale" in cache:
+            # int8 pool: quantize the chunk on append, then attend over
+            # the dequantized view (in q's type, as the kernel takes it)
+            quant.paged_scatter_quant(cache["k"], cache["k_scale"], k,
+                                      block_tab, positions)
+            quant.paged_scatter_quant(cache["v"], cache["v_scale"], v,
+                                      block_tab, positions)
+            kd = ref.gather_paged_kv(cache["k"], block_tab, kv_span,
+                                     scale=cache["k_scale"]).to(q.dtype)
+            vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span,
+                                     scale=cache["v_scale"]).to(q.dtype)
+        else:
+            _paged_scatter(cache["k"], k, block_tab, positions)
+            _paged_scatter(cache["v"], v, block_tab, positions)
+            kd = ref.gather_paged_kv(cache["k"], block_tab, kv_span)
+            vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span)
         out = ops.flash_attention(
             q, kd, vd, causal=True, window=window, softcap=softcap,
             kv_len=pos + s, q_offset=pos)
@@ -117,11 +132,20 @@ def attention_forward(
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1,
                                    window=window, softcap=softcap)
     else:
-        _paged_scatter(cache["k"], k, block_tab, pos[:, None])
-        _paged_scatter(cache["v"], v, block_tab, pos[:, None])
+        ks = vs = None
+        if "k_scale" in cache:
+            ks, vs = cache["k_scale"], cache["v_scale"]
+            quant.paged_scatter_quant(cache["k"], ks, k, block_tab,
+                                      pos[:, None])
+            quant.paged_scatter_quant(cache["v"], vs, v, block_tab,
+                                      pos[:, None])
+        else:
+            _paged_scatter(cache["k"], k, block_tab, pos[:, None])
+            _paged_scatter(cache["v"], v, block_tab, pos[:, None])
         out = ops.paged_decode_attention(
             q[:, 0], cache["k"], cache["v"], block_tab, pos + 1,
-            kv_span=kv_span, window=window, softcap=softcap)
+            kv_span=kv_span, window=window, softcap=softcap,
+            k_scale=ks, v_scale=vs)
     return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
 
 
@@ -150,8 +174,15 @@ def _paged_scatter(pool: torch.Tensor, new: torch.Tensor,
 
 
 def make_attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
-                         dtype) -> dict:
+                         dtype, kv_format: Optional[str] = None) -> dict:
     """Per-layer shapes ``{"k","v": ((batch, cache_len, KV, hd), dtype)}``
-    (a paged pool: ``(pages, page, KV, hd)``)."""
+    (a paged pool: ``(pages, page, KV, hd)``).  ``kv_format="int8"``
+    (paged pools only) gives int8 ``k``/``v`` and fp32 ``(pages, KV)``
+    ``k_scale``/``v_scale`` leaves."""
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if kv_format == "int8":
+        sshape = (batch, cfg.num_kv_heads)
+        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "k_scale": (sshape, torch.float32),
+                "v_scale": (sshape, torch.float32)}
     return {"k": (shape, dtype), "v": (shape, dtype)}

@@ -11,23 +11,25 @@ from repro_torch.models import attention, transformer
 
 
 def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
-                     dtype=torch.bfloat16) -> Dict[str, Any]:
+                     dtype=torch.bfloat16, kv_format: Optional[str] = None
+                     ) -> Dict[str, Any]:
     """Per-layer cache shapes: ``{"blocks": [{"k": (shape, dtype), "v":
     ...}] * num_layers}`` with shape ``(batch, cache_len, KV, hd)``.  The
     layout serves both caches: a dense cache has a row of ``cache_len``
     positions per sequence, the paged pool passes ``(pages, page_size)``
-    (``pages`` counting the trash page 0)."""
+    (``pages`` counting the trash page 0).  ``kv_format="int8"`` (paged
+    pools) adds the ``(pages, KV)`` fp32 scale leaves."""
     return {"blocks": [attention.make_attn_cache_spec(cfg, batch, cache_len,
-                                                      dtype)
+                                                      dtype, kv_format)
                        for _ in range(cfg.num_layers)]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype=torch.bfloat16, device: DeviceLike = None
-               ) -> Dict[str, Any]:
+               dtype=torch.bfloat16, device: DeviceLike = None,
+               kv_format: Optional[str] = None) -> Dict[str, Any]:
     """Zeroed caches of :func:`make_cache_specs` on ``device``."""
     device = resolve_device(device)
-    specs = make_cache_specs(cfg, batch, cache_len, dtype)
+    specs = make_cache_specs(cfg, batch, cache_len, dtype, kv_format)
     return {"blocks": [{name: torch.zeros(shape, dtype=dt, device=device)
                         for name, (shape, dt) in layer.items()}
                        for layer in specs["blocks"]]}

@@ -9,8 +9,13 @@ The generation stage has two disciplines, chosen by the generator type:
   behind a classic ``PipelineWorker`` (pop a batch, generate, forward);
 * a :class:`~repro_torch.serving.generator.ContinuousGenerator` runs
   behind a ``StepPumpWorker``: requests are admitted into free KV slots
-  at any decode step and leave the moment they finish.  Admission is
-  owned by a :class:`~repro_torch.serving.reqsched.RequestScheduler`.
+  at any decode step and leave the moment they finish.  Admission,
+  preemption and resume are owned by a
+  :class:`~repro_torch.serving.reqsched.RequestScheduler`: when a join
+  would wait on pages or slots while a slot of no higher priority is live,
+  the pump swaps that slot to the host (``partial_swap=True``: only the
+  pages the join needs) and brings parked requests back once the backlog
+  of their class clears.
 
 ``SerialRAGEngine`` is the baseline shape (vLLMRAG/AccRAG-style) that the
 paper measures against: one worker retrieves, then generates, each batch

@@ -24,15 +24,32 @@ The two disciplines of ``repro.serving.generator``, on the ``Model`` path:
       ``step`` interleaved with live decode; without it the join prefills
       one-shot and scatters the row into the slot's pages.
 
+    The paged layout takes ``kv_format="int8"`` (pages quantized on
+    append, per-page-per-head fp32 scales) and preemption to the host:
+    ``preempt(ref)`` copies a live slot's pages (``pages=k``: its ``k``
+    coldest) to the :class:`~repro_torch.serving.kvpool.HostPagePool` and
+    ends its lease, ``resume(key)`` brings the request back into any free
+    slot on fresh pages.  With ``overlap_swap=True`` the copies run on a
+    side CUDA stream while unaffected slots decode; a slot whose swap-in
+    is still in flight stays out of decode until ``step`` polls it in.
+
+Slot lifecycle::
+
+    free --acquire--> active --step*--> finished --harvest--> free
+                      |    ^   (epoch bumped on release; stale SlotRefs
+                 preempt   |    raise, across preempt/resume too)
+                      v    resume (any free slot, fresh pages, remapped
+                    parked         block table)
+
 Not in the port yet, and raising ``NotImplementedError``: the
-layer-streamed executor, prefix sharing, int8 KV pages, and preemption to
-a host swap pool.
+layer-streamed executor, prefix sharing, and resizing the slot table or
+the device pool (``resize``, ``retarget``, ``set_page_budget``).
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, init_cache
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
-from repro_torch.serving.kvpool import SWAP_SLICE, PagedKVCache
+from repro_torch.serving.kvpool import PREFIX_SLICE, PagedKVCache
 
 
 class HashTokenizer:
@@ -226,6 +243,37 @@ class _ChunkJob:
     offset: int = 0           # next unwritten position
 
 
+class _ParkHandle:
+    """Opaque resume handle for an unhashable request key: the parked
+    dict and the host pool index by identity, so mutable keys (the
+    ``Request`` dataclass) work without touching their equality."""
+    __slots__ = ("key",)
+
+    def __init__(self, key: Any):
+        self.key = key
+
+
+def _park_handle(key: Any) -> Any:
+    try:
+        hash(key)
+    except TypeError:
+        return _ParkHandle(key)
+    return key
+
+
+@dataclass
+class _Parked:
+    """Host-side state of a preempted request, beside its KV pages in
+    the host pool: the decode scalars and the tokens emitted so far."""
+    key: Any
+    tokens: List[int]         # emitted so far (harvest continuity)
+    pos: int                  # SlotState.pos at preemption
+    remaining: int            # decode budget left
+    cur: int                  # pending token awaiting its KV write
+    dec_pos: int              # _pos value: the next decode position
+    trace_ids: Tuple = ()     # request trace scope, restored on resume
+
+
 class ContinuousGenerator(_GeneratorBase):
     """Decode-step batching over a dense cache or a paged pool.
 
@@ -253,8 +301,10 @@ class ContinuousGenerator(_GeneratorBase):
             raise ValueError("prefill_chunk requires paged=True")
         if kv_format is not None and not paged:
             raise ValueError("kv_format requires paged=True")
-        if prefix_cache or prefix_page_budget is not None or overlap_swap:
-            raise NotImplementedError(f"prefix cache / overlap: {SWAP_SLICE}")
+        if overlap_swap and not paged:
+            raise ValueError("overlap_swap requires paged=True")
+        if prefix_cache or prefix_page_budget is not None:
+            raise NotImplementedError(f"prefix cache: {PREFIX_SLICE}")
         super().__init__(cfg, params, gen_cfg, streamed=streamed,
                          policy=policy, device=device)
         self.tracer = tracer or NULL_TRACER
@@ -270,11 +320,20 @@ class ContinuousGenerator(_GeneratorBase):
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
         self._prefilling: Dict[int, _ChunkJob] = {}
+        self._parked: Dict[Any, _Parked] = {}
+        # slots whose swap-in copy is in flight: leased, but out of decode
+        # until ``poll`` applies it
+        self._pending_resume: set = set()
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.peak_in_flight = 0
         if paged:
             self.kv: Optional[PagedKVCache] = PagedKVCache(
                 cfg, num_slots, total, page_size, num_pages=page_budget,
                 dtype=gen_cfg.dtype, host_pages=host_page_budget,
-                kv_format=kv_format, device=self.device)
+                kv_format=kv_format, overlap=overlap_swap,
+                device=self.device, tracer=self.tracer,
+                registry=self.registry)
             self.cache = self.kv.init_stacked()
         else:
             self.kv = None
@@ -290,14 +349,25 @@ class ContinuousGenerator(_GeneratorBase):
         """Late-bind the engine's tracer/registry."""
         if tracer is not None:
             self.tracer = tracer
+            if self.kv is not None:
+                self.kv.tracer = tracer
         if registry is not None:
             self.registry = registry
+            if self.kv is not None:
+                self.kv.registry = registry
 
     def _scope_ids(self, slots) -> List:
         ids = set()
         for s in slots:
             ids.update(self._slot_scope.get(s, ()))
         return sorted(ids, key=str)
+
+    @property
+    def kv_format(self) -> str:
+        """The KV byte format: the paged pool's, else the dense dtype's."""
+        if self.kv is not None:
+            return self.kv.kv_format
+        return "bf16" if self.gen_cfg.dtype == torch.bfloat16 else "fp32"
 
     @property
     def free_slots(self) -> int:
@@ -364,6 +434,7 @@ class ContinuousGenerator(_GeneratorBase):
         if self.paged and not self.kv.admit(ref.index, g.ctx_len + budget):
             self.table.release(ref)         # page backpressure
             return None
+        self.peak_in_flight = max(self.peak_in_flight, self.in_flight)
         if self.tracer.enabled:
             self._slot_scope[ref.index] = self.tracer.current_scope()
         if self.prefill_chunk is not None:
@@ -427,11 +498,20 @@ class ContinuousGenerator(_GeneratorBase):
         joining slot one prefill chunk).  Returns the number of slots that
         made progress (0 = idle)."""
         progressed = 0
+        overlap = self.paged and self.kv.overlap
+        if overlap:
+            progressed += self._poll_swaps()
         if self._prefilling:
             progressed += self._advance_prefills()
         refs = [r for r in self.table.active_refs()
-                if r.index not in self._prefilling]
+                if r.index not in self._prefilling
+                and r.index not in self._pending_resume]
         if not refs:
+            if not progressed and overlap and self.kv.outstanding:
+                # nothing can decode until a copy lands: wait for the
+                # head job (stall-counted) so the pump keeps pumping
+                self.kv.wait_any()
+                progressed += self._poll_swaps()
             return progressed
         bt, span_len = None, None
         if self.paged:
@@ -449,14 +529,150 @@ class ContinuousGenerator(_GeneratorBase):
             logits = self.model.decode(self.params, cur, self.cache, pos, bt,
                                        kv_span=span_len)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        if (self.paged and self.registry.enabled
+                and self.kv.kv_format == "int8"):
+            # dequantized reads: every live slot's context this step
+            self.registry.counter("kv.dequant_tokens").inc(
+                sum(int(self._pos[r.index]) + 1 for r in refs))
         for ref in refs:
             self._emit(ref, int(nxt[ref.index]))
         return len(refs) + progressed
 
+    # ---------------------------------------------- preemption (swap-to-host)
     @property
     def parked_slots(self) -> int:
-        """Requests swapped to the host: none without the swap slice."""
-        return 0
+        return len(self._parked)
+
+    def parked_keys(self) -> List[Any]:
+        """Resume handles in preemption order (FIFO resume is fair)."""
+        return list(self._parked)
+
+    def parked_request(self, handle: Any) -> Any:
+        """The request key a resume handle parks."""
+        return self._parked[handle].key
+
+    @property
+    def pending_resumes(self) -> FrozenSet[int]:
+        """Slots leased to a resumed request whose swap-in copy has not
+        landed yet: they stay out of decode until ``step`` polls it."""
+        return frozenset(self._pending_resume)
+
+    @property
+    def in_flight(self) -> int:
+        """Requests admitted and unfinished: live slots + parked."""
+        return self.table.active_slots + len(self._parked)
+
+    def preemptible(self, ref: SlotRef) -> bool:
+        """A live slot may be parked unless it is still chunk-prefilling
+        or awaiting a swap-in."""
+        return (ref.index not in self._prefilling
+                and ref.index not in self._pending_resume)
+
+    def swap_victim(self) -> Optional[SlotRef]:
+        """The live slot with the most remaining budget (the last to
+        finish), excluding slots still chunk-prefilling or awaiting a
+        swap-in; ties to the lowest slot index.  The priority-aware form
+        is ``RequestScheduler.select_victim``."""
+        best, best_rem = None, -1
+        for ref in self.table.active_refs():
+            if not self.preemptible(ref):
+                continue
+            rem = self.table.state(ref).remaining
+            if rem > best_rem:
+                best, best_rem = ref, rem
+        return best
+
+    def preempt(self, ref: SlotRef,
+                pages: Optional[int] = None) -> Optional[Any]:
+        """Park a live slot: copy its KV pages to the host pool and end
+        its lease.  Returns the resume handle, or ``None`` when the host
+        pool cannot hold the pages (or the slot is still chunk-prefilling
+        or awaiting a swap-in): the slot stays live.
+
+        ``pages=k`` is a partial park: only the slot's ``k`` coldest
+        pages move to the host, the hot tail stays on the device under
+        the handle, and ``resume`` reloads just the shed prefix.  The
+        release bumps the slot's epoch, so a SlotRef kept from before
+        raises :class:`StaleSlotError`, against the resumed lease too.
+        """
+        if not self.paged:
+            raise ValueError("preempt requires paged=True")
+        st = self.table.state(ref)              # validates the lease
+        if not self.preemptible(ref):
+            return None
+        handle = _park_handle(st.key)
+        scope = self._slot_scope.get(ref.index, ())
+        span = (self.tracer.span("swap.preempt", slot=ref.index,
+                                 trace_ids=list(scope))
+                if self.tracer.enabled else NULL_SPAN)
+        with span:
+            if not self.kv.swap_out(self.cache, ref.index, handle,
+                                    pages=pages):
+                return None                      # host pool exhausted
+            st = self.table.release(ref)
+        self._slot_scope.pop(ref.index, None)
+        self._parked[handle] = _Parked(
+            key=st.key, tokens=list(st.tokens), pos=st.pos,
+            remaining=st.remaining, cur=int(self._cur[ref.index]),
+            dec_pos=int(self._pos[ref.index]), trace_ids=tuple(scope))
+        # the freed row rides the batched decode like any dead slot; its
+        # table row points at the trash page
+        self._cur[ref.index] = 0
+        self.swap_outs += 1
+        return handle
+
+    def resume(self, key: Any) -> Optional[SlotRef]:
+        """Bring a preempted request back into any free slot: a fresh
+        lease (new epoch), fresh physical pages, its table row remapped.
+        ``None`` when slots or device pages are still short: the request
+        stays parked."""
+        if not self.paged:
+            raise ValueError("resume requires paged=True")
+        parked = self._parked[key]
+        ref = self.table.acquire(parked.key, pos=parked.pos,
+                                 remaining=parked.remaining)
+        if ref is None:
+            return None
+        span = (self.tracer.span("swap.resume", slot=ref.index,
+                                 trace_ids=list(parked.trace_ids))
+                if self.tracer.enabled else NULL_SPAN)
+        with span:
+            if not self.kv.swap_in(self.cache, ref.index, key):
+                self.table.release(ref)          # pages still short
+                return None
+        if self.kv.overlap:
+            # the copy is in flight: the slot is leased, its table row
+            # stays all-trash, and decode skips it until poll applies it
+            self._pending_resume.add(ref.index)
+        if self.tracer.enabled and parked.trace_ids:
+            self._slot_scope[ref.index] = parked.trace_ids
+        self.table.state(ref).tokens.extend(parked.tokens)
+        self._cur[ref.index] = parked.cur
+        self._pos[ref.index] = parked.dec_pos
+        del self._parked[key]
+        self.swap_ins += 1
+        return ref
+
+    def _poll_swaps(self) -> int:
+        """Apply landed swap copies (overlap); returns the number applied
+        (step progress, so the pump keeps pumping while copies drain)."""
+        resumed, applied = self.kv.poll()
+        self._pending_resume.difference_update(resumed)
+        return applied
+
+    def fence(self) -> None:
+        """Wait for every queued swap copy and apply it.  No-op without
+        overlap."""
+        if self.kv is None or not self.kv.overlap:
+            return
+        resumed, _ = self.kv.fence()
+        self._pending_resume.difference_update(resumed)
+
+    def set_host_page_budget(self, pages: int) -> int:
+        """Retarget the host swap pool's page budget (paged only)."""
+        if not self.paged:
+            raise ValueError("set_host_page_budget requires paged=True")
+        return self.kv.set_host_budget(pages)
 
     def harvest(self) -> List[Tuple[Any, str, List[int]]]:
         """Drain (key, text, tokens) for rows finished since last call."""

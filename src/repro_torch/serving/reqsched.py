@@ -1,16 +1,30 @@
-"""Request scheduler: the generation-side admission policy, default knobs.
+"""Request scheduler: the generation-side admission, preemption and
+resume policy.
 
 Ported from ``repro.serving.reqsched``.  It owns the request lifecycle::
 
-    queued -> admitted -> running -> done
+    queued -> admitted -> running -> parked(full|partial) -> done
+                 ^                        |
+                 +------- resume ---------+
 
-and ranks admission by aged priority: a request's effective priority is
-``priority + waited / aging_s`` (ties FIFO, so with one priority class
-admission IS arrival order).  Preemption needs the host swap pool, which
-comes with the swap slice of the port: here no victim can be swapped
-out, so ``capacity`` never reports a speculative join and a join that
-does not fit is requeued at the front (pure backpressure), which is the
-JAX scheduler's own behaviour when its host pool is empty.
+**Priority classes.**  ``Request.priority`` (1 = interactive outranks
+0 = batch) orders admission, swap-victim selection (lowest class first,
+then longest remaining budget) and resume.  The **aging rule** keeps
+batch work from starving: a request's effective priority is ``priority +
+waited / aging_s``.  A joiner may only preempt a victim of priority <= its
+own, so batch arrivals never evict interactive work.
+
+**Partial-slot swap.**  With ``partial_swap=True`` a preemption sheds only
+the pages the blocked join needs (the victim's coldest); the hot tail
+stays on the device and resume reloads just the shed prefix.
+
+**Swap/decode overlap** is the generator's ``overlap_swap``: ``preempt``
+and ``resume`` queue their copies on a side stream.
+
+With default knobs (one priority class, full swap, inline copies) the
+scheduler admits in arrival order and picks the victims of
+``ContinuousGenerator.swap_victim``.  ``apply_split`` (the policy
+boundary's retarget) waits for the placement slice of the port.
 """
 from __future__ import annotations
 
@@ -19,8 +33,7 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
-from repro_torch.serving.generator import ContinuousGenerator
-from repro_torch.serving.kvpool import SWAP_SLICE
+from repro_torch.serving.generator import ContinuousGenerator, SlotRef
 
 
 def request_priority(key: Any) -> int:
@@ -33,7 +46,7 @@ def _rid_of(key: Any) -> Optional[Any]:
 
 
 class RequestScheduler:
-    """Owns admission for one continuous engine.
+    """Owns admission, preemption and resume for one continuous engine.
 
     The engine wires ``capacity`` / ``admit`` into its ``StepPumpWorker``
     and calls ``tick`` before every decode step.  Every method runs on the
@@ -43,11 +56,10 @@ class RequestScheduler:
     def __init__(self, generator: ContinuousGenerator, context_queue,
                  *, aging_s: float = 30.0, partial_swap: bool = False,
                  tracer=None, registry=None):
-        if partial_swap:
-            raise NotImplementedError(f"partial swap: {SWAP_SLICE}")
         self.gen = generator
         self.queue = context_queue
         self.aging_s = max(float(aging_s), 1e-9)
+        self.partial_swap = partial_swap
         self.tracer = tracer or NULL_TRACER
         self.registry = registry or NULL_REGISTRY
         self._seq: Dict[int, int] = {}      # id(req) -> intake order
@@ -74,13 +86,16 @@ class RequestScheduler:
                       key=str)
 
     def snapshot(self) -> Dict[str, Any]:
+        gen = self.gen
         by_state: Dict[str, List[Any]] = {}
         for rid, st in self._state.items():
             by_state.setdefault(st, []).append(rid)
         return {
             "queued": len(self.queue),
-            "active_slots": self.gen.active_slots,
-            "parked": self.gen.parked_slots,
+            "active_slots": gen.active_slots,
+            "parked": gen.parked_slots,
+            "pending_resume": len(gen.pending_resumes),
+            "swap_jobs": gen.kv.outstanding if gen.paged else 0,
             "states": {k: sorted(v, key=str)
                        for k, v in sorted(by_state.items())},
         }
@@ -98,15 +113,34 @@ class RequestScheduler:
         return request_priority(req) + waited / self.aging_s
 
     def capacity(self) -> int:
-        """Joins the pump may pop right now (free slots AND pages; with no
-        host swap tier there is no speculative preemption join)."""
-        return self.gen.admit_capacity
+        """Joins the pump may pop right now.
+
+        ``admit_capacity`` counts sure admits (free slots AND pages); a
+        paged generator with host swap room also reports one speculative
+        join when a victim of no higher priority than the best waiting
+        request could be preempted for it, so a page- or slot-starved
+        backlog takes the swap path instead of waiting for a leave.
+        """
+        gen = self.gen
+        cap = gen.admit_capacity
+        if cap != 0 or not gen.paged:
+            return cap
+        waiting = self.queue.snapshot()
+        if not waiting:
+            return 0
+        limit = max(request_priority(r) for r in waiting)
+        victim = self.select_victim(limit=limit)
+        if victim is not None and gen.kv.can_swap_out(victim.index):
+            return 1
+        return 0
 
     def admit(self, reqs: List[Any]) -> None:
         """Join arrivals into free slots.  The popped items plus the rest
-        of the context queue are ranked by aged priority and the top
-        ``len(reqs)`` dispatch; a join that does not fit returns the tail
-        to the FRONT of the queue so admission order survives."""
+        of the context queue are ranked by aged priority (ties FIFO) and
+        the top ``len(reqs)`` dispatch.  A join that does not fit preempts
+        victims of no higher priority until it does; when no victim can
+        be swapped out, the tail returns to the FRONT of the queue so
+        admission order survives backpressure."""
         gen, q = self.gen, self.queue
         t = time.perf_counter()
         backlog = list(reqs) + q.pop_batch(len(q))
@@ -123,6 +157,8 @@ class RequestScheduler:
             for i, r in enumerate(dispatch):
                 with self.tracer.scope(getattr(r, "rid", None)):
                     ref = gen.join(r, r.prompt, r.max_new_tokens)
+                    while ref is None and self.preempt_for_join(r):
+                        ref = gen.join(r, r.prompt, r.max_new_tokens)
                 if ref is None:
                     q.requeue(dispatch[i:])
                     break
@@ -131,6 +167,94 @@ class RequestScheduler:
         if self.registry.enabled:
             self.registry.gauge("sched.queue_depth").set(
                 float(len(self.queue)))
+            self.registry.gauge("sched.parked").set(
+                float(gen.parked_slots))
 
+    # ---------------------------------------------------------- preemption
+    def select_victim(self, limit: Optional[int] = None
+                      ) -> Optional[SlotRef]:
+        """Among live decodable slots of priority <= ``limit``: the lowest
+        priority class, then the longest remaining budget, then the
+        lowest slot index.  With one class this is
+        ``ContinuousGenerator.swap_victim``'s choice."""
+        gen = self.gen
+        best_ref, best_key = None, None
+        for ref in gen.table.active_refs():
+            if not gen.preemptible(ref):
+                continue
+            st = gen.table.state(ref)
+            pr = request_priority(st.key)
+            if limit is not None and pr > limit:
+                continue
+            k = (pr, -st.remaining, ref.index)
+            if best_key is None or k < best_key:
+                best_ref, best_key = ref, k
+        return best_ref
+
+    def _shed_pages(self, victim: SlotRef, joiner: Any) -> Optional[int]:
+        """Pages the victim must shed for ``joiner`` to fit (partial
+        swap): the join's worst case less what freeing the slot already
+        gives (spares and the victim's unspent reservation), clamped to
+        [1, held].  ``None``: shed everything."""
+        gen = self.gen
+        g = gen.gen_cfg
+        req = getattr(joiner, "max_new_tokens", None)
+        budget = max(1, min(req if req is not None else g.max_new_tokens,
+                            g.max_new_tokens))
+        pool = gen.kv.pool
+        need = pool.blocks_for(g.ctx_len + budget)
+        held = len(pool.table(victim.index))
+        short = (need - pool.available_pages
+                 - pool.reservation(victim.index))
+        if short >= held:
+            return None
+        return max(short, 1)
+
+    def preempt_for_join(self, joiner: Any) -> bool:
+        """Park the lowest-priority live slot so a blocked join can take
+        its pages and its slot.  Victims are limited to the joiner's own
+        class or below.  True when a victim was swapped out; False leaves
+        pure backpressure (requeue)."""
+        gen = self.gen
+        if not gen.paged:
+            return False
+        victim = self.select_victim(limit=request_priority(joiner))
+        if victim is None:
+            return False
+        pages = (self._shed_pages(victim, joiner) if self.partial_swap
+                 else None)
+        key = gen.table.state(victim).key
+        span = (self.tracer.span("sched.preempt", slot=victim.index,
+                                 pages=(pages if pages is not None
+                                        else len(gen.kv.pool.table(
+                                            victim.index))))
+                if self.tracer.enabled else NULL_SPAN)
+        with span:
+            handle = gen.preempt(victim, pages=pages)
+        if handle is None:
+            return False
+        self._note(key, "parked_partial" if pages is not None
+                   else "parked")
+        return True
+
+    # -------------------------------------------------------------- resume
     def tick(self) -> None:
-        """Resume parked requests; nothing is ever parked in this slice."""
+        """Swap parked requests back in, highest class first, FIFO within
+        a class.  Backlogged joins of the same or a higher class go first,
+        so swap never thrashes against admission; a parked request of a
+        strictly higher class than everything waiting resumes ahead of the
+        backlog.  With one class: resume only once the queue is empty."""
+        gen = self.gen
+        if not gen.parked_slots:
+            return
+        parked = [(h, gen.parked_request(h)) for h in gen.parked_keys()]
+        order = sorted(parked, key=lambda hr: -request_priority(hr[1]))
+        waiting = self.queue.snapshot()
+        if waiting:
+            best_wait = max(request_priority(r) for r in waiting)
+            order = [hr for hr in order
+                     if request_priority(hr[1]) > best_wait]
+        for handle, req in order:
+            if gen.resume(handle) is None:
+                break               # slots/pages exhausted: retry later
+            self._note(req, "running")

@@ -475,3 +475,207 @@ def test_rmsnorm_forms_on_card(cuda_device, fused, dtype, wdtype, d):
     assert y.shape == x.shape
     _assert_norm_close(y.float(), ops.rmsnorm(s, w, 1e-6, impl="ref").float(),
                        torch.float32 if dtype == torch.float32 else dtype)
+
+
+# ------------------------------------------------------- top-k merge
+def _merge_inputs(q, p, k, seed):
+    """(Q, P, k) sorted boards under a probe mask: row 0 all masked, row 1
+    (when there is one) with one probed board short of k, and every third
+    board a copy of board 0's scores, so equal scores sit in different
+    partitions (lower flat position first)."""
+    rng = np.random.default_rng(seed)
+    s = -np.sort(-rng.normal(size=(q, p, k)).astype(np.float32), axis=-1)
+    s[:, ::3] = s[:, :1]
+    ids = rng.integers(0, 10 ** 6, size=(q, p, k)).astype(np.int32)
+    mask = rng.uniform(size=(q, p)) < 0.6
+    mask[0] = False
+    if q > 1:
+        mask[1] = False
+        mask[1, p // 2] = True
+        s[1, p // 2, 1:] = -1e30
+        ids[1, p // 2, 1:] = -1
+    return s, ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 64])
+@pytest.mark.parametrize("p", [1, 4, 64, 200])
+@pytest.mark.parametrize("q", [1, 3, 8, 33])
+def test_topk_merge_on_card(cuda_device, q, p, k):
+    """Both selections (k rounds where the row fits one chunk, the warp
+    list always) give the plain version's ids and scores exactly."""
+    from repro_torch.kernels import topk_retrieval as tk
+    s, ids, mask = (_t(a).to(cuda_device)
+                    for a in _merge_inputs(q, p, k, seed=q * 1000 + p + k))
+    want_s, want_i = ops.retrieval_topk_merge(s, ids, mask, k, impl="ref")
+    calls = {"by shape": lambda: tk.topk_merge_cuda(s, ids, mask, k),
+             "list": lambda: tk._merge_selection(s, ids, mask, k, False)}
+    if p * k <= tk.MERGE_ROUNDS_MAX:
+        calls["rounds"] = lambda: tk._merge_selection(s, ids, mask, k, True)
+    for name, call in calls.items():
+        got_s, got_i = call()
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(_np(got_i), _np(want_i), name)
+        np.testing.assert_array_equal(_np(got_s), _np(want_s), name)
+    assert (_np(got_i)[0] == -1).all()          # the all-masked row
+
+
+@pytest.mark.cuda
+def test_topk_merge_unaligned_rows_on_card(cuda_device):
+    """Rows not 16-byte aligned (P * k odd) take the scalar loads."""
+    from repro_torch.kernels import topk_retrieval as tk
+    s, ids, mask = (_t(a).to(cuda_device)
+                    for a in _merge_inputs(5, 7, 3, seed=5))
+    want = ops.retrieval_topk_merge(s, ids, mask, 3, impl="ref")
+    for rounds in (True, False):
+        got = tk._merge_selection(s, ids, mask, 3, rounds)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_np(g), _np(w))
+
+
+# ------------------------------------------- int8 pages on a serving path
+def _reduced_model(device):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("llama3-8b").reduced(num_layers=2)
+    return cfg, Model(cfg, device=device)
+
+
+@pytest.mark.cuda
+def test_int8_model_on_card_matches_cpu(cuda_device):
+    """A reduced llama's int8 chunked prefill and paged decode on the card
+    against the same weights on the CPU, to the 0.025 logit bound of
+    ``tests/test_quant_kv.py`` (the card's sums run in another order, so a
+    K/V value on a rounding boundary can land one int8 code apart)."""
+    from repro_torch.models.model import init_cache
+    cfg, cpu = _reduced_model("cpu")
+    gpu = _reduced_model("cuda")[1]
+    params = cpu.init(seed=3, dtype=torch.float32)
+    p_gpu = _to(params, cuda_device)
+    ctx, chunk, page, steps = 48, 16, 8, 6
+    nmax = -(-(ctx + steps) // page)
+    rng = np.random.default_rng(4)
+    prompts = _t(rng.integers(2, cfg.vocab_size, size=(2, ctx)).astype(
+        np.int32))
+    tab = _t(np.arange(1, 2 * nmax + 1, dtype=np.int32).reshape(2, nmax))
+    out, feed = {}, []             # both devices decode the CPU's tokens
+    for dev, model, prm in (("cpu", cpu, params), ("cuda", gpu, p_gpu)):
+        cache = init_cache(cfg, 2 * nmax + 1, page, torch.float32, dev,
+                           kv_format="int8")
+        t = tab.to(dev)
+        logits = []
+        for slot in range(2):
+            for off in range(0, ctx, chunk):
+                last = model.chunk_prefill(
+                    prm, prompts[slot:slot + 1, off:off + chunk].to(dev),
+                    cache, torch.tensor([off], dtype=torch.int32,
+                                        device=dev), t[slot:slot + 1],
+                    kv_span=ctx)
+            logits.append(last[0].float().cpu())
+        cur = torch.stack([l.argmax() for l in logits]).to(torch.int32)
+        for i in range(steps):
+            if dev == "cpu":
+                feed.append(cur)
+            pos = torch.full((2,), ctx + i, dtype=torch.int32, device=dev)
+            step = model.decode(prm, feed[i][:, None].to(dev), cache, pos,
+                                t, kv_span=ctx + steps).float().cpu()
+            logits.extend(step)
+            cur = step.argmax(-1).to(torch.int32)
+        out[dev] = torch.stack(logits)
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    assert err < 0.025, err
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _swap_run(cfg, params, preempt, overlap, max_swaps=None):
+    """Six requests through three int8 slots on the card, a victim
+    preempted every third tick (every other one partially; at most
+    ``max_swaps`` times) and resumed two ticks later.  Returns the texts,
+    the swap-outs and the steps in which a slot decoded while a swap-in
+    was still in flight.
+
+    A step that must wait for a swap-in to land applies it and returns
+    (as the reference's does), so a copy slower than three ticks lets
+    the resumed slot be parked again before it decodes: ``max_swaps``
+    bounds that cycle."""
+    from repro_torch.serving import ContinuousGenerator, GeneratorConfig
+    g = GeneratorConfig(ctx_len=32, max_new_tokens=12, dtype=torch.bfloat16)
+    prompts = [f"query {i} topic{i % 3} alpha beta" for i in range(6)]
+    gen = ContinuousGenerator(cfg, params, g, num_slots=3, paged=True,
+                              page_size=4, prefill_chunk=16,
+                              kv_format="int8", overlap_swap=overlap,
+                              device="cuda")
+    pending = list(enumerate(prompts))[::-1]
+    results, parked, tick, overlapped = [None] * len(prompts), [], 0, 0
+    while pending or gen.active_slots or gen.parked_slots:
+        for due, h in list(parked):
+            if tick >= due and gen.resume(h) is not None:
+                parked.remove((due, h))
+        while pending and gen.admit_capacity > 0:
+            key, prompt = pending.pop()
+            assert gen.join(key, prompt) is not None
+        if (preempt and tick % 3 == 2
+                and (max_swaps is None or gen.swap_outs < max_swaps)):
+            victim = gen.swap_victim()
+            if victim is not None:
+                held = len(gen.kv.pool.table(victim.index))
+                h = gen.preempt(victim, pages=(held + 1) // 2
+                                if tick % 2 else None)
+                if h is not None:
+                    parked.append((tick + 2, h))
+        overlapped += 0 < len(gen.pending_resumes) < gen.active_slots
+        gen.step()
+        for key, text, _ in gen.harvest():
+            results[key] = text
+        tick += 1
+        assert tick < 500
+    gen.fence()
+    assert gen.kv.pool.used_pages == 0 and gen.kv.host.used_pages == 0
+    assert gen.kv.pool.inflight_pages == 0 and gen.kv.outstanding == 0
+    return results, gen.swap_outs, overlapped
+
+
+@pytest.mark.cuda
+def test_overlapped_swap_on_card_matches_inline(cuda_device):
+    """Preempt/resume round trips on an int8 pool on the card: copies on
+    the side stream (overlap) give the tokens of inline copies and of no
+    preemption at all, and every page and host page comes back."""
+    cfg, model = _reduced_model("cuda")
+    params = model.init(seed=5, dtype=torch.bfloat16)
+    base, _, _ = _swap_run(cfg, params, False, False)
+    inline, n_inline, _ = _swap_run(cfg, params, True, False)
+    overlap, n_overlap, _ = _swap_run(cfg, params, True, True)
+    assert n_inline > 0 and n_overlap > 0
+    assert inline == base
+    assert overlap == base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cycles", [10**5, 10**6, 3 * 10**6, 10**7])
+def test_delayed_swap_copies_overlap_decode_and_match_inline(
+        cuda_device, monkeypatch, cycles):
+    """The side stream spins before every swap copy, so resumed slots'
+    pages and scales land while the other slots decode and prefill (the
+    int8 writes of those steps must not put stale values back over them);
+    the tokens equal those of inline copies."""
+    from repro_torch.serving import kvpool
+    cfg, model = _reduced_model("cuda")
+    params = model.init(seed=5, dtype=torch.bfloat16)
+    inline, n_inline, _ = _swap_run(cfg, params, True, False, max_swaps=6)
+    for name in ("load", "store"):
+        def slow(self, *args, _copy=getattr(kvpool.HostPagePool, name)):
+            torch.cuda._sleep(cycles)          # on the side stream
+            return _copy(self, *args)
+        monkeypatch.setattr(kvpool.HostPagePool, name, slow)
+    overlap, n_overlap, overlapped = _swap_run(cfg, params, True, True,
+                                               max_swaps=6)
+    assert n_inline > 0 and n_overlap > 0
+    assert overlapped > 0
+    assert overlap == inline
