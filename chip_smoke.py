@@ -38,14 +38,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               swap, every swap back in, nothing left parked, and every
               request's tokens equal to the same int8 generator's with
               pages for every slot and no host pool.
+9. serve-prefix -- recurring RAG prompts: the same weights, the
+              continuous path's generator at a ragged context of 1022
+              (``CTX - 2``), 16 requests asking 4 queries 4 times each,
+              pumped single-threaded, four runs: no prefix cache (the
+              tokens to match); the radix prefix cache (fewer prompt tokens
+              prefilled per join, prefix hits, copy-on-write copies); the
+              cache under a device budget of one prompt's pages with a host
+              pool (pages demoted and revived); and run 2's generator
+              retargeted to 4 slots, half the pages and no cached device
+              pages (the dropped pages' device bytes must come back), then
+              the same requests again.  Every run's tokens must equal the
+              first's, or leave them first at a near tie: where the two
+              choices' logits, recomputed in fp32, lie within twice the bf16
+              logits' own error of that row (a hit computes the prompt's
+              last token in another matmul shape than a miss does, so bf16
+              rounds it otherwise).
 
 Each serving path is driven with the launch counts set to 0 just before its
 16 measured requests and read just after; a kernel the path should run
 that launched no time fails the run.  Each then profiles one decode step
 of its model and prints its device kernels, fused and with every residual
 add a launch of its own.  The line before the last is
-``{"kernels": [...]}`` (``launches``: the sum over the four measured
-runs); the last line is ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (``launches``: the sum over the measured runs of
+every path); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +109,17 @@ WHOLE_BATCH_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
 SWAP_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
                 "retrieval_topk_merge", "flash_attention")
 SWAP_PRIORITY_REQ = 4       # serve-swap: the last 4 requests are priority 1
+# serve-prefix: a ragged context (a boundary-page copy at join, the
+# donor's tail page detached copy-on-write on its first decode step), and
+# 4 queries asked 4 times each, in three rounds, each served to its end:
+# 8 requests (all misses: nothing is cached until a prefill ends), then
+# queries 0 and 1 twice, then 2 and 3 twice (under a small cache budget
+# the second round's inserts demote the prompts of 2 and 3, and the third
+# round revives them).  The pool has room for the 4 cached prompts beside
+# the 8 slots' worst cases, so a cached page never takes a slot's pages.
+PREFIX_CTX = CTX - 2
+PREFIX_ROUNDS = ((0, 1, 2, 3, 0, 1, 2, 3), (0, 0, 1, 1), (2, 2, 3, 3))
+PREFIX_SLOTS_AFTER = 4      # run 4: slots after the retarget
 
 
 def log(msg: str) -> None:
@@ -738,8 +765,12 @@ def phase_kernels(torch, timer, store, queries):
         f"{rows['retrieval_topk_merge']['ms']:.4f} ms")
 
     # ---- flash attention: one-shot prefill (8 x 1024, scalar offset 0)
-    # and a prefill chunk (1 x 256 at 768 of a 1024 view, per-row offset)
+    # and a prefill chunk (1 x 256 at 768 of a 1024 view, per-row offset);
+    # serve-swap's int8 chunk attends in fp32; a prefix hit prefills a
+    # suffix of 1 to 15 tokens deep in the context (per-row offsets, each
+    # row's kv_len its offset + Sq)
     sdpa = F.scaled_dot_product_attention
+    suffix = (1023, 1008, 1000, 0)
     flash_cases = (
         ("one-shot bf16 (8, 1024) causal", torch.bfloat16, SLOTS, CTX, CTX,
          0, None, None, None),
@@ -751,7 +782,14 @@ def phase_kernels(torch, timer, store, queries):
          CHUNK, CTX, CTX - CHUNK, CTX, 300, 50.0),
         (f"chunk fp32 (1, {RAGGED_CHUNK}) ragged, window 300 softcap 50",
          torch.float32, 1, RAGGED_CHUNK, CTX, CTX - RAGGED_CHUNK, CTX, 300,
-         50.0))
+         50.0),
+        ("chunk fp32 (1, 256) at 768 of 1024 (serve-swap, int8 pages)",
+         torch.float32, 1, CHUNK, CTX, CTX - CHUNK, CTX, None, None),
+        (f"prefix suffix bf16 (4, 1) at {suffix} of 1024", torch.bfloat16,
+         4, 1, CTX, suffix, tuple(o + 1 for o in suffix), None, None),
+        ("prefix suffix bf16 (4, 15) at (1009, 1008, 1000, 0) of 1024",
+         torch.bfloat16, 4, 15, CTX, (1009, 1008, 1000, 0),
+         (1024, 1023, 1015, 15), None, None))
     for case, dt, b, sq, sk, off, kvl, window, cap in flash_cases:
         q = torch.randn((b, sq, HEADS, HEAD_DIM), generator=gen,
                         device="cuda").to(dt)
@@ -761,10 +799,10 @@ def phase_kernels(torch, timer, store, queries):
                         device="cuda").to(dt)
         kw = dict(causal=True, window=window, softcap=cap)
         if kvl is not None:           # the chunked prefill's per-row call
-            kw.update(q_offset=torch.full((b,), off, dtype=torch.int32,
-                                          device="cuda"),
-                      kv_len=torch.full((b,), kvl, dtype=torch.int32,
-                                        device="cuda"))
+            kw.update(q_offset=torch.tensor(off, dtype=torch.int32,
+                                            device="cuda").expand(b),
+                      kv_len=torch.tensor(kvl, dtype=torch.int32,
+                                          device="cuda").expand(b))
         got = ops.flash_attention(q, k, v, **kw)
         want = ops.flash_attention(q, k, v, impl="ref", **kw)
         if dt == torch.float32:
@@ -781,9 +819,11 @@ def phase_kernels(torch, timer, store, queries):
                 lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
                                             enable_gqa=True))
             else:
-                q_pos = off + torch.arange(sq, device="cuda")
-                mask = (torch.arange(sk, device="cuda")[None, :]
-                        <= q_pos[:, None])
+                q_pos = (kw["q_offset"][:, None]
+                         + torch.arange(sq, device="cuda"))      # (B, Sq)
+                k_pos = torch.arange(sk, device="cuda")
+                mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+                        & (k_pos < kw["kv_len"][:, None, None]))[:, None]
                 lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                             enable_gqa=True))
         nbytes, nops = _flash_bytes_ops(torch, q, k, kw.get("kv_len"),
@@ -947,6 +987,7 @@ def check_requests(torch, tag, reqs, exact, vocab) -> None:
         fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
     ex_s, ex_i = exact
     for r in reqs:
+        qi = int(r.query[1:])            # QueryEmbedder: "q<i>" -> query i
         toks = r.output.split()
         if len(toks) != MAX_NEW or not all(
                 0 <= int(t[3:]) < vocab for t in toks):
@@ -958,8 +999,8 @@ def check_requests(torch, tag, reqs, exact, vocab) -> None:
                  f"{TOP_K}")
         # exact search (nprobe=None): the ids of the plain full-corpus top-k
         check_topk(f"[{tag}] request {r.rid} retrieval",
-                   ex_s[r.rid:r.rid + 1].cpu(), got,
-                   ex_s[r.rid:r.rid + 1].cpu(), ex_i[r.rid:r.rid + 1].cpu())
+                   ex_s[qi:qi + 1].cpu(), got,
+                   ex_s[qi:qi + 1].cpu(), ex_i[qi:qi + 1].cpu())
 
 
 def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
@@ -1188,13 +1229,17 @@ def _swap_generator(torch, cfg, params, page_budget, host_pages):
         host_page_budget=host_pages, overlap_swap=True, device="cuda")
 
 
-def _pump(eng, rids):
+def _pump(eng, rids, tag="serve-swap", query_of=None,
+          priority_req=SWAP_PRIORITY_REQ):
     """fig8's deterministic drive: retrieve the batch, then pump the
-    engine single-threaded until every request is done."""
+    engine single-threaded until every request is done.  Request ``i``
+    asks ``q<query_of(i)>`` (default ``q<i>``); the last ``priority_req``
+    are priority 1."""
     from repro_torch.serving import Request
-    reqs = [Request(rid=i, query=f"q{i}", arrival=time.perf_counter(),
-                    top_k=TOP_K, max_new_tokens=MAX_NEW,
-                    priority=int(i >= rids[-1] + 1 - SWAP_PRIORITY_REQ))
+    reqs = [Request(rid=i, query=f"q{i if query_of is None else query_of(i)}",
+                    arrival=time.perf_counter(), top_k=TOP_K,
+                    max_new_tokens=MAX_NEW,
+                    priority=int(i >= rids[-1] + 1 - priority_req))
             for i in rids]
     eng._retrieve_batch(reqs)
     eng.pipeline.context_queue.put_many(reqs)
@@ -1203,7 +1248,7 @@ def _pump(eng, rids):
     while eng.pump_once() < target:
         guard += 1
         if guard > 400 * len(reqs):
-            fail("[serve-swap] the pump stalled")
+            fail(f"[{tag}] the pump stalled")
     return reqs
 
 
@@ -1304,6 +1349,208 @@ def phase_serve_swap(torch, cfg, params, store, queries, exact, smi: str):
     return results["swap"]["counts"]
 
 
+def _prefix_generator(torch, cfg, params, **kw):
+    from repro_torch.serving import ContinuousGenerator, GeneratorConfig
+    return ContinuousGenerator(
+        cfg, params, GeneratorConfig(ctx_len=PREFIX_CTX,
+                                     max_new_tokens=MAX_NEW,
+                                     dtype=torch.bfloat16),
+        num_slots=SLOTS, paged=True, page_size=PAGE, prefill_chunk=CHUNK,
+        device="cuda", **kw)
+
+
+def _near_tie(torch, cfg, params, fp32, req, got: str):
+    """Where ``got`` first leaves ``req``'s tokens (run 1's): the prompt
+    and run 1's tokens before that point go through one-shot prefill with
+    the bf16 weights and with ``fp32``, their cast.  Returns (position,
+    run 1's token, the other token, their fp32 logit gap, the largest
+    bf16-fp32 logit difference of that row)."""
+    from repro_torch.models.model import Model, init_cache
+    from repro_torch.serving.generator import HashTokenizer
+    want = [int(t[3:]) for t in req.output.split()]
+    other = [int(t[3:]) for t in got.split()]
+    t = next(i for i, (a, b) in enumerate(zip(want, other)) if a != b)
+    toks = HashTokenizer(cfg.vocab_size).encode(req.prompt, PREFIX_CTX)
+    ids = torch.tensor([list(toks) + want[:t]], dtype=torch.int32,
+                       device="cuda")
+    model = Model(cfg, device="cuda")
+    rows = {}
+    with torch.no_grad():
+        for name, p in (("bf16", params), ("fp32", fp32)):
+            cache = init_cache(cfg, 1, ids.shape[1], p["embed"].dtype,
+                               "cuda")
+            rows[name] = model.prefill(p, ids, cache)[0].float()
+            del cache
+    gap = float(rows["fp32"][want[t]] - rows["fp32"][other[t]])
+    err = float((rows["bf16"] - rows["fp32"]).abs().max())
+    return t, want[t], other[t], gap, err
+
+
+def phase_serve_prefix(torch, cfg, params, store, queries, exact, smi: str):
+    """Recurring prompts through the radix prefix cache, four runs on the
+    continuous path's generator at ``PREFIX_CTX`` with the bf16 weights
+    (see the module docstring).  Returns the launch counts of each run.
+
+    Every run must give run 1's tokens, or leave them first at a near
+    tie.  A prefix hit prefills its suffix (1 token here) where a miss
+    prefills the last 254 tokens of the prompt in one chunk, and run 4
+    decodes 4 rows where the others decode 8: other matmul shapes, so in
+    bf16 other roundings.  So a request whose tokens differ is recomputed
+    (``_near_tie``) up to its first other token, and the two choices'
+    fp32 logits must lie within twice the bf16 logits' largest error in
+    that row: within what bf16 rounding alone can turn."""
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.serving import RagdollEngine, percentile
+    worst = -(-(PREFIX_CTX + MAX_NEW) // PAGE)
+    prompt_pages = -(-PREFIX_CTX // PAGE)
+    order = [q for rnd in PREFIX_ROUNDS for q in rnd]
+    pages = SLOTS * worst + len(set(order)) * prompt_pages
+    if len(order) != N_REQ:
+        fail(f"[serve-prefix] {len(order)} requests in PREFIX_ROUNDS")
+
+    def engine(gen):
+        return RagdollEngine(store, QueryEmbedder(queries), gen,
+                             BacklogScheduler(max_batch=N_REQ),
+                             BacklogScheduler(max_batch=SLOTS),
+                             initial_partitions=PARTITIONS - SPILLED,
+                             device="cuda")
+
+    def serve(label, gen, eng):
+        tag = f"serve-prefix {label}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = (gen.joins, gen.prefill_tokens, gen.prefix_hit_tokens,
+                  gen.cow_copies)
+        stats0 = (vars(gen.prefix.stats).copy() if gen.prefix is not None
+                  else {})
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs, first = [], 0
+        for rnd in PREFIX_ROUNDS:
+            reqs += _pump(eng, list(range(first, first + len(rnd))),
+                          tag=tag, query_of=order.__getitem__,
+                          priority_req=0)
+            first += len(rnd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_requests(torch, tag, reqs, exact, cfg.vocab_size)
+        missing = [n for n in CONTINUOUS_KERNELS if counts[n] == 0]
+        if missing:
+            fail(f"[{tag}] kernels never launched on this path: {missing}")
+        joins, prefilled, hits, cow = (
+            now - was for now, was in zip(
+                (gen.joins, gen.prefill_tokens, gen.prefix_hit_tokens,
+                 gen.cow_copies), before))
+        stats = ({k: v - stats0[k] for k, v in vars(gen.prefix.stats).items()}
+                 if gen.prefix is not None else {})
+        lat = [r.latency for r in reqs]
+        per_join = prefilled / max(joins, 1)
+        log(f"[{tag}] {N_REQ}/{N_REQ} requests, {MAX_NEW} tokens and {TOP_K}"
+            f" exact chunks each, in {wall:.3f} s: "
+            f"{N_REQ * MAX_NEW / wall:.1f} output tokens/s, p50 "
+            f"{percentile(lat, 50):.3f} s; {joins} joins, {prefilled} prompt "
+            f"tokens prefilled ({per_join:.1f} a join), hit tokens {hits}, "
+            f"CoW copies {cow}, pages demoted "
+            f"{stats.get('demoted_pages', 0)} revived "
+            f"{stats.get('revived_pages', 0)}; {gen.num_slots} slots, "
+            f"{gen.kv.pool.capacity} pages; peak device memory "
+            f"{peak / 2 ** 30:.2f} GiB ({smi})")
+        log(f"[{tag}] launches: {json.dumps(counts)}")
+        return dict(outputs={r.rid: r.output for r in reqs}, reqs=reqs,
+                    counts=counts,
+                    per_join=per_join, hits=hits, cow=cow, stats=stats)
+
+    runs = {}
+    gen = _prefix_generator(torch, cfg, params, page_budget=pages)
+    eng = engine(gen)
+    try:
+        runs["off"] = serve("cache off", gen, eng)
+    finally:
+        eng.streamer.close()
+    del gen, eng
+    cached_gen = _prefix_generator(torch, cfg, params,
+                                   page_budget=pages, prefix_cache=True)
+    cached_eng = engine(cached_gen)
+    try:
+        runs["on"] = serve("cache on", cached_gen, cached_eng)
+        gen = _prefix_generator(torch, cfg, params,
+                                page_budget=pages, prefix_cache=True,
+                                prefix_page_budget=prompt_pages)
+        eng = engine(gen)
+        try:
+            runs["budget"] = serve(f"cache budget {prompt_pages} pages",
+                                   gen, eng)
+        finally:
+            eng.streamer.close()
+        del gen, eng
+        # run 4: the placement's knobs on run 2's generator
+        kv = cached_gen.kv
+        page_bytes = kv.page_nbytes(cached_gen.cache)
+        pages_before = kv.pool.capacity
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        applied = cached_gen.retarget(num_slots=PREFIX_SLOTS_AFTER,
+                                      page_budget=SLOTS * worst // 2,
+                                      prefix_page_budget=0)
+        torch.cuda.synchronize()
+        freed = mem_before - torch.cuda.memory_allocated()
+        dropped = (pages_before - kv.pool.capacity) * page_bytes
+        log(f"[serve-prefix retarget] {applied}: {pages_before} -> "
+            f"{kv.pool.capacity} pages ({page_bytes} B each), cached "
+            f"device pages {cached_gen.prefix.device_pages}, host "
+            f"{cached_gen.prefix.host_pages}; device memory allocated fell "
+            f"by {freed} B for {dropped} B of dropped pages ({smi})")
+        if dropped <= 0 or freed < 0.9 * dropped:
+            fail(f"[serve-prefix retarget] dropped {dropped} B of pages, "
+                 f"device memory fell by {freed} B: want at least 90 %")
+        if (applied.get("slots") != PREFIX_SLOTS_AFTER
+                or cached_gen.prefix.device_pages != 0):
+            fail(f"[serve-prefix retarget] applied {applied}, "
+                 f"{cached_gen.prefix.device_pages} cached device pages")
+        runs["retarget"] = serve(
+            f"retargeted to {PREFIX_SLOTS_AFTER} slots", cached_gen,
+            cached_eng)
+    finally:
+        cached_eng.streamer.close()
+    del cached_gen, cached_eng
+    want = {r.rid: r for r in runs["off"]["reqs"]}
+    fp32, ties = None, 0
+    for label, run in runs.items():
+        for rid, out in run["outputs"].items():
+            if out == want[rid].output:
+                continue
+            if fp32 is None:
+                fp32 = _cast(params, torch.float32)
+            t, a, b, gap, err = _near_tie(torch, cfg, params, fp32,
+                                          want[rid], out)
+            msg = (f"[serve-prefix {label}] request {rid} "
+                   f"({want[rid].query}): first other token at {t}, "
+                   f"{b} for run 1's {a}; fp32 logit gap {gap:.6f}, "
+                   f"bf16 logits off fp32 by up to {err:.6f} in that row")
+            if abs(gap) > 2 * err:
+                fail(f"{msg}: not a near tie")
+            log(f"{msg}: a near tie ({smi})")
+            ties += 1
+    del fp32
+    on, off, budget = runs["on"], runs["off"], runs["budget"]
+    if not (on["per_join"] < off["per_join"] and on["hits"] > 0
+            and on["cow"] > 0):
+        fail(f"[serve-prefix] with the cache: {on['per_join']:.1f} prompt "
+             f"tokens a join (without: {off['per_join']:.1f}), hit tokens "
+             f"{on['hits']}, CoW copies {on['cow']}: want fewer, > 0, > 0")
+    if not (budget["stats"]["demoted_pages"] > 0
+            and budget["stats"]["revived_pages"] > 0):
+        fail(f"[serve-prefix] under the budget: {budget['stats']}: want "
+             "pages demoted and revived")
+    log(f"[serve-prefix] {N_REQ}/{N_REQ} requests in each of four runs: "
+        f"the same {MAX_NEW} tokens as without the prefix cache, but for "
+        f"{ties} that leave them at a near tie")
+    return [run["counts"] for run in runs.values()]
+
+
 CATEGORIES = (
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
@@ -1347,6 +1594,15 @@ def breakdown(tag, records, window_s: float, smi: str) -> None:
         log(f"[profile {tag}]   {t:8.3f} s {t / total:6.1%}  {label}")
     for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile {tag}]   top {t:8.3f} s  {name[:110]}")
+
+
+def _cast(tree, dtype):
+    """A parameter tree in ``dtype`` (the same tensors where they are)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
 
 
 def _leaves(tree):
@@ -1393,9 +1649,12 @@ def main() -> int:
                                   smi, paged["outputs"])
         swap = phase_serve_swap(torch, cfg, params, store, queries, exact,
                                 smi)
+        prefix = phase_serve_prefix(torch, cfg, params, store, queries,
+                                    exact, smi)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
-    runs = [paged["counts"], swap] + [r["counts"] for r in batch.values()]
+    runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
+            + prefix)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         kernels.append(dict(name=kname, route=route, source=source,

@@ -16,8 +16,9 @@ serving paths run (``mixer="attn"``/``"local"``):
 
 An int8 pool (``cache`` has ``k_scale``/``v_scale`` leaves of ``(P, KV)``
 fp32) quantizes on append (``kernels/quant.py``); chunked prefill then
-attends over the dequantized gather, and decode hands the scales to the
-paged kernel, which dequantizes as it reads.
+attends over the fp32 dequantized gather (the flash kernel's fp32 path,
+whatever the compute type), and decode hands the scales to the paged
+kernel, which dequantizes as it reads.
 
 JAX rebuilt the cache arrays on every call; here the tensors in ``cache``
 are updated in place (``_row_update``, ``_paged_scatter``).  Dense
@@ -103,23 +104,27 @@ def attention_forward(
         k = layers.apply_rope(k, cos, sin, rot)
         if "k_scale" in cache:
             # int8 pool: quantize the chunk on append, then attend over
-            # the dequantized view (in q's type, as the kernel takes it)
+            # the fp32 dequantized view, as the reference does: q goes to
+            # fp32 (exact) for the kernel's fp32 path, and the output
+            # comes back in q's type to meet ``wo``
             quant.paged_scatter_quant(cache["k"], cache["k_scale"], k,
                                       block_tab, positions)
             quant.paged_scatter_quant(cache["v"], cache["v_scale"], v,
                                       block_tab, positions)
             kd = ref.gather_paged_kv(cache["k"], block_tab, kv_span,
-                                     scale=cache["k_scale"]).to(q.dtype)
+                                     scale=cache["k_scale"])
             vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span,
-                                     scale=cache["v_scale"]).to(q.dtype)
+                                     scale=cache["v_scale"])
+            qa = q.float()
         else:
             _paged_scatter(cache["k"], k, block_tab, positions)
             _paged_scatter(cache["v"], v, block_tab, positions)
             kd = ref.gather_paged_kv(cache["k"], block_tab, kv_span)
             vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span)
+            qa = q
         out = ops.flash_attention(
-            q, kd, vd, causal=True, window=window, softcap=softcap,
-            kv_len=pos + s, q_offset=pos)
+            qa, kd, vd, causal=True, window=window, softcap=softcap,
+            kv_len=pos + s, q_offset=pos).to(q.dtype)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
     cos, sin = layers.rope_cos_sin(pos, rot, cfg.rope_theta)   # (B, rot/2)

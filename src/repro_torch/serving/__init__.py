@@ -3,11 +3,14 @@ from repro_torch.serving.engine import RagdollEngine, SerialRAGEngine
 from repro_torch.serving.generator import (ContinuousGenerator, Generator,
                                            GeneratorConfig, SlotRef,
                                            SlotTable, StaleSlotError)
-from repro_torch.serving.kvpool import PagedKVCache, PageExhausted, PagePool
+from repro_torch.serving.kvpool import (HostPagePool, PagedKVCache,
+                                        PageExhausted, PagePool)
+from repro_torch.serving.prefixcache import PrefixCache, PrefixCacheStats
 from repro_torch.serving.reqsched import RequestScheduler
 
 __all__ = ["Request", "latency_table", "percentile", "RagdollEngine",
            "SerialRAGEngine", "GeneratorConfig", "Generator",
            "ContinuousGenerator", "SlotTable", "SlotRef",
-           "StaleSlotError", "PagePool", "PagedKVCache", "PageExhausted",
+           "StaleSlotError", "PagePool", "PagedKVCache", "HostPagePool",
+           "PageExhausted", "PrefixCache", "PrefixCacheStats",
            "RequestScheduler"]

@@ -23,7 +23,8 @@ in arrival order.
 
 The engines run without a placement optimizer and with one retrieval
 shard; the placement policy (``optimizer``) and sharded retrieval come
-with later slices of the port.
+with later slices of the port.  ``policy_every`` is accepted and kept,
+as the reference keeps it, and is inert while there is no optimizer.
 """
 from __future__ import annotations
 
@@ -57,6 +58,7 @@ class RagdollEngine:
                  retrieval_shards: int = 1,
                  aging_s: float = 30.0,
                  partial_swap: bool = False,
+                 policy_every: int = 8,
                  device: DeviceLike = None,
                  tracer=None, registry=None):
         if optimizer is not None:
@@ -67,6 +69,9 @@ class RagdollEngine:
         self.store = store
         self.embedder = embedder
         self.generator = generator
+        # decode steps between policy boundaries; with no optimizer there
+        # is no policy to consult, so nothing runs there
+        self.policy_every = policy_every
         self.continuous = isinstance(generator, ContinuousGenerator)
         self.tracer = tracer or NULL_TRACER
         self.registry = registry if registry is not None \
@@ -106,7 +111,8 @@ class RagdollEngine:
                 "generation", cq, dq,
                 capacity_fn=self.scheduler.capacity,
                 admit_fn=self.scheduler.admit,
-                step_fn=self._generate_step)
+                step_fn=self._generate_step,
+                policy_every=policy_every)
             self.pipeline = Pipeline(retrieval_queue=rq, context_queue=cq,
                                      done_queue=dq, workers=[rw, gw])
         else:

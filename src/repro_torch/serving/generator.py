@@ -24,6 +24,16 @@ The two disciplines of ``repro.serving.generator``, on the ``Model`` path:
       ``step`` interleaved with live decode; without it the join prefills
       one-shot and scatters the row into the slot's pages.
 
+    With ``prefix_cache=True`` a radix tree over prompt tokens
+    (:class:`~repro_torch.serving.prefixcache.PrefixCache`) keeps the KV
+    pages of finished prefills; a joining prompt that matches a cached
+    prefix maps those pages into its block table (refcount+1, read-only)
+    and prefills only the novel suffix.  The partially matched boundary
+    page is copied at join; a decode write that lands in a page still
+    shared (a donor's cached tail) is detached copy-on-write before the
+    step runs.  Cold cached prefixes demote to the host tier and revive
+    on the next hit.
+
     The paged layout takes ``kv_format="int8"`` (pages quantized on
     append, per-page-per-head fp32 scales) and preemption to the host:
     ``preempt(ref)`` copies a live slot's pages (``pages=k``: its ``k``
@@ -41,9 +51,10 @@ Slot lifecycle::
                       v    resume (any free slot, fresh pages, remapped
                     parked         block table)
 
+``resize``, ``set_page_budget`` and ``retarget`` change the slot table's
+and the pools' capacity between steps (the placement policy's knobs).
 Not in the port yet, and raising ``NotImplementedError``: the
-layer-streamed executor, prefix sharing, and resizing the slot table or
-the device pool (``resize``, ``retarget``, ``set_page_budget``).
+layer-streamed executor (``streamed=True``).
 """
 from __future__ import annotations
 
@@ -59,7 +70,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, init_cache
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
-from repro_torch.serving.kvpool import PREFIX_SLICE, PagedKVCache
+from repro_torch.serving.kvpool import (PagedKVCache, PageExhausted,
+                                        resize_cache_rows)
+from repro_torch.serving.prefixcache import PrefixCache
 
 
 class HashTokenizer:
@@ -172,7 +185,8 @@ class SlotTable:
 
     ``acquire`` leases the lowest free slot; ``release`` bumps the slot's
     epoch so any retained :class:`SlotRef` from the previous lease raises
-    :class:`StaleSlotError` instead of touching a recycled slot.
+    :class:`StaleSlotError` instead of touching a recycled slot.  Free
+    and active slots partition the capacity.
     """
 
     def __init__(self, capacity: int):
@@ -193,6 +207,13 @@ class SlotTable:
 
     def active_refs(self) -> List[SlotRef]:
         return [SlotRef(i, self._epochs[i]) for i in sorted(self._active)]
+
+    def mask(self) -> np.ndarray:
+        """(capacity,) bool: True where a slot is leased."""
+        m = np.zeros(self.capacity, bool)
+        for i in self._active:
+            m[i] = True
+        return m
 
     def state(self, ref: SlotRef) -> SlotState:
         self._check(ref)
@@ -229,6 +250,30 @@ class SlotTable:
         self._epochs[ref.index] += 1
         self._free.append(ref.index)
         return st
+
+    def resize(self, target: int) -> int:
+        """Retarget capacity; returns the actual new capacity.
+
+        Growth appends fresh free slots; a shrink drops only free slots
+        from the top, so the result is clamped to one past the highest
+        active lease.  Dropped slots keep their epoch counters, so a
+        SlotRef kept across a shrink and grow cycle still raises
+        :class:`StaleSlotError` instead of validating against a fresh
+        lease of the re-grown slot.
+        """
+        target = max(int(target), 1)
+        if target > self.capacity:
+            grown = list(range(self.capacity, target))
+            if target > len(self._epochs):      # epochs survive a shrink
+                self._epochs.extend([0] * (target - len(self._epochs)))
+            self._free = sorted(self._free + grown, reverse=True)
+            self.capacity = target
+            return self.capacity
+        floor = max(target, max(self._active, default=-1) + 1)
+        self._free = sorted((i for i in self._free if i < floor),
+                            reverse=True)
+        self.capacity = floor
+        return self.capacity
 
 
 # ---------------------------------------------------------------------------
@@ -303,8 +348,13 @@ class ContinuousGenerator(_GeneratorBase):
             raise ValueError("kv_format requires paged=True")
         if overlap_swap and not paged:
             raise ValueError("overlap_swap requires paged=True")
-        if prefix_cache or prefix_page_budget is not None:
-            raise NotImplementedError(f"prefix cache: {PREFIX_SLICE}")
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache requires paged=True")
+        if overlap_swap and prefix_cache:
+            # the prefix cache copies to and from the host tier inline
+            # (demote, revive), beside the queued swap copies
+            raise ValueError("overlap_swap is incompatible with "
+                             "prefix_cache")
         super().__init__(cfg, params, gen_cfg, streamed=streamed,
                          policy=policy, device=device)
         self.tracer = tracer or NULL_TRACER
@@ -319,6 +369,14 @@ class ContinuousGenerator(_GeneratorBase):
         self.paged = paged
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(page_size, prefix_page_budget) if prefix_cache
+            else None)
+        # prefill and sharing counts (deterministic; fig8 reports them)
+        self.joins = 0
+        self.prefill_tokens = 0       # prompt tokens actually prefilled
+        self.prefix_hit_tokens = 0    # prompt tokens served from the cache
+        self.cow_copies = 0
         self._prefilling: Dict[int, _ChunkJob] = {}
         self._parked: Dict[Any, _Parked] = {}
         # slots whose swap-in copy is in flight: leased, but out of decode
@@ -343,6 +401,7 @@ class ContinuousGenerator(_GeneratorBase):
         self._cur = np.zeros(num_slots, np.int32)
         self._pos = np.zeros(num_slots, np.int32)
         self._finished: List[Tuple[Any, str, List[int]]] = []
+        self.steps = 0
 
     # ------------------------------------------------------------ helpers
     def bind_obs(self, tracer=None, registry=None) -> None:
@@ -379,11 +438,18 @@ class ContinuousGenerator(_GeneratorBase):
 
     @property
     def admit_capacity(self) -> int:
-        """Joins guaranteed to succeed right now (slots AND pages)."""
+        """Joins guaranteed to succeed right now (slots AND pages).  With
+        a prefix cache, pages it could give up (refcount 1) count as
+        available: ``join`` reclaims them on demand."""
         if not self.paged:
             return self.table.free_slots
         worst = self.gen_cfg.ctx_len + self.gen_cfg.max_new_tokens
-        return min(self.table.free_slots, self.kv.admit_capacity(worst))
+        cap = self.kv.admit_capacity(worst)
+        if self.prefix is not None and cap == 0:
+            spare = (self.kv.pool.available_pages
+                     + self.prefix.evictable_pages(self.kv))
+            cap = spare // max(1, self.kv.pool.blocks_for(worst))
+        return min(self.table.free_slots, cap)
 
     def _scatter_row(self, row_cache, slot: int) -> None:
         """Overwrite slot ``slot``'s dense KV row with a batch=1 cache."""
@@ -422,7 +488,14 @@ class ContinuousGenerator(_GeneratorBase):
         whole-batch loop), so a budget of 1 finishes without any step.
         With chunked prefill the slot is leased at once, but the prompt's
         chunks ride the following ``step`` calls and the first token
-        appears after the last chunk lands."""
+        appears after the last chunk lands.
+
+        With ``prefix_cache=True`` the prompt is first walked against the
+        radix cache: matched full pages map into the block table, shared,
+        a partially matched boundary page is copied into a private page,
+        and only the ``ctx_len - matched`` suffix tokens are prefilled
+        (``matched`` is capped at ``ctx_len - 1``, so the suffix prefill
+        always gives the first token's logits)."""
         g = self.gen_cfg
         req = g.max_new_tokens if max_new_tokens is None else max_new_tokens
         # prefill always emits the first token, so the budget floor is 1
@@ -431,19 +504,47 @@ class ContinuousGenerator(_GeneratorBase):
         if ref is None:
             return None
         ptoks = self.tok.encode(prompt, g.ctx_len)
-        if self.paged and not self.kv.admit(ref.index, g.ctx_len + budget):
-            self.table.release(ref)         # page backpressure
-            return None
+        matched = 0
+        if self.paged:
+            if self.prefix is not None:
+                m = self._admit_shared(ref, ptoks, g.ctx_len + budget)
+                if m is None:
+                    self.table.release(ref)     # page backpressure
+                    return None
+                matched = m
+            elif not self.kv.admit(ref.index, g.ctx_len + budget):
+                self.table.release(ref)         # page backpressure
+                return None
+        self.joins += 1
+        self.prefill_tokens += g.ctx_len - matched
         self.peak_in_flight = max(self.peak_in_flight, self.in_flight)
         if self.tracer.enabled:
             self._slot_scope[ref.index] = self.tracer.current_scope()
         if self.prefill_chunk is not None:
             # park decode writes on the last position: its page is either
             # unallocated (-> trash) or self-overwritten by the final
-            # decode step before it is ever read
-            self._prefilling[ref.index] = _ChunkJob(ref=ref, toks=ptoks)
+            # decode step before it is ever read.  A prefix hit starts the
+            # job at the matched offset: only the suffix chunks run
+            self._prefilling[ref.index] = _ChunkJob(ref=ref, toks=ptoks,
+                                                    offset=matched)
             self._cur[ref.index] = 0
             self._pos[ref.index] = self._total - 1
+            return ref
+        if matched > 0:
+            # suffix-only prefill through the block table (the shared
+            # prefix pages give positions [0, matched) to attention)
+            with self.tracer.span("prefill", slot=ref.index,
+                                  tokens=g.ctx_len - matched,
+                                  matched=matched):
+                self.kv.ensure(ref.index, g.ctx_len)
+                off = torch.full((1,), matched, dtype=torch.int32,
+                                 device=self.device)
+                logits = self.model.chunk_prefill(
+                    self.params, self._device_ints(ptoks[None, matched:]),
+                    self.cache, off, self.kv.slot_tab(ref.index),
+                    kv_span=g.ctx_len)
+            self._prefix_insert(ref.index, ptoks)
+            self._emit(ref, int(torch.argmax(logits[0])))
             return ref
         with self.tracer.span("prefill", slot=ref.index, tokens=g.ctx_len):
             row = init_cache(self.cfg, 1, self._total, g.dtype, self.device)
@@ -454,8 +555,87 @@ class ContinuousGenerator(_GeneratorBase):
                                             g.ctx_len)
             else:
                 self._scatter_row(row, ref.index)
+        if self.paged:
+            self._prefix_insert(ref.index, ptoks)
         self._emit(ref, int(torch.argmax(logits[0])))
         return ref
+
+    # --------------------------------------------------- prefix sharing
+    def _admit_shared(self, ref: SlotRef, toks: np.ndarray,
+                      length: int) -> Optional[int]:
+        """Prefix-aware admission: match, map the shared pages, copy the
+        boundary page.  Returns the matched token count (0: a miss), or
+        ``None`` on page backpressure (nothing retained).
+
+        The match pins every node it returns, so an eviction between here
+        and the admit below can never free a matched page.  Full-page pins
+        transfer to the joiner's block table; the boundary pin is dropped
+        once its page is copied.
+        """
+        g = self.gen_cfg
+        nodes, m = self.prefix.match(toks, self.kv, self.cache)
+        # the suffix prefill must cover >= 1 token: it emits the first
+        # output token
+        m = min(m, g.ctx_len - 1)
+        f, t = divmod(m, self.page_size)
+        shared = [n.page for n in nodes[:f]]
+        ok = self.kv.admit(ref.index, length, shared=shared)
+        if not ok:
+            # evict cold cached pages to fund the reservation, retry once
+            short = (self.kv.pool.blocks_for(length) - f
+                     - self.kv.pool.available_pages)
+            if short > 0:
+                self.prefix.reclaim(short, self.kv, self.cache)
+                ok = self.kv.admit(ref.index, length, shared=shared)
+        if not ok:
+            self.prefix.unpin(nodes, self.kv)
+            return None
+        if t > 0:
+            # the partially matched boundary page becomes a private copy
+            # (the suffix prefill overwrites its tail in place)
+            self.kv.ensure(ref.index, m)
+            dst = self.kv.pool.table(ref.index)[f]
+            self.kv.copy_page(self.cache, nodes[f].page, dst)
+        self.prefix.unpin(nodes[f:], self.kv)
+        if m > 0:
+            self.prefix.stats.hits += 1
+            self.prefix.stats.hit_tokens += m
+            self.prefix_hit_tokens += m
+        else:
+            self.prefix.stats.misses += 1
+        return m
+
+    def _prefix_insert(self, slot: int, toks: np.ndarray) -> None:
+        """Cache a freshly prefilled prompt's pages (refcount+1 each).
+        Called once a prefill completes, before the first ``_emit``, so a
+        budget-1 request that finishes at once still donates its prefix
+        (the cache's references keep the pages past the release)."""
+        if self.prefix is None:
+            return
+        blocks = self.kv.pool.blocks_for(self.gen_cfg.ctx_len)
+        pages = self.kv.pool.table(slot)[:blocks]
+        self.prefix.insert(toks, pages, self.kv, self.cache)
+
+    def _cow_barrier(self, refs: List[SlotRef]) -> None:
+        """Detach shared pages that this step's decode will write.
+
+        A slot's pending write lands at ``_pos``; if that block is still
+        shared (a donor's cached tail page), it is copied out first.  When
+        no spare page can fund the copy, the page is un-cached instead:
+        the cache is then the only other holder, so dropping its reference
+        makes the page private and the write may go ahead in place.
+        """
+        for ref in refs:
+            blk = int(self._pos[ref.index]) // self.page_size
+            tab = self.kv.pool.table(ref.index)
+            if blk >= len(tab) or self.kv.pool.refcount(tab[blk]) <= 1:
+                continue
+            try:
+                if self.kv.cow_block(self.cache, ref.index, blk):
+                    self.cow_copies += 1
+            except PageExhausted:
+                if not self.prefix.drop_page(tab[blk], self.kv):
+                    raise
 
     def _advance_prefills(self) -> int:
         """Prefill one chunk for every joining slot, one batch=1 call per
@@ -490,6 +670,7 @@ class ContinuousGenerator(_GeneratorBase):
         progressed = len(self._prefilling)
         for slot, token in finished:
             job = self._prefilling.pop(slot)
+            self._prefix_insert(slot, job.toks)  # donate before any release
             self._emit(job.ref, token)      # first token, as full prefill
         return progressed
 
@@ -512,9 +693,15 @@ class ContinuousGenerator(_GeneratorBase):
                 # head job (stall-counted) so the pump keeps pumping
                 self.kv.wait_any()
                 progressed += self._poll_swaps()
+            if progressed:
+                self.steps += 1
             return progressed
         bt, span_len = None, None
         if self.paged:
+            if self.prefix is not None:
+                # copy-on-write: detach a still-shared page this step's
+                # decode writes would land in (a donor's tail page)
+                self._cow_barrier(refs)
             # allocate the page each live slot's pending write needs
             for ref in refs:
                 self.kv.ensure(ref.index, int(self._pos[ref.index]) + 1)
@@ -531,11 +718,15 @@ class ContinuousGenerator(_GeneratorBase):
             nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         if (self.paged and self.registry.enabled
                 and self.kv.kv_format == "int8"):
-            # dequantized reads: every live slot's context this step
-            self.registry.counter("kv.dequant_tokens").inc(
-                sum(int(self._pos[r.index]) + 1 for r in refs))
+            # dequantized reads: every live slot's context this step,
+            # priced at its int8 payload bytes
+            toks = sum(int(self._pos[r.index]) + 1 for r in refs)
+            self.registry.counter("kv.dequant_bytes").inc(
+                toks * self.cfg.kv_cache_bytes_per_token(1))
+            self.registry.counter("kv.dequant_tokens").inc(toks)
         for ref in refs:
             self._emit(ref, int(nxt[ref.index]))
+        self.steps += 1
         return len(refs) + progressed
 
     # ---------------------------------------------- preemption (swap-to-host)
@@ -668,11 +859,80 @@ class ContinuousGenerator(_GeneratorBase):
         resumed, _ = self.kv.fence()
         self._pending_resume.difference_update(resumed)
 
+    # -------------------------------------------------- dynamic capacity
+    def resize(self, num_slots: int) -> int:
+        """Grow or shrink the slot table; returns the actual capacity.
+
+        A shrink drops only free top slots (never live work).  Paged mode
+        touches just the block table; dense mode pads or cuts the cache
+        rows (``resize_cache_rows``).
+        """
+        actual = self.table.resize(num_slots)
+        if actual == self.num_slots:
+            return actual
+        keep = min(actual, self.num_slots)
+        for name in ("_cur", "_pos"):
+            arr = np.zeros(actual, np.int32)
+            arr[:keep] = getattr(self, name)[:keep]
+            setattr(self, name, arr)
+        if self.paged:
+            self.kv.resize_slots(actual)
+        else:
+            resize_cache_rows(self.cache, actual)
+        self.num_slots = actual
+        return actual
+
+    def set_page_budget(self, pages: int) -> int:
+        """Retarget the paged pool's usable-page budget (paged only).  A
+        shrink first evicts cold cached prefix pages (LRU demotion to the
+        host tier) so the cache never keeps the pool from its smaller
+        share; the dropped pages' device bytes are given back."""
+        if not self.paged:
+            raise ValueError("set_page_budget requires paged=True")
+        if self.prefix is not None:
+            over = self.kv.pool.referenced_pages - pages
+            if over > 0:
+                self.prefix.reclaim(over, self.kv, self.cache)
+        return self.kv.resize_pages(self.cache, pages)
+
     def set_host_page_budget(self, pages: int) -> int:
         """Retarget the host swap pool's page budget (paged only)."""
         if not self.paged:
             raise ValueError("set_host_page_budget requires paged=True")
         return self.kv.set_host_budget(pages)
+
+    def retarget(self, num_slots: Optional[int] = None,
+                 page_budget: Optional[int] = None,
+                 host_page_budget: Optional[int] = None,
+                 prefix_page_budget: Optional[int] = None
+                 ) -> Dict[str, int]:
+        """Apply a placement's capacity at a policy boundary.
+
+        Outstanding swap copies are fenced first.  The page budget is
+        clamped to what the block tables can address (``num_slots *
+        nmax``) and floored at one worst-case request (``nmax``).  The
+        host budget is capped at parking every slot worst-case; zero
+        disables preemption.  The prefix budget caps the device pages the
+        radix cache may hold, enforced at once by LRU demotion.
+        """
+        out: Dict[str, int] = {}
+        self.fence()
+        if num_slots is not None:
+            out["slots"] = self.resize(num_slots)
+        if page_budget is not None and self.paged:
+            budget = max(min(page_budget, self.num_slots * self.kv.nmax),
+                         self.kv.nmax)
+            out["pages"] = self.set_page_budget(budget)
+        if host_page_budget is not None and self.paged:
+            budget = min(host_page_budget, self.num_slots * self.kv.nmax)
+            out["host_pages"] = self.set_host_page_budget(budget)
+        if (prefix_page_budget is not None and self.paged
+                and self.prefix is not None):
+            budget = max(0, min(prefix_page_budget, self.kv.pool.capacity))
+            self.prefix.budget = budget
+            self.prefix.enforce(self.kv, self.cache)
+            out["prefix_pages"] = budget
+        return out
 
     def harvest(self) -> List[Tuple[Any, str, List[int]]]:
         """Drain (key, text, tokens) for rows finished since last call."""

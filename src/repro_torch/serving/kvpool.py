@@ -13,6 +13,17 @@ Ported from ``repro.serving.kvpool``:
     (possibly partial) swap; pages freed under an outstanding copy stay
     *in flight*, unallocatable, until ``complete_inflight``.
 
+    Pages carry **refcounts** so one physical page can back the same
+    logical prefix in many block tables (``serving/prefixcache.py``):
+    ``admit(..., shared=pages)`` maps an already-referenced prefix into a
+    joining slot's table, ``incref``/``decref`` adjust standalone holds
+    (the radix cache's reference, a match-time pin), and a page returns
+    to the free list only when its count hits zero.  Shared pages are
+    read-only: a holder that must write one first detaches it with
+    ``cow`` (a fresh page, the table entry repointed, one reference
+    dropped on the original; ``PagedKVCache.cow_block`` copies the data).
+    ``resize`` retargets the capacity without dropping a page in use.
+
 ``HostPagePool``
     The host tier (the ``c_cpu`` share of the paper's KV placement): a
     free-list of host pages and one host tensor holding them, page-major
@@ -30,10 +41,11 @@ Ported from ``repro.serving.kvpool``:
     back onto fresh pages and remaps the block table.  With
     ``overlap=True`` the copies run on a side CUDA stream and complete
     through events that ``poll`` queries (the reference runs a transfer
-    thread); on the CPU the same path completes at once.
-
-Copy-on-write prefix pages and resizing the device pool are not in the
-port yet (:data:`PREFIX_SLICE`).
+    thread); on the CPU the same path completes at once.  ``copy_page``
+    and ``cow_block`` are the data half of copy-on-write; ``resize_pages``
+    and ``resize_slots`` retarget the pool and the table, and a shrink
+    reallocates the pool tensors, so the dropped pages' device bytes are
+    given back.
 """
 from __future__ import annotations
 
@@ -55,10 +67,6 @@ TRASH_PAGE = 0
 # per-page-per-head scale leaves; see ``kernels/quant.py``)
 KV_FORMAT_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16,
                    "int8": torch.int8}
-
-PREFIX_SLICE = ("the prefix-sharing slice of the port (prefix cache, "
-                "copy-on-write pages, pool resize)")
-
 
 class PageExhausted(RuntimeError):
     """The pool cannot supply the pages a live sequence needs."""
@@ -159,14 +167,26 @@ class PagePool:
             self._refs[p] = 1
         return new
 
-    def admit(self, key: Any, length: int) -> bool:
-        """Reserve ``blocks_for(length)`` pages for a joining request."""
+    def admit(self, key: Any, length: int,
+              shared: Sequence[int] = ()) -> bool:
+        """Reserve ``blocks_for(length)`` pages for a joining request.
+
+        ``shared`` maps an already-referenced page run (a cached prefix)
+        into the head of the new block table: the caller holds one
+        reference per page (a pin from ``PrefixCache.match``), and that
+        reference transfers to the table entry (no incref here; ``release``
+        later decrefs it like any other entry).  Only the blocks beyond
+        the shared prefix are reserved.
+        """
         if key in self._tables:
             raise ValueError(f"slot {key!r} already holds pages")
-        need = self.blocks_for(length)
+        for p in shared:
+            if self._refs.get(p, 0) < 1:
+                raise ValueError(f"shared page {p} is not referenced")
+        need = max(0, self.blocks_for(length) - len(shared))
         if need > self.available_pages:
             return False
-        self._tables[key] = []
+        self._tables[key] = list(shared)
         self._reserved[key] = need
         return True
 
@@ -244,6 +264,30 @@ class PagePool:
             return None
         return self._lease(n)
 
+    def cow(self, key: Any, block: int) -> Optional[Tuple[int, int]]:
+        """Copy-on-write detach of ``key``'s ``block`` before a write.
+
+        A shared page (refcount > 1) is read-only for every holder; the
+        writer takes a fresh page in its table and drops its reference on
+        the original.  Returns ``(src, dst)`` for the caller's data copy,
+        or ``None`` when the page is already private.  Draws from
+        unreserved spares only (the slot's reservation covers its private
+        blocks, never a detach), so it may raise :class:`PageExhausted`;
+        callers then un-cache the page instead
+        (``ContinuousGenerator._cow_barrier``).
+        """
+        tab = self._tables[key]
+        src = tab[block]
+        if self._refs.get(src, 0) <= 1:
+            return None
+        if self.available_pages < 1:
+            raise PageExhausted(
+                f"no spare page to detach shared page {src} for {key!r}")
+        dst = self._lease(1)[0]
+        tab[block] = dst
+        self.decref(src)
+        return src, dst
+
     # --------------------------------------------------------------- swap
     def park(self, key: Any, handle: Any, blocks: Optional[int] = None,
              inflight: bool = False) -> Tuple[List[int], int]:
@@ -308,6 +352,33 @@ class PagePool:
         generally differ from those ``swap_out`` returned.  Raises
         ``ValueError`` when ``key`` already holds device pages."""
         return self.unpark(key, key, blocks, reserve)
+
+    # ------------------------------------------------------------- resize
+    def resize(self, target: int) -> int:
+        """Retarget the usable-page capacity; returns the actual size.
+
+        Growth mints fresh ids; a shrink removes a contiguous run of free
+        pages from the top, clamped so that no referenced, in-flight or
+        reserved page is ever dropped.
+        """
+        target = max(int(target), 1)
+        if target > self._capacity:
+            self._free.extend(range(self._capacity + 1, target + 1))
+            self._capacity = target
+            return self._capacity
+        in_use_max = max(max(self._refs, default=0),
+                         max(self._inflight, default=0))
+        floor = max(target, in_use_max)
+        budget = self.free_pages - self.reserved_pages
+        free_set = set(self._free)
+        new_cap = self._capacity
+        while new_cap > floor and budget > 0 and new_cap in free_set:
+            free_set.remove(new_cap)
+            new_cap -= 1
+            budget -= 1
+        self._free = sorted(free_set, reverse=True)
+        self._capacity = new_cap
+        return self._capacity
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +581,23 @@ def _copy_pages(pools, mirror: torch.Tensor, hp: List[int], dp: List[int],
 # device-facing paged cache
 # ---------------------------------------------------------------------------
 
+def resize_cache_rows(pools, rows: int) -> None:
+    """Zero-pad or cut every leaf of a cache dict to ``rows`` along its
+    leading axis, in place: the layer dicts get new tensors.  "Rows" are
+    pool pages (trash page included) for a paged pool and slot rows for a
+    dense cache; both keep that axis first.  A cut copies the kept rows
+    into a fresh tensor, so the old storage, and with it the dropped rows'
+    device bytes, is freed once the caller holds no other reference."""
+    for layer in pools["blocks"]:
+        for name, leaf in layer.items():
+            if leaf.shape[0] == rows:
+                continue
+            new = leaf.new_zeros((rows,) + tuple(leaf.shape[1:]))
+            keep = min(rows, leaf.shape[0])
+            new[:keep].copy_(leaf[:keep])
+            layer[name] = new
+
+
 def _attn_only_kinds(cfg: ModelConfig) -> None:
     bad = {k for k, _ in cfg.layer_kinds()} - {"attn", "local"}
     if bad or cfg.encdec:
@@ -650,8 +738,17 @@ class PagedKVCache:
         self._tab_dev = None
 
     # ----------------------------------------------------------- lifecycle
-    def admit(self, slot: int, length: int) -> bool:
-        return self.pool.admit(slot, length)
+    def admit(self, slot: int, length: int,
+              shared: Sequence[int] = ()) -> bool:
+        """Book ``slot``'s worst-case reservation; with ``shared`` the
+        caller's pinned prefix pages become the head of the block table
+        (references transfer, see ``PagePool.admit``)."""
+        if not self.pool.admit(slot, length, shared=shared):
+            return False
+        if shared:
+            self._tab[slot, :len(shared)] = list(shared)
+            self._tab_dev = None
+        return True
 
     def ensure(self, slot: int, length: int) -> None:
         self._sync(slot, self.pool.ensure(slot, length))
@@ -662,6 +759,30 @@ class PagedKVCache:
 
     def admit_capacity(self, length: int) -> int:
         return self.pool.admit_capacity(length)
+
+    # ------------------------------------------------- sharing (CoW pages)
+    def copy_page(self, pools, src: int, dst: int) -> None:
+        """Whole-page copy ``src -> dst`` in every pool leaf, the int8
+        scale rows included (the data half of copy-on-write), in place on
+        the current stream."""
+        for leaf in _pool_leaves(pools):
+            leaf[dst] = leaf[src]
+
+    def cow_block(self, pools, slot: int, block: int) -> bool:
+        """Detach ``slot``'s ``block`` if shared: a fresh page, the data
+        copied, the table entry repointed.  False when the page was
+        already private.  May raise :class:`PageExhausted` (a draw from
+        spares only, see ``PagePool.cow``)."""
+        res = self.pool.cow(slot, block)
+        if res is None:
+            return False
+        src, dst = res
+        with self.tracer.span("kv.cow_copy", slot=slot, block=block):
+            self.copy_page(pools, src, dst)
+        self.registry.counter("kv.cow_copies").inc()
+        self._tab[slot, block] = dst
+        self._tab_dev = None
+        return True
 
     # ------------------------------------------------------ swap-to-host
     @staticmethod
@@ -835,10 +956,14 @@ class PagedKVCache:
     def set_host_budget(self, pages: int) -> int:
         """Retarget the host pool (the placement's ``c_cpu`` KV share).
         Fence first: the resize replaces the host tensor queued copies
-        use."""
+        use.  Copies the prefix cache queued on the current stream (its
+        demotions) are waited for: the resize reads the old host tensor
+        on the CPU."""
         if self._jobs:
             raise RuntimeError("fence outstanding swap copies before "
                                "resizing the host pool")
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         return self.host.resize(pages)
 
     # ------------------------------------------------------ one-shot join
@@ -864,9 +989,38 @@ class PagedKVCache:
                         quant.quantize_rows(pool[name], pool[name + "_scale"],
                                             row[name][:, :length], pages,
                                             offs)
+            self.registry.counter("kv.quant_bytes").inc(
+                length * self.cfg.kv_cache_bytes_per_token(1))
             self.registry.counter("kv.quant_tokens").inc(length)
             return
         for pool, row in zip(cache["blocks"], row_cache["blocks"]):
             for name in ("k", "v"):
                 pool[name][pages, offs] = row[name][0, :length].to(
                     pool[name].dtype)
+
+    # -------------------------------------------------------------- resize
+    def resize_slots(self, num_slots: int) -> None:
+        """Retarget the block table's rows (new rows point at trash)."""
+        if num_slots == self.num_slots:
+            return
+        tab = np.zeros((num_slots, self.nmax), np.int32)
+        keep = min(num_slots, self.num_slots)
+        tab[:keep] = self._tab[:keep]
+        self._tab = tab
+        self._tab_dev = None
+        self.num_slots = num_slots
+
+    def resize_pages(self, pools, target: int) -> int:
+        """Retarget the page budget; returns the actual page count.
+        Growth zero-pads the pool tensors; a shrink cuts them into fresh
+        tensors (the pool guarantees the dropped ids are free), so their
+        device bytes are given back.  Fence first: queued swap copies
+        read and write the old tensors."""
+        if self._jobs:
+            raise RuntimeError("fence outstanding swap copies before "
+                               "resizing the device pool")
+        old = self.pool.capacity
+        actual = self.pool.resize(target)
+        if actual != old:
+            resize_cache_rows(pools, actual + 1)
+        return actual

@@ -335,6 +335,36 @@ def test_flash_attention_large_tiles_on_card(cuda_device, d, per_row,
         float(err.max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,offsets", [
+    (1, (1023, 1008, 1000, 0)), (15, (1009, 1008, 1000, 0))])
+def test_flash_attention_prefix_suffix_on_card(cuda_device, dtype, sq,
+                                               offsets):
+    """A prefix hit's suffix prefill: 1 or 15 query rows deep in a
+    1024-key span, per-row offsets (the last row at 0), each row's kv_len
+    its offset + Sq; llama3-8b's 32/8 heads x 128.  fp32 is the int8
+    chunked prefill's path (fp32 dequantized K/V)."""
+    rng = np.random.default_rng(23)
+    b, sk, h, kvh, d = len(offsets), 1024, 32, 8, 128
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    off = np.array(offsets, np.int32)
+    kw = dict(causal=True, q_offset=_t(off).to(cuda_device),
+              kv_len=_t(off + sq).to(cuda_device))
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
 # ------------------------------------------------------ streaming top-k
 TOPK_SCORE_TOL = 1e-4       # fp32 dot products of unit vectors
 TIE_GAP = 1e-5              # ids must match where neighbours differ by more

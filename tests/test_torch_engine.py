@@ -7,7 +7,8 @@ max_new 4, page 8, ``prefill_chunk=16``, 3 slots) single-threaded through
 the same retrieved chunks and the same output tokens; the test first
 asserts that every greedy choice of the JAX run has a top-2 logit gap
 above 1e-3.  Also here: the port imports no JAX and no ``repro`` module,
-and its entry points refuse to fall back to the CPU.
+its entry points refuse to fall back to the CPU, and ``RagdollEngine``
+takes fig8's ``policy_every``.
 """
 import os
 import subprocess
@@ -177,3 +178,32 @@ def test_entry_points_refuse_cpu_fallback():
                             prefill_chunk=8, device=None)
     with pytest.raises(RuntimeError, match="CUDA"):
         VectorStore(8, 2)
+
+
+def test_engine_takes_policy_every_and_keeps_it_inert(tmp_path):
+    """fig8 builds its engines with ``policy_every=2``: the port accepts
+    it (default 8, as the reference), hands it to the generation pump,
+    and with no optimizer no policy runs at the boundaries; the optimizer
+    itself is still refused."""
+    cfg = get_config("llama3-8b").reduced(num_layers=1)
+    emb = HashEmbedder(dim=32)
+    store = VectorStore.build(TEXTS, emb, num_partitions=4,
+                              root=str(tmp_path), device="cpu")
+    gen = ContinuousGenerator(cfg, None, GeneratorConfig(
+        ctx_len=CTX, max_new_tokens=MAX_NEW), num_slots=SLOTS, paged=True,
+        page_size=PAGE, prefix_cache=True, device="cpu")
+    sched = (BacklogScheduler(max_batch=8), BacklogScheduler(max_batch=3))
+    for every in (None, 2):
+        kw = {} if every is None else dict(policy_every=every)
+        eng = RagdollEngine(store, emb, gen, *sched, device="cpu", **kw)
+        try:
+            want = 8 if every is None else every
+            assert eng.policy_every == want
+            pump = eng.pipeline.workers[1]
+            assert pump.policy_every == want
+            assert pump.on_policy_boundary is None
+        finally:
+            eng.streamer.close()
+    with pytest.raises(NotImplementedError):
+        RagdollEngine(store, emb, gen, *sched, optimizer=object(),
+                      policy_every=2, device="cpu")

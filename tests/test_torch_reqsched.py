@@ -9,10 +9,13 @@ and partial, inline and overlapped) token-identical to the uninterrupted
 parked interactive work resuming ahead of a batch backlog.
 
 The fig8 rows ``paged_tight``, ``paged_swap``, ``paged_int8``,
-``priority_mix`` and ``swap_overlap`` (``benchmarks/fig8_percentiles.py``)
-run through both engines single-threaded via ``pump_once``: the same
-retrieved chunks and tokens for every request, and equal ``peak``,
-``swaps``, ``budget`` and ``swap_bytes``.  Token equality is demanded
+``priority_mix``, ``swap_overlap``, ``prefix_off`` and ``prefix_on``
+(``benchmarks/fig8_percentiles.py``) run through both engines, built with
+``policy_every=2`` as fig8 builds them, single-threaded via
+``pump_once``: the same retrieved chunks and tokens for every request,
+and equal ``peak``, ``swaps``, ``budget`` and ``swap_bytes``; the prefix
+rows (one recurring query, a ragged context of ``ctx - 2``) also equal
+prefill tokens per join, hit tokens and copy-on-write copies.  Token equality is demanded
 after asserting that every greedy choice of the JAX run has a top-2 gap
 above 1e-3 (fp32 rows) or 2e-3 (the int8 row: its cross-framework
 logits may differ by one int8 code, which ``tests/test_torch_quant.py``
@@ -294,7 +297,7 @@ def test_interactive_resumes_ahead_of_batch_backlog(tiny_model):
 
 # ------------------------------------------------------------ fig8 rows
 FIG8_ROWS = ("paged_tight", "paged_swap", "paged_int8", "priority_mix",
-             "swap_overlap")
+             "swap_overlap", "prefix_off", "prefix_on")
 F_CTX, F_NEW, F_PAGE, F_SLOTS, F_REQ = 32, 4, 8, 3, 10
 F_TEXTS = [f"doc {i} topic{i % 5}" for i in range(120)]
 
@@ -302,6 +305,8 @@ F_TEXTS = [f"doc {i} topic{i % 5}" for i in range(120)]
 def _fig8_kw(variant, cfg):
     """The generator knobs of ``engine_rows`` in fig8_percentiles.py."""
     worst = -(-(F_CTX + F_NEW) // F_PAGE)
+    if variant.startswith("prefix"):
+        return dict(paged=True, prefix_cache=(variant == "prefix_on"))
     if variant == "paged_int8":
         fp32_page = F_PAGE * cfg.kv_cache_bytes_per_token(4)
         int8_page = (F_PAGE * cfg.kv_cache_bytes_per_token(1)
@@ -327,10 +332,24 @@ def _fig8_drive(eng, reqs):
     return sorted(eng.completed, key=lambda r: r.rid)
 
 
+def _fig8_ctx(variant):
+    """The prefix pair runs a ragged context, so the boundary-page copy
+    at join and the donor tail's CoW on its first decode both run."""
+    return F_CTX - 2 if variant.startswith("prefix") else F_CTX
+
+
+def _fig8_query(variant, i):
+    """The prefix pair asks one recurring query: identical prompts."""
+    return ("recurring shared question" if variant.startswith("prefix")
+            else f"query {i}")
+
+
 def _row(gen, reqs):
     return dict(peak=gen.peak_in_flight, swaps=gen.swap_outs,
                 swap_ins=gen.swap_ins, budget=gen.kv.pool.capacity,
                 swap_bytes=gen.kv.swap_out_bytes + gen.kv.swap_in_bytes,
+                ttft_tok=gen.prefill_tokens / max(gen.joins, 1),
+                hit_tok=gen.prefix_hit_tokens, cow=gen.cow_copies,
                 ids=[r.retrieved for r in reqs],
                 tokens=[r.output for r in reqs])
 
@@ -340,11 +359,18 @@ def _record_margins(gen, margins):
         top2 = np.sort(np.asarray(logits)[rows], axis=-1)[:, -2:]
         margins.extend(top2[:, 1] - top2[:, 0])
 
-    prefill, decode = gen._prefill, gen._decode_paged
+    prefill, chunk, decode = gen._prefill, gen._chunk_paged, gen._decode_paged
+    ctx = gen.gen_cfg.ctx_len
 
     def prefill_rec(p, x, c):
         logits, c = prefill(p, x, c)
         gap(logits, [0])
+        return logits, c
+
+    def chunk_rec(p, x, c, off, bt):
+        logits, c = chunk(p, x, c, off, bt)
+        if int(off[0]) + x.shape[1] >= ctx:       # the token-emitting chunk
+            gap(logits, [0])
         return logits, c
 
     def decode_rec(p, x, c, pos, bt):
@@ -355,7 +381,8 @@ def _record_margins(gen, margins):
         gap(logits, live)
         return logits, c
 
-    gen._prefill, gen._decode_paged = prefill_rec, decode_rec
+    gen._prefill, gen._chunk_paged, gen._decode_paged = (
+        prefill_rec, chunk_rec, decode_rec)
 
 
 @pytest.fixture(scope="module")
@@ -370,15 +397,15 @@ def fig8_jax(tmp_path_factory):
     rows = {}
     for variant in FIG8_ROWS:
         gen = JaxGenerator(cfg, params, JaxGeneratorConfig(
-            ctx_len=F_CTX, max_new_tokens=F_NEW), num_slots=F_SLOTS,
-            page_size=F_PAGE, **_fig8_kw(variant, cfg))
+            ctx_len=_fig8_ctx(variant), max_new_tokens=F_NEW),
+            num_slots=F_SLOTS, page_size=F_PAGE, **_fig8_kw(variant, cfg))
         margins = []
         _record_margins(gen, margins)
         eng = JaxEngine(store, emb, gen, JaxBacklogScheduler(max_batch=8),
                         JaxBacklogScheduler(max_batch=F_SLOTS),
                         initial_partitions=3, policy_every=2)
         try:
-            reqs = [JaxRequest(rid=i, query=f"query {i}",
+            reqs = [JaxRequest(rid=i, query=_fig8_query(variant, i),
                                arrival=time.perf_counter(),
                                priority=(1 if variant == "priority_mix"
                                          and i >= F_REQ - 2 else 0))
@@ -405,14 +432,15 @@ def test_fig8_row_matches_jax_engine(fig8_jax, variant, tmp_path):
                               root=str(tmp_path), device="cpu")
     store.spill(3)
     gen = ContinuousGenerator(cfg, params, GeneratorConfig(
-        ctx_len=F_CTX, max_new_tokens=F_NEW), num_slots=F_SLOTS,
-        page_size=F_PAGE, device="cpu", **_fig8_kw(variant, cfg))
+        ctx_len=_fig8_ctx(variant), max_new_tokens=F_NEW),
+        num_slots=F_SLOTS, page_size=F_PAGE, device="cpu",
+        **_fig8_kw(variant, cfg))
     eng = RagdollEngine(store, emb, gen, BacklogScheduler(max_batch=8),
                         BacklogScheduler(max_batch=F_SLOTS),
                         initial_partitions=3, partial_swap=False,
-                        device="cpu")
+                        policy_every=2, device="cpu")
     try:
-        reqs = [Request(rid=i, query=f"query {i}",
+        reqs = [Request(rid=i, query=_fig8_query(variant, i),
                         arrival=time.perf_counter(),
                         priority=(1 if variant == "priority_mix"
                                   and i >= F_REQ - 2 else 0))
@@ -427,3 +455,8 @@ def test_fig8_row_matches_jax_engine(fig8_jax, variant, tmp_path):
         assert got["swaps"] == got["swap_ins"]
     if variant in ("paged_swap", "swap_overlap", "priority_mix"):
         assert got["swaps"] > 0
+    if variant == "prefix_on":
+        off = rows["prefix_off"][0]
+        assert got["ttft_tok"] < off["ttft_tok"]
+        assert got["hit_tok"] > 0 and got["cow"] > 0
+        assert got["tokens"] == off["tokens"]

@@ -602,14 +602,17 @@ def _slot_view(kv, pools, slot):
 
 
 @given(seed=st.integers(0, 2 ** 16),
-       ops_seq=st.lists(st.sampled_from(["swap", "partial", "write"]),
+       ops_seq=st.lists(st.sampled_from(["swap", "partial", "cow",
+                                         "write"]),
                         min_size=1, max_size=8),
        overlap=st.booleans())
 @settings(max_examples=25, deadline=None)
 def test_scales_survive_preempt_resume(seed, ops_seq, overlap):
     """Whatever interleaving of full and partial preempt/resume round
-    trips and further quantized appends a slot goes through, its pages
-    (int8 payload and fp32 scale rows) read back bit-identically."""
+    trips, copy-on-write detaches and further quantized appends a slot
+    goes through, its pages (int8 payload and fp32 scale rows) read back
+    bit-identically (``test_scales_survive_preempt_resume_and_cow`` of
+    ``tests/test_quant_kv.py``)."""
     cfg = get_config("llama3-8b").reduced(num_layers=1)
     kv = PagedKVCache(cfg, num_slots=2, total_len=16, page_size=4,
                       kv_format="int8", overlap=overlap, device="cpu")
@@ -635,6 +638,17 @@ def test_scales_survive_preempt_resume(seed, ops_seq, overlap):
             assert (kv._tab[0] == TRASH_PAGE).all()
             assert kv.swap_in(pools, 0, "h0")
             kv.fence()
+        elif op == "cow":
+            kv.fence()                # the slot's row is live again
+            block = int(rng.integers(0, len(kv.pool.table(0))))
+            page = kv.pool.table(0)[block]
+            kv.pool.incref(page)      # a prefix cache's hold
+            try:
+                assert kv.cow_block(pools, 0, block)
+                assert kv.pool.table(0)[block] != page
+                assert kv._tab[0, block] == kv.pool.table(0)[block]
+            finally:
+                kv.pool.decref(page)
         else:
             write(int(rng.integers(1, 17)))
             snap = _slot_view(kv, pools, 0)
