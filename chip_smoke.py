@@ -54,12 +54,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
               logits' own error of that row (a hit computes the prompt's
               last token in another matmul shape than a miss does, so bf16
               rounds it otherwise).
+10. serve-placement -- the placement optimizer on the card, last (its
+              partition cache releases partitions to disk): (a) the
+              ``HardwareProfile`` fields measured here (bf16 matmul,
+              device copy, total memory, host memory, pinned host-to-device
+              copy, cold partition loads, numpy fp32 product) beside
+              ``H100_HOST``, and one partition swept cold (pin, copy,
+              kernel) and hot (kernel); (b) active profiling over batches
+              of 1-8 with a real retrieval and a real generation batch of
+              each, seeding the batch schedulers; (c) the continuous path
+              (the serve generator) behind a threaded ``RagdollEngine(
+              optimizer=..., policy_every=8)`` and (d) the whole-batch
+              ``Generator`` behind ``RagdollEngine(optimizer=...)``, each
+              serving 16 requests drawn from 4 queries: 32 tokens each,
+              ids equal to the plain search at the probe width their batch
+              was retrieved with, recall@5, the policy trace, the
+              boundary's host time, ``metrics_snapshot``, p50 and p95 (the
+              whole-batch p50 beside serve-batch's and serve-serial's);
+              (e) 4 partitions promoted to the hot tier under a grant of
+              their bytes: hot boards and a search at nprobe 16 bit-equal
+              to the cold ones, a served batch with hot hits; (f) a page
+              pool for 1024 requests' KV, which the card cannot hold,
+              through ``OOMRecovery.run``: it must demote and succeed, and
+              ``memory_allocated`` must come back to its level.
 
 Each serving path is driven with the launch counts set to 0 just before its
 16 measured requests and read just after; a kernel the path should run
-that launched no time fails the run.  Each then profiles one decode step
-of its model and prints its device kernels, fused and with every residual
-add a launch of its own.  The line before the last is
+that launched no time fails the run (serve-placement: each policy path,
+and the hot tier's served batch for the two retrieval kernels).  serve,
+serve-batch and serve-serial then each profile one decode step of their
+model and print its device kernels, fused and with every residual add a
+launch of its own.  The line before the last is
 ``{"kernels": [...]}`` (``launches``: the sum over the measured runs of
 every path); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -69,6 +94,7 @@ import functools
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -120,6 +146,17 @@ SWAP_PRIORITY_REQ = 4       # serve-swap: the last 4 requests are priority 1
 PREFIX_CTX = CTX - 2
 PREFIX_ROUNDS = ((0, 1, 2, 3, 0, 1, 2, 3), (0, 0, 1, 1), (2, 2, 3, 3))
 PREFIX_SLOTS_AFTER = 4      # run 4: slots after the retarget
+# serve-placement: the placement optimizer on the card.  16 requests drawn
+# from 4 queries (so the probe heat concentrates), active profiling over
+# batches of 1-8, the continuous path's kernels on its policy path; a hot
+# tier of 4 partitions under a probe of a quarter of the partitions; an
+# OOM provoked by a page pool for 1024 requests' KV (142 GB in bf16)
+SERVE_PLACEMENT_KERNELS = CONTINUOUS_KERNELS
+PLACEMENT_QUERIES = 4
+PLACEMENT_BATCHES = (1, 2, 4, 8)
+HOT_N = 4
+HOT_NPROBE = PARTITIONS // 4
+OOM_BATCH = 1024
 
 
 def log(msg: str) -> None:
@@ -1003,6 +1040,34 @@ def check_requests(torch, tag, reqs, exact, vocab) -> None:
                    ex_s[qi:qi + 1].cpu(), ex_i[qi:qi + 1].cpu())
 
 
+def _watch_threads():
+    """The errors of worker threads that die from here on."""
+    errors = []
+    threading.excepthook = lambda a: errors.append(
+        f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+    return errors
+
+
+def _submit_and_drain(eng, rids, t_limit, tag, errors, query_of=None):
+    """Submit requests ``rids`` (request ``i`` asks ``q<query_of(i)>``,
+    default ``q<i>``) to a started engine and wait for all of them; fails
+    as soon as a worker thread has died."""
+    from repro_torch.serving import Request
+    for i in rids:
+        qi = i if query_of is None else query_of(i)
+        eng.submit(Request(rid=i, query=f"q{qi}", arrival=time.perf_counter(),
+                           top_k=TOP_K, max_new_tokens=MAX_NEW))
+    deadline = time.monotonic() + t_limit
+    while True:
+        try:
+            return eng.drain(rids[-1] + 1, timeout=5.0)
+        except TimeoutError:
+            if errors:
+                fail(f"[{tag}] worker thread died: {errors}")
+            if time.monotonic() > deadline:
+                raise
+
+
 def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
                stats=None, step_hist=None, layers=None):
     """Warm up, serve the 16 measured requests with the launch counts set to
@@ -1012,25 +1077,11 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
     prefill batches are its flash launches over the layers.  Returns the
     measured run's numbers."""
     from repro_torch.kernels import ops
-    from repro_torch.serving import Request, percentile
-    errors = []
-    threading.excepthook = lambda a: errors.append(
-        f"{a.thread.name}: {a.exc_type.__name__}: {a.exc_value}")
+    from repro_torch.serving import percentile
+    errors = _watch_threads()
 
     def serve(rids, t_limit):
-        for i in rids:
-            eng.submit(Request(rid=i, query=f"q{i}",
-                               arrival=time.perf_counter(), top_k=TOP_K,
-                               max_new_tokens=MAX_NEW))
-        deadline = time.monotonic() + t_limit
-        while True:
-            try:
-                return eng.drain(rids[-1] + 1, timeout=5.0)
-            except TimeoutError:
-                if errors:
-                    fail(f"[{tag}] worker thread died: {errors}")
-                if time.monotonic() > deadline:
-                    raise
+        return _submit_and_drain(eng, rids, t_limit, tag, errors)
 
     eng.start()
     try:
@@ -1091,8 +1142,8 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
         log(f"[{tag}] retrieval of the {N_REQ} requests: {retrieval}")
     log(f"[{tag}] launches on this path: {json.dumps(counts)}")
     breakdown(tag, _kernel_records(prof, torch), window, smi)
-    return dict(counts=counts, p50=p50, outputs={r.rid: r.output
-                                                 for r in reqs})
+    return dict(counts=counts, p50=p50, tokens_s=toks / wall,
+                outputs={r.rid: r.output for r in reqs})
 
 
 def decode_step_kernels(torch, tag, model, params, cache, block_tab=None,
@@ -1551,6 +1602,483 @@ def phase_serve_prefix(torch, cfg, params, store, queries, exact, smi: str):
     return [run["counts"] for run in runs.values()]
 
 
+# ------------------------------------------------------- serve-placement
+def _events_ms(torch, fn, iters: int) -> float:
+    """Device ms a call: CUDA events around ``iters`` calls, after one.
+    A rate needs no split by kernel, so no profiler trace (which can drop
+    a record) is taken."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _host_s(torch, fn, reps: int) -> float:
+    """Median wall seconds of ``fn`` (each run ends in a synchronize)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _evict(path: str) -> None:
+    """Drop a file's pages from the page cache (written back first)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def measure_hardware(torch, store, queries, smi: str):
+    """The ``HardwareProfile`` fields measured on this card and host, as
+    the reference defines them, printed beside ``H100_HOST``; then the
+    real time of one cold partition sweep (pin, copy and kernel) and of
+    one hot sweep (kernel only) against one partition."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.costmodel import H100_HOST
+    from repro_torch.kernels import ops
+    m, k, n = 8192, 4096, 14336           # llama3-8b's prefill up-projection
+    a = torch.randn(m, k, dtype=torch.bfloat16, device="cuda")
+    b = torch.randn(k, n, dtype=torch.bfloat16, device="cuda")
+    gpu_flops = 2 * m * k * n / (_events_ms(torch, lambda: a @ b, 20) / 1e3)
+    del a, b
+    src = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    # a copy reads and writes each byte: the device's memory rate
+    hbm = 2 * src.numel() / (_events_ms(torch, lambda: dst.copy_(src), 10)
+                             / 1e3)
+    del src, dst
+    host = torch.empty(2 ** 28, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(2 ** 28, dtype=torch.uint8, device="cuda")
+    pcie = host.numel() / (_events_ms(
+        torch, lambda: dev.copy_(host, non_blocking=True), 10) / 1e3)
+    del host, dev
+    cpu_mem = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    spilled = [pid for pid, p in sorted(store.partitions.items())
+               if not p.resident][:4]
+    read, raw = [], []
+    for pid in spilled:                  # the store's own partition load
+        p = store.partitions[pid]
+        _evict(p.path)
+        read.append(p.nbytes / store.load(pid))
+        store.release(pid)
+    for pid in spilled:                  # the bare np.load
+        path = store.partitions[pid].path
+        _evict(path)
+        t0 = time.perf_counter()
+        arr = np.load(path)
+        raw.append(arr.nbytes / (time.perf_counter() - t0))
+        del arr
+    rng = np.random.default_rng(0)
+    rows = CORPUS_N // PARTITIONS
+    hq = rng.standard_normal((SLOTS, CORPUS_DIM)).astype(np.float32)
+    hdb = rng.standard_normal((CORPUS_DIM, rows)).astype(np.float32)
+    times = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        hq @ hdb
+        times.append(time.perf_counter() - t0)
+    cpu_flops = 2 * SLOTS * CORPUS_DIM * rows / statistics.median(times)
+    prof = dataclasses.replace(
+        H100_HOST, gpu_flops=gpu_flops,
+        gpu_mem=float(torch.cuda.get_device_properties(0).total_memory),
+        gpu_hbm_bw=hbm, cpu_mem=float(cpu_mem), pcie_bw=pcie,
+        disk_read_bw=statistics.median(read), cpu_flops=cpu_flops,
+        disk_raw_bw=statistics.median(raw))
+    for name in ("gpu_flops", "gpu_mem", "gpu_hbm_bw", "cpu_mem", "pcie_bw",
+                 "disk_read_bw", "cpu_flops", "disk_raw_bw"):
+        log(f"[profile-hw] {name}: measured {getattr(prof, name):.6g}, "
+            f"H100_HOST {getattr(H100_HOST, name):.6g} ({smi})")
+    # cold: pinned staging, the copy and the kernel; hot: the kernel alone;
+    # on the host-resident partition nearest the mean size
+    part = min((p for p in store.partitions.values() if p.resident),
+               key=lambda p: abs(p.embeddings.shape[0] - rows))
+    qd = torch.from_numpy(queries[:SLOTS]).cuda()
+
+    def cold():
+        emb = store._to_device(part.embeddings)
+        ids = store._to_device(part.doc_ids)
+        s, i = ops.retrieval_topk(qd, emb, TOP_K)
+        return s, ids[i.long()]
+
+    dev_emb = torch.from_numpy(part.embeddings).cuda()
+    cold_s = _host_s(torch, cold, 10)
+    hot_s = _host_s(torch, lambda: ops.retrieval_topk(qd, dev_emb, TOP_K), 10)
+    del dev_emb
+    log(f"[profile-hw] one partition ({part.embeddings.shape[0]} x "
+        f"{CORPUS_DIM} fp32, {part.nbytes} B) at ({SLOTS}, {CORPUS_DIM}): "
+        f"cold sweep (pin + copy + kernel) {cold_s * 1e3:.3f} ms, hot sweep "
+        f"(kernel) {hot_s * 1e3:.3f} ms ({smi})")
+    return prof, cold_s, hot_s
+
+
+def _policy_engine(store, queries, gen, opt, profile):
+    """A ``RagdollEngine`` on a recording view of the shared store that
+    notes each retrieval batch's probe width and each policy boundary's
+    host time; its schedulers seeded by active profiling."""
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.serving import RagdollEngine
+
+    class RecordingStore:
+        """The store, recording the probe width of every search."""
+
+        def __init__(self, inner):
+            self.inner = inner
+            self.nprobes = []
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def search(self, q, top_k, **kw):
+            self.nprobes.append(kw.get("nprobe"))
+            return self.inner.search(q, top_k, **kw)
+
+    class PolicyEngine(RagdollEngine):
+        def _retrieve_batch(self, reqs):
+            out = super()._retrieve_batch(reqs)
+            # only this thread searches: the last search is this batch's
+            self.batches.append((self.store.nprobes[-1],
+                                 [r.rid for r in reqs]))
+            return out
+
+        def _gen_boundary(self):
+            t0 = time.perf_counter()
+            super()._gen_boundary()
+            self.boundary_s.append(time.perf_counter() - t0)
+
+    ret = BacklogScheduler(max_batch=SLOTS)
+    ret.seed(profile.ret_samples)
+    gsched = BacklogScheduler(max_batch=SLOTS)
+    gsched.seed(profile.gen_samples)
+    eng = PolicyEngine(RecordingStore(store), QueryEmbedder(queries), gen,
+                       ret, gsched, optimizer=opt,
+                       initial_partitions=PARTITIONS - SPILLED,
+                       policy_every=8, device="cuda")
+    eng.batches, eng.boundary_s = [], []
+    return eng
+
+
+def serve_policy(torch, eng, tag, kernels, store, queries, exact, smi, vocab,
+                 step_hist=None):
+    """Serve ``WARMUP_REQ`` requests, then the 16 measured ones with the
+    launch counts set to 0 just before and read just after; request ``i``
+    asks query ``i % PLACEMENT_QUERIES``.  Fails unless every request has
+    ``MAX_NEW`` tokens and the ids of the plain search at the probe width
+    its batch was retrieved with, and every kernel in ``kernels``
+    launched.  Prints the policy trace, the boundary's host time, the
+    metrics snapshot, p50, p95, tokens/s and recall@5 against the exact
+    search."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import percentile
+    errors = _watch_threads()
+
+    def serve(rids, t_limit):
+        return _submit_and_drain(eng, rids, t_limit, tag, errors,
+                                 query_of=lambda i: i % PLACEMENT_QUERIES)
+
+    eng.start()
+    try:
+        serve(list(range(WARMUP_REQ)), 300)
+        torch.cuda.synchronize()
+        n_events = len(eng.policy_trace)
+        n_bound = len(eng.boundary_s)
+        if step_hist is not None:
+            steps0, secs0 = step_hist.count, step_hist.total
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = serve(list(range(WARMUP_REQ, WARMUP_REQ + N_REQ)), 600)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        eng.stop()
+    if errors:
+        fail(f"[{tag}] worker thread died: {errors}")
+    reqs = sorted((r for r in done if r.rid >= WARMUP_REQ),
+                  key=lambda r: r.rid)
+    if len(reqs) != N_REQ:
+        fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
+    probe_of = {rid: nprobe for nprobe, rids in eng.batches for rid in rids}
+    plain, hits = {}, 0
+    ex_s, ex_i = exact
+    for r in reqs:
+        qi = r.rid % PLACEMENT_QUERIES
+        toks = r.output.split()
+        if len(toks) != MAX_NEW or not all(0 <= int(t[3:]) < vocab
+                                           for t in toks):
+            fail(f"[{tag}] request {r.rid}: {len(toks)} tokens, want "
+                 f"{MAX_NEW}")
+        nprobe = probe_of[r.rid]
+        if (qi, nprobe) not in plain:
+            s, i = store.search(queries[qi:qi + 1], TOP_K, nprobe=nprobe,
+                                impl="ref")
+            plain[qi, nprobe] = (torch.from_numpy(s), torch.from_numpy(i))
+        want_s, want_i = plain[qi, nprobe]
+        got = torch.tensor([[int(c) for c in r.retrieved]])
+        if got.shape[1] != TOP_K:
+            fail(f"[{tag}] request {r.rid}: {got.shape[1]} chunks")
+        check_topk(f"[{tag}] request {r.rid} retrieval at nprobe {nprobe}",
+                   want_s, got, want_s, want_i)
+        hits += len(set(got[0].tolist()) & set(ex_i[qi].cpu().tolist()))
+    missing = [n for n in kernels if counts[n] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on this path: {missing}")
+    trace = eng.policy_trace[n_events:]
+    bound = eng.boundary_s[n_bound:]
+    if not trace:
+        fail(f"[{tag}] no policy boundary ran in the measured window")
+    rows, last = [], None
+    for ev in trace:
+        row = (ev.gen_batch, ev.gen_slots, ev.kv_pages, ev.kv_host_pages,
+               ev.nprobe, ev.resident_partitions, ev.hot_partitions,
+               ev.hot_bytes, ev.c_gpu, ev.w_gpu)
+        if rows and row == last:
+            rows[-1][1] += 1
+        else:
+            rows.append([row, 1])
+        last = row
+    for row, n in rows:
+        log(f"[{tag}] policy x{n}: gen_batch {row[0]}, slots {row[1]}, pages "
+            f"{row[2]}, host pages {row[3]}, nprobe {row[4]}, resident "
+            f"partitions {row[5]}, hot partitions {row[6]} ({row[7]} B); "
+            f"c_gpu {row[8]}, w_gpu {row[9]}")
+    lat = [r.latency for r in reqs]
+    p50, p95 = percentile(lat, 50), percentile(lat, 95)
+    share = ""
+    if step_hist is not None:
+        steps = step_hist.count - steps0
+        step_s = step_hist.total - secs0
+        share = (f"; {steps} generator steps, mean "
+                 f"{step_s / max(steps, 1) * 1e3:.1f} ms; boundaries "
+                 f"{sum(bound) / max(step_s + sum(bound), 1e-9):.2%} of the "
+                 f"pump's step + boundary time")
+    fit = eng.gen_scheduler
+    log(f"[{tag}] {len(bound)} policy boundaries in the measured window: "
+        f"host time mean {statistics.mean(bound) * 1e3:.2f} ms, max "
+        f"{max(bound) * 1e3:.2f} ms{share}; the generation scheduler's fit "
+        f"at the end T(B) = {fit.a:.4g} * B^{fit.c:.3f} over "
+        f"{len(fit.samples)} samples ({smi})")
+    probes = sorted({probe_of[r.rid] for r in reqs}, key=str)
+    log(f"[{tag}] {N_REQ}/{N_REQ} requests served, {MAX_NEW} tokens each, "
+        f"ids equal to the plain search at their batch's nprobe {probes}; "
+        f"recall@{TOP_K} against the exact search "
+        f"{hits / (N_REQ * TOP_K):.3f}; in {wall:.3f} s: p50 {p50:.3f} s "
+        f"p95 {p95:.3f} s, {N_REQ * MAX_NEW / wall:.1f} output tokens/s "
+        f"({smi})")
+    snap = eng.metrics_snapshot()
+    log(f"[{tag}] metrics_snapshot gauges: "
+        f"{json.dumps(snap['gauges'], sort_keys=True)}")
+    log(f"[{tag}] launches on this path: {json.dumps(counts)}")
+    return dict(counts=counts, p50=p50, tokens_s=N_REQ * MAX_NEW / wall)
+
+
+def phase_serve_placement(torch, cfg, params, store, queries, exact,
+                          smi: str, baselines):
+    """The placement slice on the card (see the module docstring): the
+    measured profile, active profiling, both policy paths (printed beside
+    ``baselines``, this run's serve, serve-batch and serve-serial), the
+    hot tier and the OOM ladder.  Returns the launch counts of its
+    measured runs."""
+    import gc
+
+    import numpy as np
+    from repro_torch.core.costmodel import CostModel, ModelProfile
+    from repro_torch.core.placement import Placement, PlacementOptimizer
+    from repro_torch.core.profiler import ActiveProfiler
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.ft import OOMRecovery
+    from repro_torch.kernels import ops
+    from repro_torch.retrieval.cache import HotPartitionSet
+    from repro_torch.serving import (ContinuousGenerator, Generator,
+                                     GeneratorConfig, RagdollEngine, Request)
+    from repro_torch.serving.kvpool import PagedKVCache
+    tag = "serve-placement"
+    # 1. the profile
+    profile_hw, cold_s, hot_s = measure_hardware(torch, store, queries, smi)
+    mp = ModelProfile.from_config(cfg, kv_format="bf16")
+
+    def optimizer():
+        cost = CostModel(profile_hw, mp,
+                         partition_bytes=store.partition_bytes(),
+                         num_partitions=PARTITIONS, db_dim=CORPUS_DIM,
+                         chunks_per_partition=CORPUS_N / PARTITIONS,
+                         partition_mem_overhead=1.0)
+        return PlacementOptimizer(cost, avg_ctx_len=CTX, avg_out_len=MAX_NEW,
+                                  kv_page_size=PAGE)
+
+    opt = optimizer()
+    log(f"[{tag}] the cost model prices a partition sweep of {SLOTS} queries "
+        f"at {opt.cost.partition_search_time(SLOTS) * 1e3:.3f} ms (host FLOP/s"
+        f") cold and {opt.cost.device_search_time(SLOTS) * 1e3:.3f} ms hot; "
+        f"measured {cold_s * 1e3:.3f} and {hot_s * 1e3:.3f} ms ({smi})")
+    # 2. active profiling: real retrieval and generation batches of B
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                        dtype=torch.bfloat16)
+    batch_gen = Generator(cfg, params, g, device="cuda")
+
+    def measure(p):
+        b = p.gen_batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ids = store.search(queries[:b], TOP_K, nprobe=p.nprobe)
+        t_ret = time.perf_counter() - t0
+        prompts = [" ".join(ch) + f" q{i}"
+                   for i, ch in enumerate(store.get_chunks(ids))]
+        t0 = time.perf_counter()
+        batch_gen.generate(prompts)
+        torch.cuda.synchronize()
+        return t_ret, time.perf_counter() - t0
+
+    measure(Placement(1.0, 0.0, 1.0, 0.0, PARTITIONS, 1))      # warm-up
+    t0 = time.perf_counter()
+    prof = ActiveProfiler(opt, batches=PLACEMENT_BATCHES).profile(
+        measure=measure)
+    for (b, t_gen), (_, t_ret) in zip(prof.gen_samples, prof.ret_samples):
+        p = prof.placements[int(b)]
+        log(f"[{tag}] active profiling B {int(b)}: t_ret {t_ret:.4f} s, t_gen "
+            f"{t_gen:.4f} s; placement w_gpu {p.w_gpu} c_gpu {p.c_gpu} "
+            f"resident {p.resident_partitions} nprobe {p.nprobe} ({smi})")
+    log(f"[{tag}] active profiling took {time.perf_counter() - t0:.1f} s; "
+        f"best batch {prof.best_batch}")
+    results = {}
+    # 3. the continuous path with the policy
+    gen = ContinuousGenerator(cfg, params, g, num_slots=SLOTS, paged=True,
+                              page_size=PAGE, prefill_chunk=CHUNK,
+                              device="cuda")
+    eng = _policy_engine(store, queries, gen, opt, prof)
+    results["continuous"] = serve_policy(
+        torch, eng, f"{tag} continuous", SERVE_PLACEMENT_KERNELS, store,
+        queries, exact, smi, cfg.vocab_size,
+        step_hist=eng.registry.histogram("decode.step_seconds"))
+    del gen, eng
+    # 4. the whole-batch path with the policy
+    eng = _policy_engine(store, queries, batch_gen, optimizer(), prof)
+    results["whole-batch"] = serve_policy(
+        torch, eng, f"{tag} whole-batch", WHOLE_BATCH_KERNELS, store,
+        queries, exact, smi, cfg.vocab_size)
+    del eng
+    for path, without in (("continuous", ("serve",)),
+                          ("whole-batch", ("serve-batch", "serve-serial"))):
+        got = results[path]
+        log(f"[{tag}] {path}: p50 {got['p50']:.3f} s, {got['tokens_s']:.1f} "
+            "tokens/s with the policy; " + ", ".join(
+                f"{name} p50 {baselines[name]['p50']:.3f} s, "
+                f"{baselines[name]['tokens_s']:.1f} tokens/s"
+                for name in without) + f" ({smi})")
+    p50 = results["whole-batch"]["p50"]
+    base, serial = (baselines["serve-batch"]["p50"],
+                    baselines["serve-serial"]["p50"])
+    log(f"[{tag}] serial / ragdoll p50 {serial / p50:.3f} with the policy, "
+        f"{serial / base:.3f} without ({smi})")
+    # 5. the hot tier on the card, under a probe mask
+    qs = queries[:PLACEMENT_QUERIES]
+    pids, mask = store.probe(qs, HOT_NPROBE)
+    hot_pids = pids[:HOT_N]
+    grant = sum(store.partitions[pid].nbytes for pid in hot_pids)
+    hot = HotPartitionSet(store, device="cuda")
+    hot.retarget(grant, hot_pids)
+    if hot.pids() != sorted(hot_pids) or hot.device_bytes() != grant:
+        fail(f"[{tag}] hot tier holds {hot.pids()} ({hot.device_bytes()} B) "
+             f"under a grant of {hot_pids} ({grant} B)")
+    hot_boards = store.sweep_boards(qs, hot_pids, TOP_K, hot=hot)
+    cold_boards = store.sweep_boards(qs, hot_pids, TOP_K)
+    if not all(torch.equal(h, c)
+               for h, c in zip(hot_boards[:2], cold_boards[:2])):
+        fail(f"[{tag}] hot sweep differs from the cold sweep")
+    hot_search = store.search(qs, TOP_K, nprobe=HOT_NPROBE, hot=hot)
+    cold_search = store.search(qs, TOP_K, nprobe=HOT_NPROBE)
+    if not all(np.array_equal(h, c)
+               for h, c in zip(hot_search, cold_search)):
+        fail(f"[{tag}] hot search differs from the cold search")
+    t_hot = _host_s(torch, lambda: store.search(qs, TOP_K, nprobe=HOT_NPROBE,
+                                                hot=hot), 3)
+    t_cold = _host_s(torch, lambda: store.search(qs, TOP_K,
+                                                 nprobe=HOT_NPROBE), 3)
+    log(f"[{tag}] hot tier: {HOT_N} partitions {hot.pids()} ({grant} B) "
+        f"promoted; boards and the search at nprobe {HOT_NPROBE} "
+        f"({int(mask.sum(1).max())} of {PARTITIONS} partitions a query, "
+        f"{len(pids)} in the union) bit-equal to the cold ones; search "
+        f"{t_hot:.4f} s hot, {t_cold:.4f} s cold ({smi})")
+    served = RagdollEngine(store, QueryEmbedder(queries), batch_gen,
+                           BacklogScheduler(max_batch=SLOTS),
+                           BacklogScheduler(max_batch=SLOTS), device="cuda")
+    try:
+        served.nprobe = HOT_NPROBE
+        served.hot.retarget(grant, hot_pids)
+        reqs = [Request(rid=i, query=f"q{i % PLACEMENT_QUERIES}",
+                        arrival=time.perf_counter(), top_k=TOP_K,
+                        max_new_tokens=MAX_NEW) for i in range(SLOTS)]
+        ops.reset_launch_counts()
+        served._retrieve_batch(reqs)
+        served._generate_batch(reqs)
+        results["hot"] = dict(counts=ops.launch_counts())
+        stats = served.retrieval_stats
+    finally:
+        served.streamer.close()
+    if not (stats.hot_hits > 0 and all(len(r.output.split()) == MAX_NEW
+                                       for r in reqs)):
+        fail(f"[{tag}] served batch: hot_hits {stats.hot_hits}")
+    for name in ("retrieval_topk", "retrieval_topk_merge"):
+        if results["hot"]["counts"][name] == 0:
+            fail(f"[{tag}] the hot batch never launched {name}")
+    log(f"[{tag}] a served batch of {SLOTS} at nprobe {HOT_NPROBE}: hot_hits "
+        f"{stats.hot_hits} of {stats.partitions_searched} partitions "
+        f"searched, {stats.partitions_pruned} pruned")
+    del hot, served
+    # 6. the OOM ladder on the card
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    start = Placement(1.0, 0.0, 1.0, 0.0, 0, OOM_BATCH, nprobe=PARTITIONS)
+    ooms = []
+
+    def page_pool(p):
+        pages = opt.kv_page_budget(p, PAGE)
+        kv = PagedKVCache(cfg, SLOTS, CTX + MAX_NEW, PAGE, num_pages=pages,
+                          dtype=torch.bfloat16, device="cuda")
+        try:
+            pools = kv.init_stacked()
+        except torch.OutOfMemoryError:
+            ooms.append(pages)
+            raise
+        torch.cuda.synchronize()
+        nbytes = kv.pool_nbytes(pools)
+        del pools
+        return pages, nbytes
+
+    rec = OOMRecovery(opt)
+    (pages, nbytes), final = rec.run(page_pool, start)
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    if not rec.history or not ooms:
+        fail(f"[{tag}] the ladder saw no out-of-memory error")
+    if after != before:
+        fail(f"[{tag}] memory allocated {before} B before the ladder, "
+             f"{after} B after")
+    for i, p in enumerate(rec.history):
+        log(f"[{tag}] OOM ladder rung {i}: c_gpu {p.c_gpu:.2f} c_cpu "
+            f"{p.c_cpu:.2f} w_gpu {p.w_gpu:.2f} gen_batch {p.gen_batch}: "
+            f"{opt.kv_page_budget(p, PAGE)} pages, torch.OutOfMemoryError")
+    log(f"[{tag}] OOM ladder: succeeded at c_gpu {final.c_gpu:.2f} c_cpu "
+        f"{final.c_cpu:.2f} w_gpu {final.w_gpu:.2f} gen_batch "
+        f"{final.gen_batch}: {pages} pages, {nbytes / 2 ** 30:.2f} GiB; "
+        f"memory allocated {before} B before and after ({smi})")
+    return [r["counts"] for r in results.values()]
+
 CATEGORIES = (
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
@@ -1651,10 +2179,13 @@ def main() -> int:
                                 smi)
         prefix = phase_serve_prefix(torch, cfg, params, store, queries,
                                     exact, smi)
+        # last: its partition cache releases partitions to disk
+        placement = phase_serve_placement(torch, cfg, params, store, queries,
+                                          exact, smi, dict(batch, serve=paged))
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
-            + prefix)
+            + prefix + placement)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         kernels.append(dict(name=kname, route=route, source=source,

@@ -1,7 +1,8 @@
 """Architecture config registry of the PyTorch port.
 
 ``get_config(name)`` resolves the architectures the port serves so far
-(the dense llama family of the main serving path).
+(the dense llama family: llama3-8b on the serving paths, and the paper's
+llama3-70b, which the placement contracts price).
 """
 from __future__ import annotations
 
@@ -14,9 +15,10 @@ from repro_torch.configs.shapes import (SHAPE_ORDER, SHAPES, InputShape,
 
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "llama3-70b": "llama3_70b",
 }
 
-ASSIGNED_ARCHS: List[str] = list(_MODULES)
+ASSIGNED_ARCHS: List[str] = [k for k in _MODULES if k != "llama3-70b"]
 
 _cache: Dict[str, ModelConfig] = {}
 

@@ -36,6 +36,11 @@ class PartitionCache:
             self.lru.append(pid)
         self._trim()
 
+    def set_target(self, target: int) -> None:
+        """Adjust resident count (called between batches — lazy transfer)."""
+        self.target = max(0, target)
+        self._trim()
+
     def _trim(self) -> None:
         while len(self.lru) > self.target:
             pid = self.lru.popleft()
@@ -189,11 +194,15 @@ class HotPartitionSet:
     def _promote(self, pid: int) -> Tuple[torch.Tensor, torch.Tensor]:
         with self.tracer.span("hot.promote", pid=pid):
             p = self.store.partitions[pid]
-            loaded_here = not p.resident
-            if loaded_here:
-                self.store.load(pid)
+            # read the array once: a policy boundary on another thread can
+            # release the partition between a check and a second read
+            emb, loaded_here = p.embeddings, False
             try:
-                dev = torch.from_numpy(p.embeddings).to(self.device)
+                while emb is None:       # spilled, or released after a load
+                    self.store.load(pid)
+                    loaded_here = True
+                    emb = p.embeddings
+                dev = torch.from_numpy(emb).to(self.device)
                 ids = torch.from_numpy(p.doc_ids).to(self.device)
             finally:
                 if loaded_here:   # promotion never leaks host residency

@@ -434,17 +434,21 @@ class VectorStore:
         try:
             for pid, loaded_here in sweep():
                 p = self.partitions[pid]
-                if p.embeddings is None:      # raced with a cache release
+                # read the array once: a policy boundary on another thread
+                # can release the partition between a check and a second
+                # read, and again right after a reload
+                emb = p.embeddings
+                while emb is None:            # raced with a cache release
                     dt = self.load(pid)
                     loaded_here = True
                     if stats:
                         stats.add(partitions_loaded=1, load_seconds=dt)
                         stats.record_load(pid, dt)
+                    emb = p.embeddings
                 if loaded_here:
                     loaded_pending.add(pid)
                 t0 = time.perf_counter()
-                score(pid, self._to_device(p.embeddings),
-                      self._to_device(p.doc_ids))
+                score(pid, self._to_device(emb), self._to_device(p.doc_ids))
                 if stats:
                     stats.add(search_seconds=time.perf_counter() - t0,
                               partitions_searched=1)

@@ -17,27 +17,37 @@ The generation stage has two disciplines, chosen by the generator type:
   pages the join needs) and brings parked requests back once the backlog
   of their class clears.
 
+The placement optimizer (``optimizer``) is the paper's policy: at every
+policy boundary (``policy_every`` decode steps on the continuous path,
+every batch on the whole-batch path) the engine picks the generation
+batch from the backlog, solves the joint placement for it, retargets the
+partition cache, the IVF probe width and the streamer's host budget, and
+clears the device-byte market: live KV pages, the prefix-cache cap, the
+host swap pool and the device-hot partitions, funded out of one pool and
+applied to the generator by the request scheduler.  Each decision is
+journalled as a :class:`PolicyEvent` (``policy_trace``).  Without an
+optimizer the boundary returns at once.  Retrieval runs on one shard;
+sharded retrieval comes with a later slice of the port.
+
 ``SerialRAGEngine`` is the baseline shape (vLLMRAG/AccRAG-style) that the
 paper measures against: one worker retrieves, then generates, each batch
 in arrival order.
-
-The engines run without a placement optimizer and with one retrieval
-shard; the placement policy (``optimizer``) and sharded retrieval come
-with later slices of the port.  ``policy_every`` is accepted and kept,
-as the reference keeps it, and is inert while there is no optimizer.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.pipeline import (Pipeline, PipelineWorker, StageQueue,
                                        StepPumpWorker, build_pipeline)
+from repro_torch.core.placement import PlacementOptimizer
 from repro_torch.core.prefetch import PrefetchPolicy
 from repro_torch.core.scheduler import BacklogScheduler
-from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.retrieval.cache import HotPartitionSet, PartitionCache
 from repro_torch.retrieval.streamer import PartitionStreamer
@@ -47,12 +57,31 @@ from repro_torch.serving.reqsched import RequestScheduler
 from repro_torch.serving.request import Request
 
 
+@dataclass
+class PolicyEvent:
+    t: float
+    gen_batch: int
+    resident_partitions: int
+    c_gpu: float
+    w_gpu: float
+    nprobe: Optional[int] = None
+    gen_slots: Optional[int] = None    # live slot-table capacity
+    kv_pages: Optional[int] = None     # paged pool budget (paged only)
+    kv_host_pages: Optional[int] = None  # host swap-pool budget (c_cpu)
+    parked: Optional[int] = None       # requests swapped out right now
+    prefix_pages: Optional[int] = None   # prefix-cache device-page cap
+    prefix_hit_tokens: Optional[int] = None  # cumulative cached tokens
+    hot_partitions: Optional[int] = None  # device-hot IVF partitions
+    hot_bytes: Optional[int] = None       # device bytes they occupy
+    hot_hit_rate: Optional[float] = None  # observed hot-answered probe frac
+
+
 class RagdollEngine:
     def __init__(self, store: VectorStore, embedder,
                  generator: Generator,
                  ret_scheduler: BacklogScheduler,
                  gen_scheduler: BacklogScheduler,
-                 optimizer=None,
+                 optimizer: Optional[PlacementOptimizer] = None,
                  initial_partitions: Optional[int] = None,
                  streamer: Optional[PartitionStreamer] = None,
                  retrieval_shards: int = 1,
@@ -61,21 +90,29 @@ class RagdollEngine:
                  policy_every: int = 8,
                  device: DeviceLike = None,
                  tracer=None, registry=None):
-        if optimizer is not None:
-            raise NotImplementedError("placement optimizer: a later slice")
         if retrieval_shards != 1:
             raise NotImplementedError("sharded retrieval: a later slice")
         self.device = resolve_device(device)
         self.store = store
         self.embedder = embedder
         self.generator = generator
-        # decode steps between policy boundaries; with no optimizer there
-        # is no policy to consult, so nothing runs there
+        # decode steps between policy boundaries on the continuous path
         self.policy_every = policy_every
         self.continuous = isinstance(generator, ContinuousGenerator)
+        self.opt = optimizer
         self.tracer = tracer or NULL_TRACER
+        # the engine's registry defaults to a REAL per-engine registry
+        # (not the global no-op): policy-boundary decisions journal
+        # through it, and ``policy_trace`` reads them back
         self.registry = registry if registry is not None \
             else MetricsRegistry()
+        if self.opt is not None:
+            # hand the engine's obs plumbing down unless the caller
+            # wired the optimizer to its own
+            if self.opt.tracer is NULL_TRACER:
+                self.opt.tracer = self.tracer
+            if self.opt.registry is NULL_REGISTRY:
+                self.opt.registry = self.registry
         if self.continuous:
             generator.bind_obs(self.tracer, self.registry)
         p0 = (initial_partitions if initial_partitions is not None
@@ -92,6 +129,7 @@ class RagdollEngine:
         self.hot = HotPartitionSet(store, device=self.device,
                                    tracer=self.tracer,
                                    registry=self.registry)
+        self.nprobe: Optional[int] = None   # set by the placement policy
         self.retrieval_stats = SearchStats()   # cumulative, for reporting
         self.completed: List[Request] = []
         self._done_lock = threading.Lock()
@@ -103,7 +141,8 @@ class RagdollEngine:
             rq, cq, dq = (StageQueue("retrieval"), StageQueue("context"),
                           StageQueue("done"))
             rw = PipelineWorker("retrieval", rq, cq, self._retrieve_batch,
-                                ret_scheduler)
+                                ret_scheduler,
+                                on_batch_boundary=self._ret_boundary)
             self.scheduler: Optional[RequestScheduler] = RequestScheduler(
                 generator, cq, aging_s=aging_s, partial_swap=partial_swap,
                 tracer=self.tracer, registry=self.registry)
@@ -112,14 +151,17 @@ class RagdollEngine:
                 capacity_fn=self.scheduler.capacity,
                 admit_fn=self.scheduler.admit,
                 step_fn=self._generate_step,
+                on_policy_boundary=self._gen_boundary,
                 policy_every=policy_every)
             self.pipeline = Pipeline(retrieval_queue=rq, context_queue=cq,
                                      done_queue=dq, workers=[rw, gw])
         else:
             self.scheduler = None
-            self.pipeline = build_pipeline(self._retrieve_batch,
-                                           self._generate_batch,
-                                           ret_scheduler, gen_scheduler)
+            self.pipeline = build_pipeline(
+                self._retrieve_batch, self._generate_batch,
+                ret_scheduler, gen_scheduler,
+                on_ret_boundary=self._ret_boundary,
+                on_gen_boundary=self._gen_boundary)
         self.gen_scheduler = gen_scheduler
 
     # ------------------------------------------------------------- stages
@@ -131,7 +173,8 @@ class RagdollEngine:
                 queries = self.embedder.embed([r.query for r in reqs])
             with self.tracer.span("search", top_k=reqs[0].top_k):
                 scores, ids = self.store.search(
-                    queries, reqs[0].top_k, streamer=self.streamer, stats=self.retrieval_stats,
+                    queries, reqs[0].top_k, nprobe=self.nprobe,
+                    streamer=self.streamer, stats=self.retrieval_stats,
                     hot=self.hot)
             chunks = self.store.get_chunks(ids)
             t1 = time.perf_counter()
@@ -202,11 +245,121 @@ class RagdollEngine:
                 self._done_cv.notify_all()
         return done
 
+    # ---------------------------------------------- lazy reconfiguration
+    def _ret_boundary(self) -> None:
+        pass  # partition target applied by _gen_boundary's placement
+
+    def _gen_boundary(self) -> None:
+        if self.opt is None:
+            return
+        backlog = len(self.pipeline.context_queue)
+        if self.continuous:
+            # requests already decoding in slots are part of the live
+            # batch the placement must provision for
+            backlog += self.generator.active_slots
+        b = max(self.gen_scheduler.choose_batch(max(backlog, 1)), 1)
+        placement = self.opt.solve(b)
+        self.pcache.set_target(placement.resident_partitions)
+        self.nprobe = placement.nprobe
+        # ONE device-byte market clears every elastic device-memory
+        # consumer (live KV pages, the prefix-cache cap, swap headroom and
+        # device-hot partitions) from the observed per-partition heat, so
+        # the budgets can never over-commit in aggregate
+        stats = self.retrieval_stats
+        ranking = stats.hot_ranking()
+        paged = getattr(self.generator, "paged", False)
+        # the live pool format is the market's bits-per-token dimension
+        split = self.opt.market(
+            placement,
+            page_size=self.generator.page_size if paged else None,
+            partition_heat=stats.heat(),
+            kv_format=self.generator.kv_format if paged else None,
+            priority_pressure=(self.scheduler.priority_pressure()
+                               if self.scheduler is not None else 0.0))
+        # the scheduler applies the clearing: it fences queued swap
+        # copies, then retargets the slot table and, for a paged
+        # generator, both KV tiers and the prefix cap
+        applied = (self.scheduler.apply_split(b, split)
+                   if self.scheduler is not None else {})
+        # hot tier under the market's byte grant: promote down the
+        # observed heat ranking, demote what no longer fits
+        self.hot.retarget(split.hot_bytes, ranking)
+        stats.decay()     # age the heat so the ranking tracks live skew
+        # the streamer's lookahead follows the host memory the live
+        # placement leaves free
+        hw = self.opt.cost.hw
+        host_free = (hw.cpu_mem * hw.mem_headroom
+                     - self.opt.memory_use(placement).cpu)
+        self.streamer.set_budget(max(host_free, 0.0))
+        ev = PolicyEvent(
+            t=time.perf_counter(), gen_batch=b,
+            resident_partitions=placement.resident_partitions,
+            c_gpu=placement.c_gpu, w_gpu=placement.w_gpu,
+            nprobe=placement.nprobe,
+            gen_slots=applied.get("slots"),
+            kv_pages=applied.get("pages"),
+            kv_host_pages=applied.get("host_pages"),
+            parked=getattr(self.generator, "parked_slots", None),
+            prefix_pages=applied.get("prefix_pages"),
+            prefix_hit_tokens=getattr(self.generator, "prefix_hit_tokens",
+                                      None),
+            hot_partitions=len(self.hot), hot_bytes=self.hot.device_bytes(),
+            hot_hit_rate=stats.hot_hit_rate)
+        # policy decisions journal through the metrics registry as
+        # structured events; ``policy_trace`` reads them back
+        self.registry.event("policy", **dataclasses.asdict(ev))
+        self.tracer.instant("policy.boundary", gen_batch=b,
+                            nprobe=placement.nprobe)
+
+    @property
+    def policy_trace(self) -> List[PolicyEvent]:
+        """Policy-boundary decisions, oldest first (from the registry's
+        event journal, bounded, so very long runs keep the tail)."""
+        return [PolicyEvent(**{k: v for k, v in e.items()
+                               if k not in ("seq", "kind")})
+                for e in self.registry.events("policy")]
+
+    def metrics_snapshot(self) -> Dict[str, object]:
+        """One coherent dict of every subsystem's counters: sync the
+        pull-style sources (search stats, prefix cache, pools, slots) into
+        registry gauges, then snapshot."""
+        reg = self.registry
+        if reg.enabled:
+            for name, val in self.retrieval_stats.snapshot().items():
+                reg.gauge(f"search.{name}").set(float(val))
+            gen = self.generator
+            for name in ("active_slots", "parked_slots", "peak_in_flight",
+                         "prefix_hit_tokens"):
+                val = getattr(gen, name, None)
+                if val is not None:
+                    reg.gauge(f"gen.{name}").set(float(val))
+            kv = getattr(gen, "kv", None)
+            if kv is not None:
+                reg.gauge("kv.pages_used").set(float(kv.pool.used_pages))
+                reg.gauge("kv.pages_capacity").set(float(kv.pool.capacity))
+                host = kv.host
+                if host is not None:
+                    reg.gauge("kv.host_pages_used").set(
+                        float(host.used_pages))
+                    reg.gauge("kv.host_pages_capacity").set(
+                        float(host.capacity))
+            prefix = getattr(gen, "prefix", None)
+            if prefix is not None:
+                for name, val in dataclasses.asdict(prefix.stats).items():
+                    reg.gauge(f"prefix.{name}").set(float(val))
+            reg.gauge("hot.partitions").set(float(len(self.hot)))
+            reg.gauge("engine.completed_total").set(
+                float(len(self.completed)))
+        return reg.snapshot()
+
     # ------------------------------------------------------------- public
     def pump_once(self) -> int:
         """One synchronous generation-pump iteration: capacity probe ->
-        admit from the context queue -> decode step (the ``StepPumpWorker``
-        loop body minus the thread).  The deterministic seam for tests.
+        admit from the context queue -> decode step: the
+        ``StepPumpWorker`` loop body minus the thread and minus the
+        ``policy_every`` boundary (mini-traces rely on their constructed
+        slot and page budgets staying put; a caller that wants a boundary
+        calls ``_gen_boundary``).  The deterministic seam for tests.
         Returns the number of requests completed so far."""
         if not self.continuous:
             raise ValueError("pump_once requires a continuous generator")

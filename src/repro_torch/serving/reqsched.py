@@ -23,8 +23,10 @@ and ``resume`` queue their copies on a side stream.
 
 With default knobs (one priority class, full swap, inline copies) the
 scheduler admits in arrival order and picks the victims of
-``ContinuousGenerator.swap_victim``.  ``apply_split`` (the policy
-boundary's retarget) waits for the placement slice of the port.
+``ContinuousGenerator.swap_victim``.  At every policy boundary
+``apply_split`` applies the device-byte market's clearing to the
+generator (slots, device, host and prefix page budgets), and
+``priority_pressure`` is the signal the clearing weighs.
 """
 from __future__ import annotations
 
@@ -49,8 +51,9 @@ class RequestScheduler:
     """Owns admission, preemption and resume for one continuous engine.
 
     The engine wires ``capacity`` / ``admit`` into its ``StepPumpWorker``
-    and calls ``tick`` before every decode step.  Every method runs on the
-    single pump thread (or the ``pump_once`` seam).
+    and calls ``tick`` before every decode step and ``apply_split`` at
+    every policy boundary.  Every method runs on the single pump thread
+    (or the ``pump_once`` seam).
     """
 
     def __init__(self, generator: ContinuousGenerator, context_queue,
@@ -258,3 +261,36 @@ class RequestScheduler:
             if gen.resume(handle) is None:
                 break               # slots/pages exhausted: retry later
             self._note(req, "running")
+
+    # ------------------------------------------------------ policy boundary
+    def apply_split(self, num_slots: int, split=None) -> Dict[str, int]:
+        """Retarget the generator from the market's clearing: the slot
+        count and, for a paged generator, the device, host and prefix page
+        budgets (``retarget`` fences queued swap copies first, so tokens
+        stay identical across the boundary)."""
+        if split is None:
+            return self.gen.retarget(num_slots=num_slots)
+        # retarget ignores the page budgets of a dense generator and the
+        # prefix budget of one without a prefix cache
+        return self.gen.retarget(num_slots=num_slots,
+                                 page_budget=split.kv_page_budget,
+                                 host_page_budget=split.host_page_budget,
+                                 prefix_page_budget=split.prefix_page_budget)
+
+    def priority_pressure(self) -> float:
+        """Fraction of waiting, live and parked work that is interactive
+        (priority > 0): the market's priority-weighted clearing signal,
+        under which the placement buys more decode throughput (KV pages)
+        relative to retrieval residency."""
+        n = hot = 0
+        for r in self.queue.snapshot():
+            n += 1
+            hot += request_priority(r) > 0
+        gen = self.gen
+        for ref in gen.table.active_refs():
+            n += 1
+            hot += request_priority(gen.table.state(ref).key) > 0
+        for handle in gen.parked_keys():
+            n += 1
+            hot += request_priority(gen.parked_request(handle)) > 0
+        return hot / n if n else 0.0

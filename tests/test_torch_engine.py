@@ -8,7 +8,7 @@ the same retrieved chunks and the same output tokens; the test first
 asserts that every greedy choice of the JAX run has a top-2 logit gap
 above 1e-3.  Also here: the port imports no JAX and no ``repro`` module,
 its entry points refuse to fall back to the CPU, and ``RagdollEngine``
-takes fig8's ``policy_every``.
+takes fig8's ``policy_every`` and wires the policy boundary.
 """
 import os
 import subprocess
@@ -182,9 +182,12 @@ def test_entry_points_refuse_cpu_fallback():
 
 def test_engine_takes_policy_every_and_keeps_it_inert(tmp_path):
     """fig8 builds its engines with ``policy_every=2``: the port accepts
-    it (default 8, as the reference), hands it to the generation pump,
-    and with no optimizer no policy runs at the boundaries; the optimizer
-    itself is still refused."""
+    it (default 8, as the reference), hands it to the generation pump and
+    wires the policy boundary there, as the reference does; with no
+    optimizer the boundary journals nothing and retargets nothing.  An
+    optimizer is accepted; sharded retrieval is still refused."""
+    from repro_torch.core.costmodel import PF_HIGH, CostModel, ModelProfile
+    from repro_torch.core.placement import PlacementOptimizer
     cfg = get_config("llama3-8b").reduced(num_layers=1)
     emb = HashEmbedder(dim=32)
     store = VectorStore.build(TEXTS, emb, num_partitions=4,
@@ -201,9 +204,24 @@ def test_engine_takes_policy_every_and_keeps_it_inert(tmp_path):
             assert eng.policy_every == want
             pump = eng.pipeline.workers[1]
             assert pump.policy_every == want
-            assert pump.on_policy_boundary is None
+            assert pump.on_policy_boundary == eng._gen_boundary
+            assert eng.pipeline.workers[0].on_batch_boundary \
+                == eng._ret_boundary
+            before = (gen.num_slots, gen.kv.pool.capacity)
+            pump.on_policy_boundary()
+            assert eng.policy_trace == []
+            assert (gen.num_slots, gen.kv.pool.capacity) == before
         finally:
             eng.streamer.close()
+    opt = PlacementOptimizer(CostModel(
+        PF_HIGH, ModelProfile.from_config(cfg), partition_bytes=1e6,
+        num_partitions=4))
+    eng = RagdollEngine(store, emb, gen, *sched, optimizer=opt,
+                        policy_every=2, device="cpu")
+    try:
+        assert eng.opt is opt and opt.registry is eng.registry
+    finally:
+        eng.streamer.close()
     with pytest.raises(NotImplementedError):
-        RagdollEngine(store, emb, gen, *sched, optimizer=object(),
-                      policy_every=2, device="cpu")
+        RagdollEngine(store, emb, gen, *sched, retrieval_shards=2,
+                      device="cpu")
