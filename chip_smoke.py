@@ -54,7 +54,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
               logits' own error of that row (a hit computes the prompt's
               last token in another matmul shape than a miss does, so bf16
               rounds it otherwise).
-10. serve-placement -- the placement optimizer on the card, last (its
+10. serve-streamed -- the paper's layer-streamed offloading on the same
+              weights: a ``StreamedExecutor`` keeps ``top`` on the card and
+              the 32 layers in pinned host memory (construction time,
+              streamed bytes, the device bytes it holds, which must stay
+              within ``top`` plus ``max_depth + 1`` layers); (a) a streamed
+              whole-batch ``Generator`` on 8 of serve's prompts must give
+              the resident one's tokens exactly; (b) the streamed paged,
+              chunk-prefilled ``ContinuousGenerator`` behind a threaded
+              ``RagdollEngine`` serves the 16 requests (p50, p95, tokens/s,
+              passes, bytes staged) with serve's tokens, or leaves them
+              first at a near tie witnessed in fp32 (joiners' chunks ride
+              one padded call, other matmul shapes than serve's); then one
+              layer's pinned copy rate, the mean decode pass against its
+              copy bound, and one profiled decode pass: busy share, copy
+              share and how much of the copy time overlaps a kernel.
+11. store    -- recluster: a 100k x 768 store of its own in 16 partitions
+              (4 spilled, 2 hot): exact ids equal the plain top-k before
+              and after ``recluster``, the hot set empties, no spill file
+              of the old layout survives, ``resident_bytes`` equals its
+              resident partitions' bytes.
+12. serve-placement -- the placement optimizer on the card, last (its
               partition cache releases partitions to disk): (a) the
               ``HardwareProfile`` fields measured here (bf16 matmul,
               device copy, total memory, host memory, pinned host-to-device
@@ -157,6 +177,9 @@ PLACEMENT_BATCHES = (1, 2, 4, 8)
 HOT_N = 4
 HOT_NPROBE = PARTITIONS // 4
 OOM_BATCH = 1024
+# the recluster check's store, apart from the shared one
+RECLUSTER_N, RECLUSTER_PARTS, RECLUSTER_SPILLED, RECLUSTER_HOT = (
+    100_000, 16, 4, 2)
 
 
 def log(msg: str) -> None:
@@ -1069,13 +1092,15 @@ def _submit_and_drain(eng, rids, t_limit, tag, errors, query_of=None):
 
 
 def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
-               stats=None, step_hist=None, layers=None):
+               stats=None, step_hist=None, layers=None, executor=None,
+               profile=True):
     """Warm up, serve the 16 measured requests with the launch counts set to
-    0 just before and read just after, then a profiled batch.  Fails unless
-    every request has ``MAX_NEW`` tokens and the exact top-5 and every
-    kernel in ``kernels`` launched.  ``layers``: a whole-batch path, whose
-    prefill batches are its flash launches over the layers.  Returns the
-    measured run's numbers."""
+    0 just before and read just after, then (``profile``) a profiled batch.
+    Fails unless every request has ``MAX_NEW`` tokens and the exact top-5
+    and every kernel in ``kernels`` launched.  ``layers``: a whole-batch
+    path, whose prefill batches are its flash launches over the layers.
+    ``executor``: a streamed generator's, whose passes and staged bytes in
+    the measured run are printed.  Returns the measured run's numbers."""
     from repro_torch.kernels import ops
     from repro_torch.serving import percentile
     errors = _watch_threads()
@@ -1095,6 +1120,8 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
             steps_before, secs_before = step_hist.count, step_hist.total
         if stats is not None:
             stats.reset()                    # the measured window only
+        if executor is not None:
+            passes0, staged0 = executor.passes, executor.staged_bytes
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         done = serve(list(range(WARMUP_REQ, WARMUP_REQ + N_REQ)), 600)
@@ -1102,16 +1129,20 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         retrieval = stats.snapshot() if stats is not None else None
-        # a further batch under the profiler: where the device time goes
-        from torch.profiler import ProfilerActivity, profile
+        if executor is not None:
+            passes = executor.passes - passes0
+            staged = executor.staged_bytes - staged0
         first = WARMUP_REQ + N_REQ
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            serve(list(range(first, first + PROFILE_REQ)), 600)
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0   # not the profiler's stop
-        log(f"[profile {tag}] stopping the profiler took "
-            f"{time.perf_counter() - t0 - window:.2f} s more")
+        if profile:
+            # a further batch under the profiler: where the device time goes
+            from torch.profiler import ProfilerActivity, profile as trace
+            t0 = time.perf_counter()
+            with trace(activities=[ProfilerActivity.CUDA]) as prof:
+                serve(list(range(first, first + PROFILE_REQ)), 600)
+                torch.cuda.synchronize()
+                window = time.perf_counter() - t0   # not the profiler's stop
+            log(f"[profile {tag}] stopping the profiler took "
+                f"{time.perf_counter() - t0 - window:.2f} s more")
     finally:
         eng.stop()
     if errors:
@@ -1140,10 +1171,14 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
         f"{peak / 2 ** 30:.2f} GiB ({smi})")
     if retrieval is not None:
         log(f"[{tag}] retrieval of the {N_REQ} requests: {retrieval}")
+    if executor is not None:
+        log(f"[{tag}] {passes} streamed passes, {staged} B staged host to "
+            f"device ({staged / max(passes, 1) / 1e9:.3f} GB a pass)")
     log(f"[{tag}] launches on this path: {json.dumps(counts)}")
-    breakdown(tag, _kernel_records(prof, torch), window, smi)
+    if profile:
+        breakdown(tag, _kernel_records(prof, torch), window, smi)
     return dict(counts=counts, p50=p50, tokens_s=toks / wall,
-                outputs={r.rid: r.output for r in reqs})
+                outputs={r.rid: r.output for r in reqs}, reqs=reqs)
 
 
 def decode_step_kernels(torch, tag, model, params, cache, block_tab=None,
@@ -1410,7 +1445,7 @@ def _prefix_generator(torch, cfg, params, **kw):
         device="cuda", **kw)
 
 
-def _near_tie(torch, cfg, params, fp32, req, got: str):
+def _near_tie(torch, cfg, params, fp32, req, got: str, ctx=PREFIX_CTX):
     """Where ``got`` first leaves ``req``'s tokens (run 1's): the prompt
     and run 1's tokens before that point go through one-shot prefill with
     the bf16 weights and with ``fp32``, their cast.  Returns (position,
@@ -1421,7 +1456,7 @@ def _near_tie(torch, cfg, params, fp32, req, got: str):
     want = [int(t[3:]) for t in req.output.split()]
     other = [int(t[3:]) for t in got.split()]
     t = next(i for i, (a, b) in enumerate(zip(want, other)) if a != b)
-    toks = HashTokenizer(cfg.vocab_size).encode(req.prompt, PREFIX_CTX)
+    toks = HashTokenizer(cfg.vocab_size).encode(req.prompt, ctx)
     ids = torch.tensor([list(toks) + want[:t]], dtype=torch.int32,
                        device="cuda")
     model = Model(cfg, device="cuda")
@@ -1600,6 +1635,254 @@ def phase_serve_prefix(torch, cfg, params, store, queries, exact, smi: str):
         f"the same {MAX_NEW} tokens as without the prefix cache, but for "
         f"{ties} that leave them at a near tie")
     return [run["counts"] for run in runs.values()]
+
+
+# -------------------------------------------------------- serve-streamed
+def _union(intervals):
+    """The merged ``[start, end]`` intervals of ``intervals``."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def h2d_overlap(records):
+    """Host-to-device copies of a trace: their count, time (us) and the
+    share of it that runs while a kernel runs."""
+    h2d = [(s, s + d) for n, s, d in records if n.startswith("Memcpy HtoD")]
+    kernels = _union((s, s + d) for n, s, d in records
+                     if not n.startswith(("Memcpy", "Memset")))
+    total = sum(b - a for a, b in h2d)
+    over = sum(max(0.0, min(b, e) - max(a, c))
+               for a, b in h2d for c, e in kernels)
+    return len(h2d), total, (over / total if total else 0.0)
+
+
+def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
+                         serve_run):
+    """The paper's layer-streamed offloading on the serve weights: the 32
+    layers in pinned host memory, ``top`` on the card, a ring of
+    ``max_depth + 1`` layer slots.  (a) a streamed whole-batch
+    ``Generator`` on 8 of serve's prompts gives the resident one's tokens
+    exactly; (b) the streamed paged, chunk-prefilled continuous generator
+    behind a threaded ``RagdollEngine`` serves the 16 requests with
+    serve's tokens, or leaves them first at an fp32-witnessed near tie
+    (joiners' chunks ride one padded call: other matmul shapes than
+    serve's batch=1 chunks); then one layer's pinned copy rate, the mean
+    decode pass against its copy bound, and one profiled decode pass.
+    Returns (b)'s launch counts."""
+    import gc
+    from repro_torch.core.prefetch import PrefetchPolicy
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.serving import (ContinuousGenerator, Generator,
+                                     GeneratorConfig, RagdollEngine)
+    policy = PrefetchPolicy()
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                        dtype=torch.bfloat16)
+    top_bytes = sum(t.numel() * t.element_size()
+                    for k, t in params.items() if k != "blocks")
+
+    def build(make):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        gen = make()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ex = gen.exec
+        # the executor's share: a paged generator also allocates its pool
+        pool = gen.kv.pool_nbytes(gen.cache) if getattr(gen, "kv", None) \
+            else 0
+        grown = torch.cuda.memory_allocated() - before - pool
+        bound = top_bytes + (policy.max_depth + 1) * ex.layer_bytes
+        log(f"[serve-streamed] executor built in {secs:.1f} s: "
+            f"{ex.n_layers - ex.resident} of {ex.n_layers} layers, "
+            f"{ex.streamed_bytes} B, in pinned host memory; it holds "
+            f"{ex.device_nbytes} B on the device (top {top_bytes} B + "
+            f"{ex.ring_slots} ring slots), allocated device memory grew by "
+            f"{grown} B besides the {pool} B KV pool; bound: top + {policy.max_depth + 1} layers = "
+            f"{bound:.0f} B ({smi})")
+        if ex.resident or ex.streamed_bytes != ex.n_layers * ex.layer_bytes:
+            fail("[serve-streamed] a layer stayed resident on the card")
+        if max(ex.device_nbytes, grown) > bound:
+            fail(f"[serve-streamed] the executor holds more than top + "
+                 f"{policy.max_depth + 1} layers")
+        return gen
+
+    # (a) whole-batch
+    prompts = [r.prompt for r in serve_run["reqs"][:SLOTS]]
+    gen = build(lambda: Generator(cfg, params, g, streamed=True,
+                                  policy=policy, device="cuda"))
+    t0 = time.perf_counter()
+    got = gen.generate(prompts)
+    torch.cuda.synchronize()
+    t_streamed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = Generator(cfg, params, g, device="cuda").generate(prompts)
+    torch.cuda.synchronize()
+    t_resident = time.perf_counter() - t0
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"[serve-streamed batch] {len(prompts)} prompts, {MAX_NEW} tokens "
+        f"each: streamed {t_streamed:.2f} s ({gen.exec.passes} passes), "
+        f"resident {t_resident:.2f} s; {same}/{len(prompts)} token rows "
+        f"equal ({smi})")
+    if got != want:
+        fail("[serve-streamed batch] streamed tokens differ from the "
+             "resident Generator's on the same weights")
+    del gen
+    gc.collect()
+
+    # (b) continuous, behind the threaded engine
+    gen = build(lambda: ContinuousGenerator(
+        cfg, params, g, num_slots=SLOTS, streamed=True, policy=policy,
+        paged=True, page_size=PAGE, prefill_chunk=CHUNK, device="cuda"))
+    ex = gen.exec
+    eng = RagdollEngine(store, QueryEmbedder(queries), gen,
+                        BacklogScheduler(max_batch=SLOTS),
+                        BacklogScheduler(max_batch=SLOTS),
+                        initial_partitions=PARTITIONS - SPILLED,
+                        device="cuda")
+    out = serve_path(torch, eng, "serve-streamed", CONTINUOUS_KERNELS, exact,
+                     smi, cfg.vocab_size, stats=eng.retrieval_stats,
+                     step_hist=eng.registry.histogram("decode.step_seconds"),
+                     executor=ex, profile=False)
+    want = {r.rid: r for r in serve_run["reqs"]}
+    fp32, ties = None, 0
+    for rid, got_out in out["outputs"].items():
+        if got_out == want[rid].output:
+            continue
+        if fp32 is None:
+            fp32 = _cast(params, torch.float32)
+        t, a, b, gap, err = _near_tie(torch, cfg, params, fp32, want[rid],
+                                      got_out, ctx=CTX)
+        msg = (f"[serve-streamed] request {rid} ({want[rid].query}): first "
+               f"other token at {t}, {b} for serve's {a}; fp32 logit gap "
+               f"{gap:.6f}, bf16 logits off fp32 by up to {err:.6f} in that "
+               "row")
+        if abs(gap) > 2 * err:
+            fail(f"{msg}: not a near tie")
+        log(f"{msg}: a near tie ({smi})")
+        ties += 1
+    del fp32
+    log(f"[serve-streamed] {N_REQ}/{N_REQ} requests: serve's {MAX_NEW} "
+        f"tokens, but for {ties} that leave them at a near tie")
+
+    # one layer's pinned copy, and decode passes against their copy bound
+    torch.cuda.synchronize()
+    host = ex._host[0]
+    slot = ex._ring[0, :host.numel()]
+    copy_ms = _events_ms(torch, lambda: slot.copy_(host, non_blocking=True),
+                         5)
+    rate = host.numel() / (copy_ms / 1e3)
+    cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((SLOTS,), CTX, dtype=torch.int32, device="cuda")
+    tab = gen.kv.device_tab()            # drained: every row all trash
+
+    def decode_pass():
+        ex.decode(cur, gen.cache, pos, block_tab=tab, kv_span=gen._total)
+
+    decode_pass()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decode_pass()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    pass_s = statistics.mean(times)
+    bound_s = ex.streamed_bytes / rate
+    depth = policy.depth("decode", ex.free_bytes, ex.layer_bytes)
+    log(f"[serve-streamed] one {host.numel()} B layer pinned host to device: "
+        f"{copy_ms:.3f} ms, {rate / 1e9:.2f} GB/s; a decode pass of {SLOTS} "
+        f"rows at depth {depth}: {pass_s * 1e3:.1f} ms (mean of 3) against "
+        f"a copy bound of {bound_s * 1e3:.1f} ms ({ex.streamed_bytes} B at "
+        f"that rate): the bound is {bound_s / pass_s:.1%} of it ({smi})")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_pass()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    records = _kernel_records(prof, torch)
+    breakdown("serve-streamed", records, window, smi,
+              what=f"one decode pass at depth {depth}")
+    copies, h2d_us, share = h2d_overlap(records)
+    log(f"[profile serve-streamed] {copies} host to device copies recorded "
+        f"of the {ex.n_layers} layers the pass staged: "
+        f"{h2d_us / 1e3:.1f} ms ({h2d_us / 1e6 / window:.1%} of the window),"
+        f" {share:.1%} of it while a kernel runs; queue depth {depth} decode, "
+        f"{policy.depth('prefill', ex.free_bytes, ex.layer_bytes)} prefill "
+        f"({smi})")
+    del gen, eng, ex, slot, host
+    gc.collect()
+    return out["counts"]
+
+
+def phase_store_recluster(torch, store_root: Path, smi: str) -> None:
+    """A store of its own (the shared one stays as it is): exact search
+    against the plain top-k over its corpus before and after
+    ``recluster``, with 2 partitions promoted to the hot tier before; the
+    recluster must empty the hot set, remove the spill files and keep
+    ``resident_bytes`` equal to its resident partitions' bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.retrieval import HotPartitionSet, VectorStore
+    from repro_torch.retrieval.synthetic import (ArrayEmbedder, blob_corpus,
+                                                 perturb_queries)
+    t0 = time.perf_counter()
+    vecs = blob_corpus(RECLUSTER_N, CORPUS_DIM, clusters=RECLUSTER_PARTS,
+                       seed=2)
+    queries = perturb_queries(vecs, SLOTS, seed=3)
+    store = VectorStore.build([str(i) for i in range(RECLUSTER_N)],
+                              ArrayEmbedder(vecs),
+                              num_partitions=RECLUSTER_PARTS,
+                              root=str(store_root), device="cuda")
+    for pid in range(RECLUSTER_PARTS - RECLUSTER_SPILLED, RECLUSTER_PARTS):
+        store.spill(pid)
+    spilled = [p.path for p in store.partitions.values() if p.path]
+    hot = HotPartitionSet(store, device="cuda")
+    hot.retarget(sum(store.partitions[p].nbytes
+                     for p in range(RECLUSTER_HOT)),
+                 list(range(RECLUSTER_HOT)))
+    if hot.pids() != list(range(RECLUSTER_HOT)):
+        fail(f"[store] hot set {hot.pids()}, want {RECLUSTER_HOT} promoted")
+    want_s, want_i = ops.retrieval_topk(torch.from_numpy(queries).cuda(),
+                                        torch.from_numpy(vecs).cuda(), TOP_K,
+                                        impl="ref")
+    want_s, want_i = want_s.cpu(), want_i.cpu()
+
+    def check(label):
+        s, i = store.search(queries, TOP_K, hot=hot)
+        check_topk(f"[store {label}]", torch.from_numpy(s),
+                   torch.from_numpy(i), want_s, want_i)
+        resident = sum(store.partitions[p].nbytes
+                       for p in store.resident_set())
+        if store.resident_bytes() != resident:
+            fail(f"[store {label}] resident_bytes {store.resident_bytes()}, "
+                 f"its resident partitions hold {resident} B")
+        return resident
+
+    before = check("before recluster")
+    hot_bytes = hot.device_bytes()
+    t1 = time.perf_counter()
+    store.recluster(num_partitions=RECLUSTER_PARTS, seed=1)
+    t_recluster = time.perf_counter() - t1
+    if hot.pids() or hot.device_bytes():
+        fail(f"[store] the hot set kept {hot.pids()} across a recluster")
+    if any(os.path.exists(p) for p in spilled):
+        fail("[store] a spill file of the old layout survived the recluster")
+    after = check("after recluster")
+    log(f"[store] {RECLUSTER_N} x {CORPUS_DIM} in {RECLUSTER_PARTS} "
+        f"partitions, {RECLUSTER_SPILLED} spilled, {RECLUSTER_HOT} hot "
+        f"({hot_bytes} B on the card): exact ids equal the plain top-k "
+        f"before and after recluster(num_partitions={RECLUSTER_PARTS}, "
+        f"seed=1) ({t_recluster:.2f} s; layout {store.layout_version}); hot "
+        f"set emptied ({hot.demotions} demotions); resident_bytes {before} "
+        f"-> {after} B, equal to its resident partitions'; "
+        f"{time.perf_counter() - t0:.1f} s in all ({smi})")
 
 
 # ------------------------------------------------------- serve-placement
@@ -2093,8 +2376,10 @@ CATEGORIES = (
 )
 
 
-def breakdown(tag, records, window_s: float, smi: str) -> None:
-    """Device busy share of a serving window and its time by kind."""
+def breakdown(tag, records, window_s: float, smi: str,
+              what: str = f"{PROFILE_REQ} requests") -> None:
+    """Device busy share of a serving window (``what``) and its time by
+    kind."""
     if not records:
         log(f"[profile {tag}] the profiler recorded no device activity: "
             "not measured")
@@ -2115,7 +2400,7 @@ def breakdown(tag, records, window_s: float, smi: str) -> None:
         cats[label] = cats.get(label, 0.0) + d / 1e6
         names[name] = names.get(name, 0.0) + d / 1e6
     total = sum(cats.values())
-    log(f"[profile {tag}] {PROFILE_REQ} requests: wall {window_s:.2f} s, "
+    log(f"[profile {tag}] {what}: wall {window_s:.2f} s, "
         f"device busy {busy:.2f} s ({busy / window_s:.1%}), idle "
         f"{1 - busy / window_s:.1%} ({smi})")
     for label, t in sorted(cats.items(), key=lambda kv: -kv[1]):
@@ -2166,7 +2451,9 @@ def main() -> int:
     name, smi = phase_device(torch)
     phase_build(torch)
     store_root = ROOT / "build" / "smoke_corpus"
+    recluster_root = ROOT / "build" / "smoke_recluster"
     shutil.rmtree(store_root, ignore_errors=True)
+    shutil.rmtree(recluster_root, ignore_errors=True)
     try:
         store, queries, exact = phase_corpus(torch, store_root)
         rows = phase_kernels(torch, Timer(torch), store, queries)
@@ -2179,13 +2466,17 @@ def main() -> int:
                                 smi)
         prefix = phase_serve_prefix(torch, cfg, params, store, queries,
                                     exact, smi)
+        streamed = phase_serve_streamed(torch, cfg, params, store, queries,
+                                        exact, smi, paged)
+        phase_store_recluster(torch, recluster_root, smi)
         # last: its partition cache releases partitions to disk
         placement = phase_serve_placement(torch, cfg, params, store, queries,
                                           exact, smi, dict(batch, serve=paged))
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
+        shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
-            + prefix + placement)
+            + prefix + [streamed] + placement)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         kernels.append(dict(name=kname, route=route, source=source,

@@ -3,7 +3,8 @@
 Brings up the full RAGDoll engine (real threads, a real vector store with
 disk-spilled partitions, real generation on a reduced model) and replays
 a Poisson workload against it, printing the latency table.  ``--serial``
-runs the baseline engine for comparison.  Everything runs on the CUDA
+runs the baseline engine for comparison, ``--streamed`` the offloading
+layer-streamed generator.  Everything runs on the CUDA
 card unless ``--device cpu`` asks for the plain PyTorch versions of the
 kernels (the counterpart of ``JAX_PLATFORMS`` for the JAX launcher).
 """
@@ -52,15 +53,13 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the Hopper kernels) or cpu (plain versions)")
     args = ap.parse_args(argv)
-    if args.streamed:
-        raise NotImplementedError("--streamed: the layer-streaming slice")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch).reduced()
     params = Model(cfg, device).init(seed=args.seed, dtype=torch.float32)
     gen = Generator(cfg, params, GeneratorConfig(ctx_len=48,
                                                  max_new_tokens=8),
-                    device=device)
+                    streamed=args.streamed, device=device)
 
     emb = HashEmbedder(dim=128)
     with tempfile.TemporaryDirectory() as root:
@@ -92,7 +91,7 @@ def main(argv=None) -> None:
 
     tab = latency_table(reqs)
     print(f"\nmode={'serial' if args.serial else 'ragdoll'} "
-          f"arch={args.arch} device={device}")
+          f"arch={args.arch} device={device} streamed={args.streamed}")
     for k, v in tab.items():
         print(f"  {k:16s} {v:10.3f}" if isinstance(v, float)
               else f"  {k:16s} {v}")

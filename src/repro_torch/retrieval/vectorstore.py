@@ -2,7 +2,8 @@
 
 Ported from ``repro.retrieval.vectorstore``.  The database is split into
 P k-means partitions (the numpy k-means is copied as is, so partitions
-match the JAX package's exactly); partitions stay host-resident in RAM or
+match the JAX package's exactly; ``recluster`` runs it again in place) or
+P hash partitions (chunk i in partition i mod P); partitions stay host-resident in RAM or
 spilled to disk as ``.npy`` files -- that is the offloading design.  A
 search copies each swept partition to the store's device (from pinned
 memory, ``non_blocking``) and scores it with ``ops.retrieval_topk``; the
@@ -12,6 +13,7 @@ memory, ``non_blocking``) and scores it with ``ops.retrieval_topk``; the
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -216,7 +218,8 @@ def kmeans_centroids(embs: np.ndarray, k: int, iters: int = 10,
 
 
 class VectorStore:
-    """IVF-clustered store over host-resident corpus partitions.
+    """IVF-clustered (or hash-partitioned) store over host-resident
+    corpus partitions.
 
     ``device`` is where partitions are scored (CUDA unless the caller
     asks for the CPU); the partitions themselves stay on the host.
@@ -241,22 +244,68 @@ class VectorStore:
               root: Optional[str] = None, partitioner: str = "kmeans",
               kmeans_iters: int = 10, seed: int = 0,
               device: DeviceLike = None) -> "VectorStore":
-        if partitioner != "kmeans":
-            raise NotImplementedError(f"partitioner {partitioner!r}")
+        if partitioner not in ("kmeans", "hash"):
+            raise ValueError(f"unknown partitioner {partitioner!r}")
         store = cls(embedder.dim, num_partitions, root, device=device)
         store.chunks = list(texts)
         embs = embedder.embed(texts)
         ids = np.arange(len(texts))
-        cent, assign = kmeans_centroids(embs, num_partitions,
-                                        iters=kmeans_iters, seed=seed)
-        store.num_partitions = cent.shape[0]
-        store.centroids = cent
+        if partitioner == "kmeans":
+            cent, assign = kmeans_centroids(embs, num_partitions,
+                                            iters=kmeans_iters, seed=seed)
+            store.num_partitions = cent.shape[0]
+            store.centroids = cent
+        else:                    # chunk i goes to partition i mod P
+            assign = ids % num_partitions
         for pid in range(store.num_partitions):
             sel = assign == pid
             store.partitions[pid] = Partition(
                 pid=pid, embeddings=embs[sel], doc_ids=ids[sel])
+        if partitioner == "hash":
+            store._centroids_from_partitions(embs)
         store.layout_version += 1
         return store
+
+    def recluster(self, num_partitions: Optional[int] = None,
+                  kmeans_iters: int = 10, seed: int = 0) -> None:
+        """Run k-means over the whole corpus again, in place (the paper
+        re-indexes the store as the corpus drifts).
+
+        Spilled partitions are loaded for the pass and their spill files
+        removed; every new partition comes out resident with no disk path
+        (a later spill writes under the new ``layout_version``, so no
+        file of the old layout is ever read again).  ``layout_version``
+        is bumped, so the streamer, the partition cache and the hot set
+        drop what they keyed by the old layout.
+        """
+        embs = np.zeros((len(self.chunks), self.dim), np.float32)
+        for pid, p in self.partitions.items():
+            if not p.resident:
+                self.load(pid)
+            embs[p.doc_ids] = p.embeddings
+            if p.path is not None:        # superseded layout: no orphans
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(p.path)
+        ids = np.arange(len(self.chunks))
+        cent, assign = kmeans_centroids(
+            embs, num_partitions or self.num_partitions,
+            iters=kmeans_iters, seed=seed)
+        self.num_partitions = cent.shape[0]
+        self.centroids = cent
+        self.partitions = {
+            pid: Partition(pid=pid, embeddings=embs[assign == pid],
+                           doc_ids=ids[assign == pid])
+            for pid in range(self.num_partitions)}
+        self.layout_version += 1
+
+    def _centroids_from_partitions(self, embs: np.ndarray) -> None:
+        """Unit-norm mean of each partition's rows (hash partitions)."""
+        cent = np.zeros((self.num_partitions, self.dim), np.float32)
+        for pid, p in self.partitions.items():
+            if len(p.doc_ids):
+                c = embs[p.doc_ids].mean(axis=0)
+                cent[pid] = c / max(np.linalg.norm(c), 1e-12)
+        self.centroids = cent
 
     # ------------------------------------------------------------ disk tier
     def spill(self, pid: int) -> None:
@@ -294,6 +343,11 @@ class VectorStore:
 
     def resident_set(self) -> List[int]:
         return [pid for pid, p in self.partitions.items() if p.resident]
+
+    def resident_bytes(self) -> int:
+        """Host bytes of the partitions held in RAM."""
+        return sum(p.embeddings.nbytes for p in self.partitions.values()
+                   if p.resident)
 
     # ---------------------------------------------------------------- probe
     def probe(self, queries: np.ndarray, nprobe: int

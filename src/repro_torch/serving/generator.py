@@ -1,6 +1,10 @@
 """Generation workers: whole-batch and continuous, on a dense or paged cache.
 
-The two disciplines of ``repro.serving.generator``, on the ``Model`` path:
+The two disciplines of ``repro.serving.generator``, each on the resident
+``Model`` path or, with ``streamed=True``, on the offloading
+:class:`~repro_torch.core.prefetch.StreamedExecutor` path (layers stream
+from pinned host memory through a prefetch queue on every pass; the same
+tokens):
 
 ``Generator``
     The whole-batch loop: prefill the batch together (one-shot, into a
@@ -53,8 +57,11 @@ Slot lifecycle::
 
 ``resize``, ``set_page_budget`` and ``retarget`` change the slot table's
 and the pools' capacity between steps (the placement policy's knobs).
-Not in the port yet, and raising ``NotImplementedError``: the
-layer-streamed executor (``streamed=True``).
+Both paths keep one cache layout (the ``Model``'s per-layer list, written
+in place), so every mechanism above serves both.  On the streamed path a
+step's chunk prefills of one width ride one batched call (the layers
+stream once a width group, not once a joiner), and its decode passes the
+slot mask (a step with no live slot streams nothing).
 """
 from __future__ import annotations
 
@@ -67,11 +74,12 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.prefetch import PrefetchPolicy, StreamedExecutor
 from repro_torch.models.model import Model, init_cache
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
-from repro_torch.serving.kvpool import (PagedKVCache, PageExhausted,
-                                        resize_cache_rows)
+from repro_torch.serving.kvpool import (TRASH_PAGE, PagedKVCache,
+                                        PageExhausted, resize_cache_rows)
 from repro_torch.serving.prefixcache import PrefixCache
 
 
@@ -114,22 +122,56 @@ def _trim_at_eos(tokens: List[int], eos_id: Optional[int]) -> List[int]:
 class _GeneratorBase:
     """Shared model/tokenizer substrate for both batching disciplines.
 
-    ``device`` defaults to CUDA and raises when it is absent."""
+    ``streamed=True`` runs the layers through a :class:`StreamedExecutor`
+    (queue depths from ``policy``, default :class:`PrefetchPolicy`); the
+    resident ``Model`` path ignores ``policy``.  ``device`` defaults to
+    CUDA and raises when it is absent."""
 
     def __init__(self, cfg: ModelConfig, params, gen_cfg: GeneratorConfig,
-                 streamed: bool = False, policy=None,
+                 streamed: bool = False,
+                 policy: Optional[PrefetchPolicy] = None,
                  device: DeviceLike = None):
-        if streamed or policy is not None:
-            raise NotImplementedError("streamed: the layer-streaming slice")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gen_cfg = gen_cfg
         self.tok = HashTokenizer(cfg.vocab_size)
-        self.model = Model(cfg, self.device)
-        self.params = params
+        self.streamed = streamed
+        if streamed:
+            self.exec: Optional[StreamedExecutor] = StreamedExecutor(
+                cfg, params, policy or PrefetchPolicy(), device=self.device)
+            self.model = None
+            self.params = None
+        else:
+            self.exec = None
+            self.model = Model(cfg, self.device)
+            self.params = params
 
     def _device_ints(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _prefill(self, toks: torch.Tensor, cache) -> torch.Tensor:
+        if self.streamed:
+            return self.exec.prefill(toks, cache)
+        return self.model.prefill(self.params, toks, cache)
+
+    def _chunk_prefill(self, toks: torch.Tensor, cache, off: torch.Tensor,
+                       block_tab: torch.Tensor, kv_span: int) -> torch.Tensor:
+        if self.streamed:
+            return self.exec.prefill_chunk(toks, cache, off,
+                                           block_tab=block_tab,
+                                           kv_span=kv_span)
+        return self.model.chunk_prefill(self.params, toks, cache, off,
+                                        block_tab, kv_span=kv_span)
+
+    def _decode(self, cur: torch.Tensor, cache, pos: torch.Tensor,
+                block_tab: Optional[torch.Tensor] = None,
+                kv_span: Optional[int] = None,
+                slot_mask: Optional[np.ndarray] = None) -> torch.Tensor:
+        if self.streamed:
+            return self.exec.decode(cur, cache, pos, slot_mask=slot_mask,
+                                    block_tab=block_tab, kv_span=kv_span)
+        return self.model.decode(self.params, cur, cache, pos, block_tab,
+                                 kv_span=kv_span)
 
 
 class Generator(_GeneratorBase):
@@ -142,13 +184,13 @@ class Generator(_GeneratorBase):
             np.stack([self.tok.encode(p, g.ctx_len) for p in prompts]))
         cache = init_cache(self.cfg, b, g.ctx_len + g.max_new_tokens,
                            g.dtype, self.device)
-        logits = self.model.prefill(self.params, toks, cache)
+        logits = self._prefill(toks, cache)
         cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         outs = [cur]                # stay on the device: one copy at the end
         for t in range(g.max_new_tokens - 1):
             pos = torch.full((b,), g.ctx_len + t, dtype=torch.int32,
                              device=self.device)
-            logits = self.model.decode(self.params, cur, cache, pos)
+            logits = self._decode(cur, cache, pos)
             cur = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             outs.append(cur)
         mat = torch.cat(outs, dim=1).cpu().numpy()     # (B, new)
@@ -331,7 +373,8 @@ class ContinuousGenerator(_GeneratorBase):
     """
 
     def __init__(self, cfg: ModelConfig, params, gen_cfg: GeneratorConfig,
-                 num_slots: int = 4, streamed: bool = False, policy=None,
+                 num_slots: int = 4, streamed: bool = False,
+                 policy: Optional[PrefetchPolicy] = None,
                  paged: bool = False, page_size: int = 8,
                  page_budget: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
@@ -392,7 +435,8 @@ class ContinuousGenerator(_GeneratorBase):
                 kv_format=kv_format, overlap=overlap_swap,
                 device=self.device, tracer=self.tracer,
                 registry=self.registry)
-            self.cache = self.kv.init_stacked()
+            self.cache = (self.kv.init_layered(self.exec.layer_kinds())
+                          if streamed else self.kv.init_stacked())
         else:
             self.kv = None
             self.cache = init_cache(cfg, num_slots, total, gen_cfg.dtype,
@@ -539,18 +583,19 @@ class ContinuousGenerator(_GeneratorBase):
                 self.kv.ensure(ref.index, g.ctx_len)
                 off = torch.full((1,), matched, dtype=torch.int32,
                                  device=self.device)
-                logits = self.model.chunk_prefill(
-                    self.params, self._device_ints(ptoks[None, matched:]),
-                    self.cache, off, self.kv.slot_tab(ref.index),
-                    kv_span=g.ctx_len)
+                logits = self._chunk_prefill(
+                    self._device_ints(ptoks[None, matched:]), self.cache,
+                    off, self.kv.slot_tab(ref.index), g.ctx_len)
             self._prefix_insert(ref.index, ptoks)
             self._emit(ref, int(torch.argmax(logits[0])))
             return ref
         with self.tracer.span("prefill", slot=ref.index, tokens=g.ctx_len):
             row = init_cache(self.cfg, 1, self._total, g.dtype, self.device)
-            logits = self.model.prefill(self.params,
-                                        self._device_ints(ptoks[None]), row)
-            if self.paged:
+            logits = self._prefill(self._device_ints(ptoks[None]), row)
+            if self.paged and self.streamed:
+                self.kv.scatter_row_layered(self.cache, row, ref.index,
+                                            g.ctx_len)
+            elif self.paged:
                 self.kv.scatter_row_stacked(self.cache, row, ref.index,
                                             g.ctx_len)
             else:
@@ -638,35 +683,65 @@ class ContinuousGenerator(_GeneratorBase):
                     raise
 
     def _advance_prefills(self) -> int:
-        """Prefill one chunk for every joining slot, one batch=1 call per
-        slot (resident weights: nothing to amortize by batching them)."""
+        """Prefill one chunk for every joining slot.
+
+        On the streamed path, slots whose next chunk has the same width
+        ride one batched call (per-row offsets; the batch padded to a
+        power of two with all-trash block-table rows at offset 0), so the
+        offloaded layers stream once a width group, not once a joiner.
+        On the resident path there is no copy to amortize, so each slot
+        runs a batch=1 call.  Rows are independent, so neither choice
+        changes tokens (in fp32; bf16 rounds other matmul shapes
+        otherwise)."""
         g = self.gen_cfg
+        groups: Dict[int, List[Tuple[int, _ChunkJob]]] = {}
+        for slot in sorted(self._prefilling):
+            job = self._prefilling[slot]
+            c = min(self.prefill_chunk, g.ctx_len - job.offset)
+            groups.setdefault(c, []).append((slot, job))
         finished: List[Tuple[int, int]] = []
         span = (self.tracer.span(
                     "prefill.chunk", slots=len(self._prefilling),
                     trace_ids=self._scope_ids(self._prefilling))
                 if self.tracer.enabled else NULL_SPAN)
         with span:
-            jobs = sorted(self._prefilling.items(),
-                          key=lambda sj: (min(self.prefill_chunk,
-                                              g.ctx_len - sj[1].offset),
-                                          sj[0]))
-            for slot, job in jobs:
-                self.kv.ensure(slot, job.offset + min(
-                    self.prefill_chunk, g.ctx_len - job.offset))
-            tab = self.kv.device_tab()
-            for slot, job in jobs:
-                c = min(self.prefill_chunk, g.ctx_len - job.offset)
-                chunk = self._device_ints(
-                    job.toks[None, job.offset:job.offset + c])
-                off = torch.full((1,), job.offset, dtype=torch.int32,
-                                 device=self.device)
-                logits = self.model.chunk_prefill(
-                    self.params, chunk, self.cache, off, tab[slot:slot + 1],
-                    kv_span=g.ctx_len)
-                job.offset += c
-                if job.offset >= g.ctx_len:
-                    finished.append((slot, int(torch.argmax(logits[0]))))
+            for c, members in sorted(groups.items()):
+                for slot, job in members:
+                    self.kv.ensure(slot, job.offset + c)
+                tab = self.kv.device_tab()
+                if not self.streamed:
+                    for slot, job in members:
+                        chunk = self._device_ints(
+                            job.toks[None, job.offset:job.offset + c])
+                        off = torch.full((1,), job.offset, dtype=torch.int32,
+                                         device=self.device)
+                        logits = self._chunk_prefill(
+                            chunk, self.cache, off, tab[slot:slot + 1],
+                            g.ctx_len)
+                        job.offset += c
+                        if job.offset >= g.ctx_len:
+                            finished.append(
+                                (slot, int(torch.argmax(logits[0]))))
+                    continue
+                n = len(members)
+                padn = 1 << (n - 1).bit_length()
+                rows = np.zeros((padn, c), np.int32)   # pad rows: token 0
+                offs = np.zeros(padn, np.int32)        # ... at offset 0
+                for r, (_, job) in enumerate(members):
+                    rows[r] = job.toks[job.offset:job.offset + c]
+                    offs[r] = job.offset
+                bt = torch.full((padn, self.kv.nmax), TRASH_PAGE,
+                                dtype=tab.dtype, device=self.device)
+                bt[:n] = tab[self._device_ints(
+                    np.asarray([slot for slot, _ in members]))]
+                logits = self._chunk_prefill(
+                    self._device_ints(rows), self.cache,
+                    self._device_ints(offs), bt, g.ctx_len)
+                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                for r, (slot, job) in enumerate(members):
+                    job.offset += c
+                    if job.offset >= g.ctx_len:
+                        finished.append((slot, int(nxt[r])))
         progressed = len(self._prefilling)
         for slot, token in finished:
             job = self._prefilling.pop(slot)
@@ -710,11 +785,16 @@ class ContinuousGenerator(_GeneratorBase):
                     "decode.step", slots=len(refs),
                     trace_ids=self._scope_ids(r.index for r in refs))
                 if self.tracer.enabled else NULL_SPAN)
+        mask = None
+        if self.streamed:
+            # live rows only: still prefilling or awaiting a swap-in is not
+            mask = self.table.mask()
+            mask[list(self._prefilling)] = False
+            mask[list(self._pending_resume)] = False
         with span:
             cur = self._device_ints(self._cur)[:, None]
             pos = self._device_ints(self._pos)
-            logits = self.model.decode(self.params, cur, self.cache, pos, bt,
-                                       kv_span=span_len)
+            logits = self._decode(cur, self.cache, pos, bt, span_len, mask)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         if (self.paged and self.registry.enabled
                 and self.kv.kv_format == "int8"):

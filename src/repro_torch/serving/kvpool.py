@@ -698,6 +698,15 @@ class PagedKVCache:
             self.device, kv_format="int8" if self.kv_format == "int8"
             else None)
 
+    def init_layered(self, kinds: Sequence) -> Dict[str, Any]:
+        """Pooled caches for the ``StreamedExecutor`` path: the executor
+        runs the ``Model``'s layers on the ``Model``'s per-layer cache
+        list, so this is :meth:`init_stacked` (``kinds`` must be the
+        model's layer kinds)."""
+        if list(kinds) != list(self.cfg.layer_kinds()):
+            raise ValueError("layer kinds differ from the model's")
+        return self.init_stacked()
+
     def page_nbytes(self, pools) -> int:
         """Bytes one page occupies across every pool leaf (int8 pools:
         the int8 payload plus the fp32 scale rows)."""
@@ -997,6 +1006,12 @@ class PagedKVCache:
             for name in ("k", "v"):
                 pool[name][pages, offs] = row[name][0, :length].to(
                     pool[name].dtype)
+
+    def scatter_row_layered(self, caches, row_caches, slot: int,
+                            length: int) -> None:
+        """The same, for the ``StreamedExecutor`` path, whose caches have
+        the ``Model``'s layout (see :meth:`init_layered`)."""
+        self.scatter_row_stacked(caches, row_caches, slot, length)
 
     # -------------------------------------------------------------- resize
     def resize_slots(self, num_slots: int) -> None:

@@ -709,3 +709,64 @@ def test_delayed_swap_copies_overlap_decode_and_match_inline(
     assert n_inline > 0 and n_overlap > 0
     assert overlapped > 0
     assert overlap == inline
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lag", ["compute", "copy"])
+@pytest.mark.parametrize("depth", [1, 2, 8])
+def test_streamed_ring_orders_copies_and_reads(cuda_device, monkeypatch,
+                                               depth, lag):
+    """The streamed executor's ring of ``depth + 1`` slots on a 12-layer
+    model, with one side made to lag by ``torch.cuda._sleep`` before each
+    layer: the compute stream (a copy must wait for the last read of the
+    slot it overwrites) or the copy stream (a layer must wait for its
+    copy).  A prefill and four decode passes give the resident ``Model``'s
+    logits bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.prefetch import PrefetchPolicy, StreamedExecutor
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model, init_cache
+    cfg = get_config("llama3-8b").reduced(num_layers=12)
+    model = Model(cfg, device=cuda_device)
+    params = model.init(seed=6, dtype=torch.float32)
+    # each spin (about 5 ms) outlasts the host's launches of a layer, so
+    # the lagging stream falls behind the other by several layers a pass
+    b, ctx, steps = 2, 16, 4
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(2, cfg.vocab_size, (b, ctx), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    cache = init_cache(cfg, b, ctx + steps, torch.float32, cuda_device)
+    want, curs = [model.prefill(params, toks, cache)], []
+    for t in range(steps):
+        curs.append(want[-1].argmax(-1)[:, None].to(torch.int32))
+        pos = torch.full((b,), ctx + t, dtype=torch.int32, device=cuda_device)
+        want.append(model.decode(params, curs[-1], cache, pos))
+    ex = StreamedExecutor(cfg, params, PrefetchPolicy(max_depth=depth,
+                                                      prefill_depth=depth),
+                          device=cuda_device)
+    assert ex.ring_slots == depth + 1
+    if lag == "compute":
+        apply_layer = transformer.apply_layer
+
+        def slow(*a, **kw):
+            torch.cuda._sleep(10**7)           # on the compute stream
+            return apply_layer(*a, **kw)
+
+        monkeypatch.setattr(transformer, "apply_layer", slow)
+    else:
+        stage = StreamedExecutor._stage
+
+        def slow(self, i):
+            with torch.cuda.stream(self._copy):
+                torch.cuda._sleep(10**7)       # on the copy stream
+            return stage(self, i)
+
+        monkeypatch.setattr(StreamedExecutor, "_stage", slow)
+    cache = init_cache(cfg, b, ctx + steps, torch.float32, cuda_device)
+    got = [ex.prefill(toks, cache)]
+    for t in range(steps):
+        pos = torch.full((b,), ctx + t, dtype=torch.int32, device=cuda_device)
+        got.append(ex.decode(curs[t], cache, pos))
+    assert ex.passes == steps + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

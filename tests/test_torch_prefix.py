@@ -2,7 +2,7 @@
 package, on the CPU.
 
 Counterparts of ``tests/test_prefix.py`` (all but the streamed case,
-which waits for the port's layer-streamed executor): the same prompts go
+in ``tests/test_torch_streamed.py``): the same prompts go
 through the JAX ``ContinuousGenerator`` and the port's, both with
 ``prefix_cache=True``, and give the same tokens, the same
 ``PrefixCacheStats`` and the same prefill, hit and copy-on-write counts;

@@ -1,7 +1,8 @@
 """Port swap-to-host preemption vs uninterrupted generation, on the CPU.
 
-Counterparts of ``tests/test_swap.py`` (all but the streamed and the
-pool-resize tests), ``tests/test_quant_kv.py``'s int8 swap round trip and
+Counterparts of ``tests/test_swap.py`` (all but the streamed ones, in
+``tests/test_torch_streamed.py``, and the pool-resize ones, in
+``tests/test_torch_resize.py``), ``tests/test_quant_kv.py``'s int8 swap round trip and
 scale survival, and the conservation laws of ``tests/test_swap_pool.py``
 and ``tests/test_reqsched_pool.py`` as hypothesis properties:
 
