@@ -74,7 +74,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and after ``recluster``, the hot set empties, no spill file
               of the old layout survives, ``resident_bytes`` equals its
               resident partitions' bytes.
-12. serve-placement -- the placement optimizer on the card, last (its
+12. serve-sharded -- sharded retrieval on the shared store: (a)
+              ``ShardedIVFStore`` over 2 and 4 shards, exact and at nprobe
+              16, bit-equal to the single-host search (each shard's sweep
+              ms, both searches' ms), then each shard's hot tier under its
+              share of a grant of 16 partitions' bytes: only its own
+              partitions, the hot search bit-equal to the cold one; (b) a
+              one-rank NCCL group: ``sharded_topk_merge`` of the 4 shards'
+              boards equal to the local merge, ``distributed_topk`` over
+              the 1M rows with one top-k's ids, the all-gather's ms beside
+              the cost model's; (c) ``RagdollEngine(retrieval_shards=4)``
+              with the optimizer on ``H100_HOST`` and the serve generator:
+              16 requests with the single-host search's ids at each
+              batch's nprobe and serve's tokens but at fp32-witnessed near
+              ties (where the chunks are serve's), each shard's budgets
+              and hot partitions after the last boundary.
+13. serve-placement -- the placement optimizer on the card, last (its
               partition cache releases partitions to disk): (a) the
               ``HardwareProfile`` fields measured here (bf16 matmul,
               device copy, total memory, host memory, pinned host-to-device
@@ -98,6 +113,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               through ``OOMRecovery.run``: it must demote and succeed, and
               ``memory_allocated`` must come back to its level.
 
+After serve-batch, a ``[sim]`` line (printed, not gated): the port's
+simulator on ``H100_HOST`` for the same burst, whole-batch ragdoll and
+the serial baseline, each predicted p50 beside the measured one.  The
+kernels phase also holds the merge at the cross-shard shapes (8, 2, 5)
+and (8, 4, 5) against its plain version.
+
 Each serving path is driven with the launch counts set to 0 just before its
 16 measured requests and read just after; a kernel the path should run
 that launched no time fails the run (serve-placement: each policy path,
@@ -110,6 +131,7 @@ every path); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import os
@@ -177,6 +199,14 @@ PLACEMENT_BATCHES = (1, 2, 4, 8)
 HOT_N = 4
 HOT_NPROBE = PARTITIONS // 4
 OOM_BATCH = 1024
+# serve-sharded: the shared store over 2 and 4 retrieval shards, at nprobe
+# 16 and exact; a hot grant of 16 partitions' bytes split across the
+# shards; the engine with 4 shards
+SHARD_COUNTS = (2, 4)
+SHARDED_NPROBE = 16
+SHARDED_HOT = 16
+ENGINE_SHARDS = 4
+SHARDED_KERNELS = CONTINUOUS_KERNELS
 # the recluster check's store, apart from the shared one
 RECLUSTER_N, RECLUSTER_PARTS, RECLUSTER_SPILLED, RECLUSTER_HOT = (
     100_000, 16, 4, 2)
@@ -795,6 +825,33 @@ def phase_kernels(torch, timer, store, queries):
             times.append(f"{name} {ms:.4f}")
         log(f"[kernel] retrieval_topk_merge ({SLOTS}, {parts}, {k}) "
             f"selection ms: {', '.join(times)}")
+    # the cross-shard merge of serve-sharded: (8, S, 5) boards, S = 2 and
+    # 4, rows of 10 and 20 entries (the unaligned rows' scalar loads),
+    # under the all-true mask the sharded store passes and under a probe
+    # mask; held to the plain version exactly, timed beside it and
+    # beside where + topk + gather
+    for parts in SHARD_COUNTS:
+        s, ids, mask = merge_case(parts, TOP_K)
+        full = torch.ones_like(mask)
+        for what, m in (("probe mask", mask), ("all-true mask", full)):
+            got = ops.retrieval_topk_merge(s, ids, m, TOP_K)
+            want = ops.retrieval_topk_merge(s, ids, m, TOP_K, impl="ref")
+            merge_exact(f"({SLOTS}, {parts}, {TOP_K}) {what}", got, want)
+
+        def lib_cross():
+            flat = torch.where(full[:, :, None], s, ops.NEG_INF).flatten(1)
+            top = torch.topk(flat, TOP_K, dim=-1)
+            return top.values, ids.flatten(1).gather(1, top.indices)
+
+        nbytes = s.numel() * 8 + full.numel() + SLOTS * TOP_K * 8
+        b_ms, b_by = bound_ms(nbytes, SLOTS * parts * TOP_K, PEAK_FP32)
+        log(f"[kernel] retrieval_topk_merge ({SLOTS}, {parts}, {TOP_K}) "
+            f"all-true mask (the cross-shard merge): exact; kernel_ms "
+            f"{timer(lambda: ops.retrieval_topk_merge(s, ids, full, TOP_K)):.4f}"
+            f" plain_ms "
+            f"{timer(lambda: ops.retrieval_topk_merge(s, ids, full, TOP_K, impl='ref')):.4f}"
+            f" library_ms {timer(lib_cross):.4f} (where + topk + gather) "
+            f"bound_ms {b_ms:.7f} ({b_by})")
     # the launch floor: an (almost) empty kernel, a spin of zero cycles
     empty_ms = timer(lambda: torch.cuda._sleep(0))
     s, ids, mask = merge_case(PARTITIONS, TOP_K)
@@ -2362,6 +2419,333 @@ def phase_serve_placement(torch, cfg, params, store, queries, exact,
         f"memory allocated {before} B before and after ({smi})")
     return [r["counts"] for r in results.values()]
 
+def sim_burst(cfg, store, baselines, smi: str) -> None:
+    """``[sim]``, printed and not gated: the port's simulator on
+    ``H100_HOST`` for the script's own burst (``N_REQ`` requests at t = 0,
+    ctx ``CTX``, ``MAX_NEW`` new tokens, llama3-8b): whole-batch ragdoll
+    and the serial baseline (batches of ``SERIAL_BATCH``), each predicted
+    p50 beside the measured one of serve-batch and serve-serial."""
+    from repro_torch.core.costmodel import H100_HOST, CostModel, ModelProfile
+    from repro_torch.core.placement import PlacementOptimizer
+    from repro_torch.serving import SimConfig, percentile
+    from repro_torch.serving.baselines import make_simulator
+    cost = CostModel(H100_HOST, ModelProfile.from_config(cfg, kv_format="bf16"),
+                     partition_bytes=float(store.partition_bytes()),
+                     num_partitions=PARTITIONS, db_dim=CORPUS_DIM,
+                     chunks_per_partition=CORPUS_N / PARTITIONS,
+                     partition_mem_overhead=1.0)
+    # serial_vllm batches 4 x the arrival rate a minute: 1 a minute gives
+    # SerialRAGEngine's batches of 4
+    base = SimConfig(in_len=CTX, out_len=MAX_NEW, max_batch=SLOTS,
+                     rates_per_min=(SERIAL_BATCH / 4,), interval_s=3600.0)
+    for mode, kw, measured in (("ragdoll", dict(continuous=False),
+                                "serve-batch"),
+                               ("serial_vllm", {}, "serve-serial")):
+        opt = PlacementOptimizer(cost, avg_ctx_len=CTX, avg_out_len=MAX_NEW,
+                                 kv_page_size=PAGE)
+        res = make_simulator(cost, opt, mode, base, **kw).run([0.0] * N_REQ)
+        p50 = percentile([r.latency for r in res.requests], 50)
+        got = baselines[measured]["p50"]
+        batches = [ev["batch"] for ev in res.policy_trace]
+        log(f"[sim] {mode}{' whole-batch' if kw else ''}: predicted p50 "
+            f"{p50:.3f} s for {N_REQ} requests at t = 0 (ctx {CTX}, "
+            f"{MAX_NEW} new tokens, {cfg.name} on H100_HOST; batches "
+            f"{batches}); {measured} measured p50 {got:.3f} s: measured / "
+            f"predicted {got / p50:.3f} ({smi})")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_serve_sharded(torch, cfg, params, store, queries, exact, smi: str,
+                        serve_run):
+    """Sharded retrieval on the card, on the shared store (see the module
+    docstring): (a) the store over 2 and 4 shards, exact and at nprobe 16,
+    against the single-host search, then each shard's hot tier under its
+    share of a grant; (b) a one-rank NCCL group: ``sharded_topk_merge``
+    and ``distributed_topk``; (c) ``RagdollEngine(retrieval_shards=4)``
+    with the optimizer serving 16 requests.  The partitions the store held
+    in RAM before the phase are held again after it.  Returns (c)'s
+    launch counts."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.costmodel import H100_HOST, CostModel, ModelProfile
+    from repro_torch.core.placement import PlacementOptimizer
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.retrieval.distributed import (ShardedIVFStore,
+                                                   _all_gather,
+                                                   distributed_topk,
+                                                   sharded_topk_merge)
+    from repro_torch.retrieval.vectorstore import SearchStats
+    from repro_torch.serving import (ContinuousGenerator, GeneratorConfig,
+                                     RagdollEngine, percentile)
+    from repro_torch.sharding import from_mesh
+    tag = "serve-sharded"
+    t_phase = time.perf_counter()
+    resident0 = store.resident_set()
+    opt = PlacementOptimizer(
+        CostModel(H100_HOST, ModelProfile.from_config(cfg, kv_format="bf16"),
+                  partition_bytes=float(store.partition_bytes()),
+                  num_partitions=PARTITIONS, db_dim=CORPUS_DIM,
+                  chunks_per_partition=CORPUS_N / PARTITIONS,
+                  partition_mem_overhead=1.0, retrieval_shards=ENGINE_SHARDS),
+        avg_ctx_len=CTX, avg_out_len=MAX_NEW, kv_page_size=PAGE)
+    q8 = queries[:SLOTS]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def bit_equal(a, b):
+        return (np.array_equal(a[1], b[1])
+                and np.array_equal(a[0].view(np.int32), b[0].view(np.int32)))
+
+    # (a) the store
+    single = {nprobe: timed(lambda: store.search(q8, TOP_K, nprobe=nprobe))
+              for nprobe in (None, SHARDED_NPROBE)}
+    boards = None
+    for shards in SHARD_COUNTS:
+        sharded = ShardedIVFStore(store, shards)
+        try:
+            for nprobe in (None, SHARDED_NPROBE):
+                got, secs = timed(lambda: sharded.search(q8, TOP_K,
+                                                         nprobe=nprobe))
+                want, want_s = single[nprobe]
+                if not bit_equal(got, want):
+                    fail(f"[{tag}] S={shards} nprobe {nprobe}: the sharded "
+                         "search differs from the single-host search")
+                log(f"[{tag}] S={shards} nprobe {nprobe}: ids and scores "
+                    f"bit-equal to the single-host search; {secs * 1e3:.1f} "
+                    f"ms sharded, {want_s * 1e3:.1f} ms single-host ({smi})")
+            # each shard's sweep and merge alone, exact search
+            pids = list(store.partitions)
+            qmask = np.ones((SLOTS, PARTITIONS), bool)
+            local, sweep_ms = [], []
+            for shard in sharded.shards:
+                own = [pid for pid in pids if pid in shard.pid_set]
+
+                def sweep():
+                    b_s, b_i, searched = store.sweep_boards(
+                        q8, own, TOP_K, streamer=shard.streamer, qmask=qmask)
+                    m = torch.from_numpy(qmask & searched[None, :]).cuda()
+                    return ops.retrieval_topk_merge(b_s, b_i, m, TOP_K)
+
+                out, secs = timed(sweep)
+                local.append(out)
+                sweep_ms.append(f"{secs * 1e3:.1f}")
+            log(f"[{tag}] S={shards} exact: each shard's sweep and merge "
+                f"{', '.join(sweep_ms)} ms for "
+                f"{[len(sh.pids) for sh in sharded.shards]} partitions "
+                f"({smi})")
+            if shards == ENGINE_SHARDS:
+                boards = (torch.stack([s for s, _ in local], dim=1),
+                          torch.stack([i for _, i in local], dim=1))
+            # the hot tier: a grant of SHARDED_HOT partitions' bytes split
+            # across the shards, promoted down the probe ranking
+            ranked, _ = store.probe(q8, SHARDED_NPROBE)
+            ranking = ranked + [p for p in pids if p not in ranked]
+            grant = SHARDED_HOT * store.partition_bytes()
+            budgets = opt.shard_hot_budgets(grant, shards)
+            sharded.set_hot_budgets(budgets, ranking)
+            for shard in sharded.shards:
+                if not set(shard.hot.pids()) <= shard.pid_set:
+                    fail(f"[{tag}] shard {shard.sid} promoted "
+                         f"{shard.hot.pids()}, not all its own")
+            stats = SearchStats()
+            hot, secs = timed(lambda: sharded.search(
+                q8, TOP_K, nprobe=SHARDED_NPROBE, stats=stats))
+            if not bit_equal(hot, single[SHARDED_NPROBE][0]) \
+                    or stats.hot_hits == 0:
+                fail(f"[{tag}] S={shards}: the hot search differs from the "
+                     f"cold one (hot_hits {stats.hot_hits})")
+            log(f"[{tag}] S={shards} hot tier: {grant} B split "
+                f"{budgets}; shards hold {[sh.hot.pids() for sh in sharded.shards]}"
+                f" ({sharded.hot_device_bytes()} B), each its own; the "
+                f"search at nprobe {SHARDED_NPROBE} bit-equal to the cold "
+                f"one with {stats.hot_hits} hot hits in {secs * 1e3:.1f} ms "
+                f"({smi})")
+        finally:
+            sharded.close()
+        del sharded
+    # (b) the collectives on a one-rank NCCL group
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        ctx = from_mesh(make_mesh((1,), ("data",)))
+        b_s, b_i = boards
+        want = ops.retrieval_topk_merge(
+            b_s, b_i, torch.ones(b_s.shape[:2], dtype=torch.bool,
+                                 device="cuda"), TOP_K)
+        got = sharded_topk_merge(b_s, b_i, TOP_K, ctx)
+        ex_s, ex_i = exact[0][:SLOTS], exact[1][:SLOTS]
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"[{tag}] sharded_topk_merge differs from the local merge")
+        check_topk(f"[{tag}] sharded_topk_merge against the exact top-k",
+                   got[0], got[1], ex_s, ex_i)
+        pair = torch.zeros((ENGINE_SHARDS, 2, SLOTS, TOP_K), dtype=torch.int32,
+                           device="cuda")
+        out = torch.empty_like(pair)
+        group = ctx.batch_group
+        ag_ms = _events_ms(torch, lambda: _all_gather(out, pair, group), 20)
+        ag_host = _host_s(torch, lambda: _all_gather(out, pair, group), 10)
+        emb = np.empty((CORPUS_N, CORPUS_DIM), np.float32)
+        for p in store.partitions.values():
+            emb[p.doc_ids] = (p.embeddings if p.resident
+                              else np.load(p.path))
+        db = torch.from_numpy(emb).cuda()
+        del emb
+        qd = torch.from_numpy(q8).cuda()
+        # one rank holds the whole corpus as its row shard
+        (d_s, d_i), secs = timed(lambda: distributed_topk(qd, db, TOP_K,
+                                                          ctx, CORPUS_N))
+        one_s, one_i = ops.retrieval_topk(qd, db, TOP_K)
+        err = check_topk(f"[{tag}] distributed_topk against one top-k over "
+                         "the corpus", d_s, d_i, one_s, one_i)
+        check_topk(f"[{tag}] distributed_topk against the exact top-k",
+                   d_s, d_i, ex_s, ex_i)
+        del db, qd
+        log(f"[{tag}] one-rank NCCL group: sharded_topk_merge of the "
+            f"S={ENGINE_SHARDS} boards equals the local merge exactly and "
+            f"the exact top-k's ids; distributed_topk over the {CORPUS_N} "
+            f"rows in {secs * 1e3:.1f} ms has one top-k's ids, scores within "
+            f"{err:.2e}; the all-gather of {pair.numel() * 4} B: "
+            f"{ag_ms:.4f} ms device, {ag_host * 1e3:.4f} ms host, against "
+            f"the cost model's {opt.cost.topk_allgather_time(SLOTS, TOP_K, shards=ENGINE_SHARDS) * 1e3:.4f}"
+            f" ms for {ENGINE_SHARDS} shards ({smi})")
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    # (c) the engine with ENGINE_SHARDS shards and the optimizer
+    gen = ContinuousGenerator(
+        cfg, params, GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                                     dtype=torch.bfloat16),
+        num_slots=SLOTS, paged=True, page_size=PAGE, prefill_chunk=CHUNK,
+        device="cuda")
+
+    class ShardedEngine(RagdollEngine):
+        """Notes each retrieval batch's probe width and rids."""
+
+        def _retrieve_batch(self, reqs):
+            out = super()._retrieve_batch(reqs)
+            # only this thread searches: the last search is this batch's
+            self.batches.append((self.nprobes[-1], [r.rid for r in reqs]))
+            return out
+
+    eng = ShardedEngine(store, QueryEmbedder(queries), gen,
+                        BacklogScheduler(max_batch=SLOTS),
+                        BacklogScheduler(max_batch=SLOTS), optimizer=opt,
+                        initial_partitions=PARTITIONS - SPILLED,
+                        retrieval_shards=ENGINE_SHARDS, policy_every=8,
+                        device="cuda")
+    eng.nprobes, eng.batches = [], []
+    inner = eng.sharded.search
+
+    def search(q, top_k, **kw):
+        eng.nprobes.append(kw.get("nprobe"))
+        return inner(q, top_k, **kw)
+
+    eng.sharded.search = search
+    errors = _watch_threads()
+    eng.start()
+    try:
+        _submit_and_drain(eng, list(range(WARMUP_REQ)), 300, tag, errors)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = _submit_and_drain(eng, list(range(WARMUP_REQ,
+                                                 WARMUP_REQ + N_REQ)),
+                                 600, tag, errors)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        eng.stop()
+    if errors:
+        fail(f"[{tag}] worker thread died: {errors}")
+    reqs = sorted((r for r in done if r.rid >= WARMUP_REQ),
+                  key=lambda r: r.rid)
+    if len(reqs) != N_REQ:
+        fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
+    missing = [n for n in SHARDED_KERNELS if counts[n] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on this path: {missing}")
+    # ids: the single-host search of each batch's queries at its nprobe
+    probe_of = {}
+    for nprobe, rids in eng.batches:
+        if not any(WARMUP_REQ <= rid for rid in rids):
+            continue
+        _, ids = store.search(queries[rids], TOP_K, nprobe=nprobe)
+        for rid, row in zip(rids, ids):
+            probe_of[rid] = nprobe
+            got = [int(c) for c in next(r for r in reqs
+                                        if r.rid == rid).retrieved]
+            if got != [int(j) for j in row]:
+                fail(f"[{tag}] request {rid}: chunks {got}, the single-host "
+                     f"search at nprobe {nprobe} gives {row.tolist()}")
+    want = {r.rid: r for r in serve_run["reqs"]}
+    fp32, ties, other = None, 0, 0
+    for r in reqs:
+        if len(r.output.split()) != MAX_NEW:
+            fail(f"[{tag}] request {r.rid}: {len(r.output.split())} tokens")
+        w = want[r.rid]
+        if r.retrieved != w.retrieved:
+            other += 1           # a pruned probe: another prompt than serve's
+            continue
+        if r.output == w.output:
+            continue
+        if fp32 is None:
+            fp32 = _cast(params, torch.float32)
+        t, a, b, gap, err = _near_tie(torch, cfg, params, fp32, w, r.output,
+                                      ctx=CTX)
+        msg = (f"[{tag}] request {r.rid}: first other token at {t}, {b} for "
+               f"serve's {a}; fp32 logit gap {gap:.6f}, bf16 logits off fp32 "
+               f"by up to {err:.6f} in that row")
+        if abs(gap) > 2 * err:
+            fail(f"{msg}: not a near tie")
+        log(f"{msg}: a near tie ({smi})")
+        ties += 1
+    del fp32
+    lat = [r.latency for r in reqs]
+    ev = eng.policy_trace[-1]
+    shards = eng.sharded.shards
+    log(f"[{tag}] {N_REQ}/{N_REQ} requests, {MAX_NEW} tokens each, ids equal "
+        f"to the single-host search at their batch's nprobe "
+        f"{sorted({probe_of[r.rid] for r in reqs}, key=str)}; serve's tokens "
+        f"for {N_REQ - other - ties}, {ties} near ties, {other} with other "
+        f"chunks than serve's; in {wall:.3f} s: p50 "
+        f"{percentile(lat, 50):.3f} s p95 {percentile(lat, 95):.3f} s, "
+        f"{N_REQ * MAX_NEW / wall:.1f} output tokens/s (serve "
+        f"{serve_run['tokens_s']:.1f}) ({smi})")
+    batches = collections.Counter(e.gen_batch for e in eng.policy_trace)
+    log(f"[{tag}] gen_batch over the {len(eng.policy_trace)} boundaries "
+        f"(unseeded schedulers): {dict(sorted(batches.items()))}")
+    log(f"[{tag}] last PolicyEvent of {len(eng.policy_trace)}: gen_batch "
+        f"{ev.gen_batch}, nprobe {ev.nprobe}, resident partitions "
+        f"{ev.resident_partitions}, hot partitions {ev.hot_partitions} "
+        f"({ev.hot_bytes} B); per shard: streamer budgets "
+        f"{[sh.streamer.free_bytes for sh in shards]} B, hot budgets "
+        f"{[sh.hot.byte_budget for sh in shards]} B, hot partitions "
+        f"{[sh.hot.pids() for sh in shards]}")
+    log(f"[{tag}] launches on this path: {json.dumps(counts)}")
+    del eng, gen
+    gc.collect()
+    for pid in resident0:               # serve-placement's store as it was
+        store.load(pid)
+    log(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 CATEGORIES = (
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
@@ -2462,6 +2846,7 @@ def main() -> int:
         paged = phase_serve(torch, cfg, params, store, queries, exact, smi)
         batch = phase_serve_batch(torch, cfg, params, store, queries, exact,
                                   smi, paged["outputs"])
+        sim_burst(cfg, store, batch, smi)
         swap = phase_serve_swap(torch, cfg, params, store, queries, exact,
                                 smi)
         prefix = phase_serve_prefix(torch, cfg, params, store, queries,
@@ -2469,6 +2854,8 @@ def main() -> int:
         streamed = phase_serve_streamed(torch, cfg, params, store, queries,
                                         exact, smi, paged)
         phase_store_recluster(torch, recluster_root, smi)
+        sharded = phase_serve_sharded(torch, cfg, params, store, queries,
+                                      exact, smi, paged)
         # last: its partition cache releases partitions to disk
         placement = phase_serve_placement(torch, cfg, params, store, queries,
                                           exact, smi, dict(batch, serve=paged))
@@ -2476,7 +2863,7 @@ def main() -> int:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
-            + prefix + [streamed] + placement)
+            + prefix + [streamed, sharded] + placement)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         kernels.append(dict(name=kname, route=route, source=source,

@@ -7,9 +7,12 @@ from repro_torch.serving.kvpool import (HostPagePool, PagedKVCache,
                                         PageExhausted, PagePool)
 from repro_torch.serving.prefixcache import PrefixCache, PrefixCacheStats
 from repro_torch.serving.reqsched import RequestScheduler
+from repro_torch.serving.simulator import (ServingSimulator, SimConfig,
+                                           poisson_workload)
 
 __all__ = ["Request", "latency_table", "percentile", "RagdollEngine",
-           "SerialRAGEngine", "GeneratorConfig", "Generator",
+           "SerialRAGEngine", "ServingSimulator", "SimConfig",
+           "poisson_workload", "GeneratorConfig", "Generator",
            "ContinuousGenerator", "SlotTable", "SlotRef",
            "StaleSlotError", "PagePool", "PagedKVCache", "HostPagePool",
            "PageExhausted", "PrefixCache", "PrefixCacheStats",

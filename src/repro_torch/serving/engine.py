@@ -26,8 +26,14 @@ clears the device-byte market: live KV pages, the prefix-cache cap, the
 host swap pool and the device-hot partitions, funded out of one pool and
 applied to the generator by the request scheduler.  Each decision is
 journalled as a :class:`PolicyEvent` (``policy_trace``).  Without an
-optimizer the boundary returns at once.  Retrieval runs on one shard;
-sharded retrieval comes with a later slice of the port.
+optimizer the boundary returns at once.
+
+With ``retrieval_shards > 1`` the retrieval stage searches through a
+:class:`~repro_torch.retrieval.distributed.ShardedIVFStore`: the IVF
+partitions split centroid-aware across shards, each shard sweeps with its
+own partition streamer and device-hot tier, and the policy boundary
+splits the placement's host headroom and the market's hot grant across
+the shards.
 
 ``SerialRAGEngine`` is the baseline shape (vLLMRAG/AccRAG-style) that the
 paper measures against: one worker retrieves, then generates, each batch
@@ -50,6 +56,7 @@ from repro_torch.core.scheduler import BacklogScheduler
 from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.retrieval.cache import HotPartitionSet, PartitionCache
+from repro_torch.retrieval.distributed import ShardedIVFStore
 from repro_torch.retrieval.streamer import PartitionStreamer
 from repro_torch.retrieval.vectorstore import SearchStats, VectorStore
 from repro_torch.serving.generator import ContinuousGenerator, Generator
@@ -90,8 +97,6 @@ class RagdollEngine:
                  policy_every: int = 8,
                  device: DeviceLike = None,
                  tracer=None, registry=None):
-        if retrieval_shards != 1:
-            raise NotImplementedError("sharded retrieval: a later slice")
         self.device = resolve_device(device)
         self.store = store
         self.embedder = embedder
@@ -124,6 +129,14 @@ class RagdollEngine:
                               tracer=self.tracer)
         if not self._owns_streamer and self.streamer.tracer is NULL_TRACER:
             self.streamer.tracer = self.tracer
+        # sharded retrieval: the partitions split across the shards,
+        # each with its own streamer and hot tier (the single streamer
+        # and hot tier below serve the one-shard path)
+        self.sharded: Optional[ShardedIVFStore] = None
+        if retrieval_shards > 1:
+            self.sharded = ShardedIVFStore(store, retrieval_shards,
+                                           tracer=self.tracer,
+                                           registry=self.registry)
         # device-hot partition tier: inert (budget 0) until a placement
         # grants it bytes
         self.hot = HotPartitionSet(store, device=self.device,
@@ -172,10 +185,15 @@ class RagdollEngine:
             with self.tracer.span("embed", batch=len(reqs)):
                 queries = self.embedder.embed([r.query for r in reqs])
             with self.tracer.span("search", top_k=reqs[0].top_k):
-                scores, ids = self.store.search(
-                    queries, reqs[0].top_k, nprobe=self.nprobe,
-                    streamer=self.streamer, stats=self.retrieval_stats,
-                    hot=self.hot)
+                if self.sharded is not None:
+                    scores, ids = self.sharded.search(
+                        queries, reqs[0].top_k, nprobe=self.nprobe,
+                        stats=self.retrieval_stats)
+                else:
+                    scores, ids = self.store.search(
+                        queries, reqs[0].top_k, nprobe=self.nprobe,
+                        streamer=self.streamer, stats=self.retrieval_stats,
+                        hot=self.hot)
             chunks = self.store.get_chunks(ids)
             t1 = time.perf_counter()
         if self.registry.enabled:
@@ -283,14 +301,30 @@ class RagdollEngine:
                    if self.scheduler is not None else {})
         # hot tier under the market's byte grant: promote down the
         # observed heat ranking, demote what no longer fits
-        self.hot.retarget(split.hot_bytes, ranking)
+        if self.sharded is not None:
+            self.sharded.set_hot_budgets(
+                self.opt.shard_hot_budgets(split.hot_bytes,
+                                           self.sharded.num_shards),
+                ranking)
+            hot_parts = len(self.sharded.hot_partitions())
+            hot_bytes = self.sharded.hot_device_bytes()
+        else:
+            self.hot.retarget(split.hot_bytes, ranking)
+            hot_parts = len(self.hot)
+            hot_bytes = self.hot.device_bytes()
         stats.decay()     # age the heat so the ranking tracks live skew
         # the streamer's lookahead follows the host memory the live
         # placement leaves free
         hw = self.opt.cost.hw
         host_free = (hw.cpu_mem * hw.mem_headroom
                      - self.opt.memory_use(placement).cpu)
-        self.streamer.set_budget(max(host_free, 0.0))
+        if self.sharded is not None:
+            # per-shard disk tiers: the headroom splits across the
+            # shards' streamers (each owns its own budget)
+            self.sharded.set_budgets(self.opt.shard_streamer_budgets(
+                host_free, self.sharded.num_shards))
+        else:
+            self.streamer.set_budget(max(host_free, 0.0))
         ev = PolicyEvent(
             t=time.perf_counter(), gen_batch=b,
             resident_partitions=placement.resident_partitions,
@@ -303,7 +337,7 @@ class RagdollEngine:
             prefix_pages=applied.get("prefix_pages"),
             prefix_hit_tokens=getattr(self.generator, "prefix_hit_tokens",
                                       None),
-            hot_partitions=len(self.hot), hot_bytes=self.hot.device_bytes(),
+            hot_partitions=hot_parts, hot_bytes=hot_bytes,
             hot_hit_rate=stats.hot_hit_rate)
         # policy decisions journal through the metrics registry as
         # structured events; ``policy_trace`` reads them back
@@ -347,7 +381,9 @@ class RagdollEngine:
             if prefix is not None:
                 for name, val in dataclasses.asdict(prefix.stats).items():
                     reg.gauge(f"prefix.{name}").set(float(val))
-            reg.gauge("hot.partitions").set(float(len(self.hot)))
+            reg.gauge("hot.partitions").set(
+                float(len(self.sharded.hot_partitions())
+                      if self.sharded is not None else len(self.hot)))
             reg.gauge("engine.completed_total").set(
                 float(len(self.completed)))
         return reg.snapshot()
@@ -379,6 +415,8 @@ class RagdollEngine:
         self.pipeline.stop()
         if self._owns_streamer:     # an injected streamer outlives us
             self.streamer.close()
+        if self.sharded is not None:
+            self.sharded.close()
 
     def submit(self, req: Request) -> None:
         req.arrival = time.perf_counter() if req.arrival is None \

@@ -563,6 +563,49 @@ def test_topk_merge_unaligned_rows_on_card(cuda_device):
             np.testing.assert_array_equal(_np(g), _np(w))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_store_on_card(cuda_device, tmp_path, shards):
+    """The cross-shard merge at (Q, S, k) under an all-true mask (rows of
+    S * k = 10 or 20 entries, unaligned for S = 2) equals the plain
+    version's, and ``ShardedIVFStore.search`` on the card equals the
+    single-host search bit for bit, exact and probed, with each shard's
+    hot tier funded."""
+    from repro_torch.retrieval import ShardedIVFStore, VectorStore
+    from repro_torch.retrieval.synthetic import (ArrayEmbedder, blob_corpus,
+                                                 perturb_queries)
+    s, ids, _ = (_t(a).to(cuda_device)
+                 for a in _merge_inputs(8, shards, 5, seed=shards))
+    full = torch.ones(s.shape[:2], dtype=torch.bool, device=cuda_device)
+    got = ops.retrieval_topk_merge(s, ids, full, 5)
+    want = ops.retrieval_topk_merge(s, ids, full, 5, impl="ref")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), _np(w))
+    vecs = blob_corpus(n=4000, dim=64, clusters=8, seed=3)
+    store = VectorStore.build([str(i) for i in range(4000)],
+                              ArrayEmbedder(vecs), num_partitions=8, seed=3,
+                              root=str(tmp_path), device=cuda_device)
+    for pid in (6, 7):
+        store.spill(pid)
+    q = perturb_queries(vecs, 8, seed=4)
+    sharded = ShardedIVFStore(store, shards)
+    try:
+        for nprobe in (None, 3):
+            want = store.search(q, 5, nprobe=nprobe)
+            got = sharded.search(q, 5, nprobe=nprobe)
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+        sharded.set_hot_budgets([2 * store.partition_bytes()] * shards,
+                                list(range(8)))
+        for shard in sharded.shards:
+            assert shard.hot.pids() and set(shard.hot.pids()) <= shard.pid_set
+        got = sharded.search(q, 5, nprobe=3)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    finally:
+        sharded.close()
+
+
 # ------------------------------------------- int8 pages on a serving path
 def _reduced_model(device):
     from repro_torch.configs import get_config

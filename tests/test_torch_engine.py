@@ -37,6 +37,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.scheduler import BacklogScheduler
 from repro_torch.retrieval import HashEmbedder, VectorStore
+from repro_torch.retrieval.distributed import ShardedIVFStore
 from repro_torch.serving import (ContinuousGenerator, GeneratorConfig,
                                  RagdollEngine, Request)
 
@@ -185,7 +186,8 @@ def test_engine_takes_policy_every_and_keeps_it_inert(tmp_path):
     it (default 8, as the reference), hands it to the generation pump and
     wires the policy boundary there, as the reference does; with no
     optimizer the boundary journals nothing and retargets nothing.  An
-    optimizer is accepted; sharded retrieval is still refused."""
+    optimizer is accepted, and ``retrieval_shards=2`` builds a sharded
+    store."""
     from repro_torch.core.costmodel import PF_HIGH, CostModel, ModelProfile
     from repro_torch.core.placement import PlacementOptimizer
     cfg = get_config("llama3-8b").reduced(num_layers=1)
@@ -222,6 +224,13 @@ def test_engine_takes_policy_every_and_keeps_it_inert(tmp_path):
         assert eng.opt is opt and opt.registry is eng.registry
     finally:
         eng.streamer.close()
-    with pytest.raises(NotImplementedError):
-        RagdollEngine(store, emb, gen, *sched, retrieval_shards=2,
-                      device="cpu")
+    eng = RagdollEngine(store, emb, gen, *sched, retrieval_shards=2,
+                        device="cpu")
+    try:
+        assert isinstance(eng.sharded, ShardedIVFStore)
+        assert eng.sharded.num_shards == 2
+        assert sorted(p for sh in eng.sharded.shards for p in sh.pids) \
+            == list(range(store.num_partitions))
+    finally:
+        eng.streamer.close()
+        eng.sharded.close()

@@ -6,13 +6,18 @@ the card cannot hold raises) and on ``MemoryError``, and lets every other
 ``RuntimeError`` through; a demoted placement pushed into a live paged
 generator funds swap-to-host, with the same capacities as the JAX
 generator's under the JAX ladder, so a page-starved join preempts instead
-of starving.  ``ElasticMesh`` and ``StragglerMonitor`` wait for the
-sharding slice of the port.
+of starving.  ``ElasticMesh`` (``plan``, ``rebalance_partitions``) and
+``StragglerMonitor`` equal the reference's over hypothesis grids, and keep
+the contracts of ``tests/test_ft.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+pytest.importorskip("hypothesis")
+from hypothesis import given, settings, strategies as st
 import jax
 import jax.numpy as jnp
 
@@ -21,7 +26,9 @@ from repro.core.costmodel import CostModel as JaxCostModel
 from repro.core.costmodel import ModelProfile as JaxModelProfile
 from repro.core.costmodel import PF_HIGH as JAX_PF_HIGH
 from repro.core.placement import PlacementOptimizer as JaxOptimizer
+from repro.ft import ElasticMesh as JaxElasticMesh
 from repro.ft import OOMRecovery as JaxOOMRecovery
+from repro.ft import StragglerMonitor as JaxStragglerMonitor
 from repro.models.model import Model as JaxModel
 from repro.serving.generator import ContinuousGenerator as JaxGenerator
 from repro.serving.generator import GeneratorConfig as JaxGeneratorConfig
@@ -30,7 +37,8 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.costmodel import GB, PF_HIGH, CostModel, ModelProfile
 from repro_torch.core.placement import Placement, PlacementOptimizer
-from repro_torch.ft import (CheckpointedRetrieval, OOMRecovery,
+from repro_torch.ft import (CheckpointedRetrieval, ElasticMesh,
+                            OOMRecovery, StragglerMonitor,
                             retry_with_backoff)
 from repro_torch.retrieval import HashEmbedder, VectorStore
 from repro_torch.serving import (ContinuousGenerator, Generator,
@@ -197,3 +205,74 @@ def test_degraded_placement_triggers_swap_not_starvation():
     dense = Generator(cfg, params, GeneratorConfig(
         ctx_len=ctx, max_new_tokens=new), device="cpu").generate(prompts)
     assert [results["a"], results["b"], results["c"]] == dense
+
+
+# ------------------------------------------------ elastic planning
+@settings(max_examples=60, deadline=None)
+@given(total=st.sampled_from([16, 32, 64, 128, 256, 512]),
+       failed=st.integers(0, 300), tp=st.sampled_from([1, 2, 4, 8, 16]),
+       parts=st.integers(1, 80), multi_pod=st.booleans(),
+       step=st.one_of(st.none(), st.integers(0, 10_000)))
+def test_elastic_plan_equals_the_reference(total, failed, tp, parts,
+                                           multi_pod, step):
+    em, jem = ElasticMesh(tp, parts), JaxElasticMesh(tp, parts)
+    try:
+        want = jem.plan(total, failed, restore_step=step,
+                        multi_pod=multi_pod)
+    except RuntimeError:
+        with pytest.raises(RuntimeError):
+            em.plan(total, failed, restore_step=step, multi_pod=multi_pod)
+        return
+    got = em.plan(total, failed, restore_step=step, multi_pod=multi_pod)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    # the reference's laws: within the survivors, TP kept, every
+    # partition assigned once
+    assert got.devices_used <= total - failed
+    assert got.mesh_shape[-1] == tp
+    assigned = [p for ps in got.partition_assignment.values() for p in ps]
+    assert sorted(assigned) == list(range(parts))
+
+
+@settings(max_examples=40, deadline=None)
+@given(shards=st.integers(1, 64), parts=st.integers(0, 200))
+def test_rebalance_partitions_equals_the_reference(shards, parts):
+    got = ElasticMesh(4, parts).rebalance_partitions(shards)
+    assert got == JaxElasticMesh(4, parts).rebalance_partitions(shards)
+    assert sorted(got) == list(range(shards))
+
+
+def test_elastic_raises_when_tp_unsatisfiable():
+    with pytest.raises(RuntimeError):
+        ElasticMesh(model_parallel=16, num_partitions=32).plan(16, 8)
+
+
+@settings(max_examples=60, deadline=None)
+@given(obs=st.lists(st.tuples(st.sampled_from("abcdef"),
+                              st.floats(0.0, 50.0)), max_size=30),
+       alpha=st.sampled_from([0.1, 0.3, 0.9]),
+       factor=st.sampled_from([1.2, 1.5, 3.0]),
+       elapsed=st.floats(0.0, 200.0))
+def test_straggler_monitor_equals_the_reference(obs, alpha, factor, elapsed):
+    sm = StragglerMonitor(ema_alpha=alpha, factor=factor)
+    jsm = JaxStragglerMonitor(ema_alpha=alpha, factor=factor)
+    for host, t in obs:
+        sm.observe(host, t)
+        jsm.observe(host, t)
+    assert sm.times == jsm.times
+    assert sm.median() == jsm.median()
+    assert sm.stragglers() == jsm.stragglers()
+    for host in "abcdefg":
+        assert sm.batch_scale(host) == jsm.batch_scale(host)
+        assert sm.should_backup_dispatch(host, elapsed) \
+            == jsm.should_backup_dispatch(host, elapsed)
+
+
+def test_straggler_monitor():
+    sm = StragglerMonitor()
+    for h, t in [("a", 1.0), ("b", 1.05), ("c", 0.95), ("slow", 4.0)]:
+        sm.observe(h, t)
+    assert sm.stragglers() == ["slow"]
+    assert sm.batch_scale("slow") < 0.5
+    assert sm.batch_scale("a") == 1.0
+    assert sm.should_backup_dispatch("slow", elapsed=15.0)
+    assert not sm.should_backup_dispatch("a", elapsed=2.0)
