@@ -20,6 +20,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
               weights on the CPU (plain versions): logits and tokens of
               chunked prefill + paged decode, and of one-shot prefill +
               dense decode.
+5a. family-kernels -- the attention kernels at the shapes of gemma2-2b
+              (8/4 heads x 256, window 4096, softcap 50: paged and dense
+              decode at kv_len 4100-6200, a prefill chunk at q_offset
+              5888, where the window masks; bf16, int8 pages and the fp32
+              chunk), gemma-7b (16/16 x 256), chatglm3-6b (32/2 x 128) and
+              granite-moe-1b-a400m (16/8 x 64), and the fused RMSNorm at
+              widths 2304, 3072 and 1024, each against its plain version
+              with kernel, plain, library (SDPA, ``F.rms_norm``) and bound
+              ms; they go into the ``kernels`` line as ``shapes``.
+5b. family-models -- each of the four at full width and one pattern
+              repeat of depth: card fp32 logits against CPU fp32 logits
+              (chunked prefill + paged decode, one-shot prefill + dense
+              decode), and card bf16 chunked + paged against one-shot +
+              dense (both printed against card fp32).
+5c. serve-gemma2 -- gemma2-2b at full width and depth (26 layers, seeded
+              bf16 weights) behind ``RagdollEngine``: the paged,
+              chunk-prefilled generator serves 16 requests at ctx 1024
+              (p50, p95, tokens/s; one profiled decode step's kernels and
+              busy share), the whole-batch ``Generator`` serves them again
+              and every request's tokens must be equal or part at an
+              fp32-witnessed near tie; then 4 requests at ctx 6144 on both
+              paths (the 4096 window masks in prefill and decode), held the
+              same way; then 4 requests over int8 pages.
+5d. serve-families -- gemma-7b, chatglm3-6b and granite-moe-1b-a400m at
+              full width and depth, one after the other: 8 requests of 16
+              tokens on the paged and on the whole-batch path; gemma-7b and
+              chatglm3 held to the whole-batch tokens, granite to its
+              paged path with the weights cast to fp32 (its whole-batch
+              prefill takes the capacity path, which drops rows; the
+              drops of one prefill are printed).
 6. serve   -- llama3-8b at full width (bf16, seeded random weights) behind a
               threaded ``RagdollEngine`` with a paged, chunk-prefilled
               ``ContinuousGenerator``: 16 RAG requests, each checked for 32
@@ -207,6 +237,21 @@ SHARDED_NPROBE = 16
 SHARDED_HOT = 16
 ENGINE_SHARDS = 4
 SHARDED_KERNELS = CONTINUOUS_KERNELS
+# the attention families: gemma2-2b's window and attention softcap; its
+# long prompts (the window masks only past 4096 tokens); serve-families'
+# requests and tokens each; full-width fp32 logits card vs CPU (sums of
+# 1024-4096 terms in other orders than the CPU's, scaled by the softcaps);
+# card bf16 chunked + paged against card bf16 one-shot + dense, as a share
+# of the largest logit (a check that the two bf16 paths compute one
+# function, not a bound on bf16; bf16 against fp32 is printed, not held:
+# a MoE's bf16 router input turns near-tied top-k choices, whole experts)
+FAMILY_ARCHS = ("gemma2-2b", "gemma-7b", "chatglm3-6b",
+                "granite-moe-1b-a400m")
+GEMMA2_WINDOW, GEMMA2_SOFTCAP = 4096, 50.0
+LONG_CTX, LONG_REQ = 6144, 4
+FAMILY_REQ, FAMILY_NEW = 8, 16
+FAMILY_LOGIT_TOL = 1e-3
+BF16_MODEL_REL = 0.1
 # the recluster check's store, apart from the shared one
 RECLUSTER_N, RECLUSTER_PARTS, RECLUSTER_SPILLED, RECLUSTER_HOT = (
     100_000, 16, 4, 2)
@@ -1008,61 +1053,87 @@ def phase_kernels(torch, timer, store, queries):
     return rows
 
 
+def _to_dev(t):
+    if isinstance(t, dict):
+        return {k: _to_dev(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_to_dev(v) for v in t]
+    return t.cuda()
+
+
+def _model_logits(torch, cfg, model, params, dev, prompts, *, ctx, chunk,
+                  page, steps, dtype=None, force=None):
+    """Logits of two rows of ``prompts`` on ``dev``: chunked prefill then
+    ``steps`` paged decode steps, and one-shot prefill then ``steps - 1``
+    dense decode steps; each step feeds the row's greedy token, or
+    ``force`` (the paged, the dense tokens: (steps, 2) each).  Returns the
+    (paged, dense) logits on the CPU and the tokens fed."""
+    from repro_torch.models.model import init_cache
+    dtype = dtype or torch.float32
+    nmax = -(-(ctx + steps) // page)
+    tab = torch.arange(1, 2 * nmax + 1, dtype=torch.int32).reshape(2, nmax)
+    tab[1] = tab[1].flip(0)
+    cache = init_cache(cfg, 2 * nmax + 1, page, dtype, dev)
+    t = tab.to(dev)
+    last = []
+    for slot in range(2):
+        for off in range(0, ctx, chunk):
+            c = min(chunk, ctx - off)
+            lg = model.chunk_prefill(
+                params, prompts[slot:slot + 1, off:off + c].to(dev), cache,
+                torch.full((1,), off, dtype=torch.int32, device=dev),
+                t[slot:slot + 1], kv_span=ctx)
+        last.append(lg[0])
+    out = [torch.stack(last)]
+    fed = {"paged": [], "dense": []}
+
+    def next_tok(kind, logits, s):
+        cur = (logits.argmax(-1).to(torch.int32) if force is None
+               else force[kind][s].to(dev))
+        fed[kind].append(cur.cpu())
+        return cur
+
+    cur = next_tok("paged", out[-1], 0)
+    for s in range(steps):
+        pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
+        out.append(model.decode(params, cur[:, None], cache, pos, t,
+                                kv_span=ctx + steps))
+        if s + 1 < steps:
+            cur = next_tok("paged", out[-1], s + 1)
+    paged = torch.stack(out).float().cpu()
+    del cache
+    # one-shot prefill into a dense cache, then dense decode
+    cache = init_cache(cfg, 2, ctx + steps, dtype, dev)
+    out = [model.prefill(params, prompts.to(dev), cache)]
+    cur = next_tok("dense", out[-1], 0)
+    for s in range(steps - 1):
+        pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
+        out.append(model.decode(params, cur[:, None], cache, pos))
+        if s + 2 < steps:
+            cur = next_tok("dense", out[-1], s + 1)
+    dense = torch.stack(out).float().cpu()
+    return paged, dense, {k: torch.stack(v) for k, v in fed.items()}
+
+
 def phase_model(torch):
     """A reduced llama: the kernels on the card against the plain versions
     on the CPU, same fp32 weights: chunked prefill then paged decode, and
     one-shot prefill then dense decode."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import Model, init_cache
+    from repro_torch.models.model import Model
     cfg = get_config("llama3-8b").reduced(num_layers=2)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     p_cpu = cpu.init(seed=3, dtype=torch.float32)
-
-    def to_dev(t):
-        if isinstance(t, dict):
-            return {k: to_dev(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [to_dev(v) for v in t]
-        return t.cuda()
-
-    p_gpu = to_dev(p_cpu)
+    p_gpu = _to_dev(p_cpu)
     ctx, chunk, page, steps = 40, 16, 8, 8
-    nmax = -(-(ctx + steps) // page)
-    tab = torch.arange(1, 2 * nmax + 1, dtype=torch.int32).reshape(2, nmax)
-    tab[1] = tab[1].flip(0)
     g = torch.Generator().manual_seed(4)
     prompts = torch.randint(2, cfg.vocab_size, (2, ctx), generator=g,
                             dtype=torch.int32)
     paged, dense = {}, {}
     for dev, model, params in (("cpu", cpu, p_cpu), ("cuda", gpu, p_gpu)):
-        cache = init_cache(cfg, 2 * nmax + 1, page, torch.float32, dev)
-        t = tab.to(dev)
-        last = []
-        for slot in range(2):
-            for off in range(0, ctx, chunk):
-                c = min(chunk, ctx - off)
-                lg = model.chunk_prefill(
-                    params, prompts[slot:slot + 1, off:off + c].to(dev), cache,
-                    torch.full((1,), off, dtype=torch.int32, device=dev),
-                    t[slot:slot + 1], kv_span=ctx)
-            last.append(lg[0])
-        out = [torch.stack(last)]
-        cur = out[-1].argmax(-1).to(torch.int32)
-        for s in range(steps):
-            pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
-            out.append(model.decode(params, cur[:, None], cache, pos, t,
-                                    kv_span=ctx + steps))
-            cur = out[-1].argmax(-1).to(torch.int32)
-        paged[dev] = torch.stack(out).cpu()
-        # one-shot prefill into a dense cache, then dense decode
-        cache = init_cache(cfg, 2, ctx + steps, torch.float32, dev)
-        out = [model.prefill(params, prompts.to(dev), cache)]
-        cur = out[-1].argmax(-1).to(torch.int32)
-        for s in range(steps - 1):
-            pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
-            out.append(model.decode(params, cur[:, None], cache, pos))
-            cur = out[-1].argmax(-1).to(torch.int32)
-        dense[dev] = torch.stack(out).cpu()
+        paged[dev], dense[dev], _ = _model_logits(
+            torch, cfg, model, params, dev, prompts, ctx=ctx, chunk=chunk,
+            page=page, steps=steps)
     for name, logits, what in (
             ("chunked prefill + paged decode", paged,
              f"chunked prefill + {steps} paged decode steps"),
@@ -1077,6 +1148,645 @@ def phase_model(torch):
         log(f"[model] {cfg.name}: {what}, card (kernels) vs CPU (plain): "
             f"max logit err {err:.3e} (tol {MODEL_LOGIT_TOL}), greedy "
             "tokens equal")
+
+
+# ------------------------------------------------- the attention families
+def _cast_params(torch, tree, dtype):
+    """A parameter tree in ``dtype`` but the MoE routers, which stay fp32
+    as the reference keeps them."""
+    from repro_torch.convert import FP32_LEAVES
+    if isinstance(tree, dict):
+        return {k: (v if k in FP32_LEAVES else _cast_params(torch, v, dtype))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_params(torch, v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _family_init(torch, cfg, seed, dtype, device):
+    """Seeded random weights; chatglm3's QKV biases drawn too (the
+    reference initialises them to zero, which would exercise nothing)."""
+    from repro_torch.models.model import Model
+    params = Model(cfg, device=device).init(seed=seed, dtype=dtype)
+    if cfg.qkv_bias:
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        for lp in params["blocks"]:
+            for name in ("bq", "bk", "bv"):
+                b = lp["attn"][name]
+                b.copy_(0.5 * torch.randn(b.shape, generator=g, device=device,
+                                          dtype=torch.float32))
+    return params
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_family_kernels(torch, timer, smi):
+    """The attention kernels at the shapes of gemma2-2b (8/4 heads x 256,
+    window 4096, softcap 50), gemma-7b (16/16 x 256), chatglm3-6b (32/2 x
+    128) and granite-moe-1b-a400m (16/8 x 64), and the fused RMSNorm at
+    their widths, each against its plain version.  gemma2's cases sit where
+    its window masks: paged and dense decode at kv_len 4100-6200, a prefill
+    chunk at q_offset 5888.  Returns {kernel: [case rows]} for the
+    ``kernels`` line."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    sdpa = F.scaled_dot_product_attention
+    shapes = {k: [] for k in ("paged_decode_attention", "decode_attention",
+                              "flash_attention", "rmsnorm")}
+    dims = {a: (c.num_heads, c.num_kv_heads, c.resolved_head_dim, c.d_model)
+            for a, c in ((a, get_config(a)) for a in FAMILY_ARCHS)}
+
+    def randn(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def report(kname, case, err, ms, plain_ms, lib_ms, bound, lib_note=""):
+        b_ms, b_by = bound
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}{lib_note}"
+        log(f"[family-kernel] {kname} {case}: max_abs_err {err:.3e} "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
+            f"bound_ms {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound "
+            f"({smi})")
+        shapes[kname].append(dict(case=case, max_abs_err=err, ms=ms,
+                                  plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=b_ms, bound_by=b_by))
+
+    def check(name, got, want, attn_wmean=None):
+        if got.dtype == torch.float32:
+            return check_close(name, got, want, atol=FP32_ATTN_TOL)
+        if attn_wmean is not None:
+            return check_attention(name, got, want, attn_wmean)
+        return check_close(name, got, want, atol=BF16_ATOL, rtol=BF16_RTOL)
+
+    ctx_lens = tuple(range(CTX + 1, CTX + 1 + 4 * SLOTS, 4))      # 1025..
+    long_lens = (4100, 4400, 4700, 5000, 5300, 5600, 5900, 6200)
+    win = dict(window=GEMMA2_WINDOW, softcap=GEMMA2_SOFTCAP)
+    none = dict(window=None, softcap=None)
+
+    # ---- paged decode: 8 slots, pages of 16
+    for case, arch, kvdt, lens, kw in (
+            ("gemma2 bf16 pages", "gemma2-2b", torch.bfloat16, long_lens,
+             win),
+            ("gemma2 int8 pages + scales", "gemma2-2b", torch.int8,
+             long_lens, win),
+            ("gemma-7b bf16 pages", "gemma-7b", torch.bfloat16, ctx_lens,
+             none),
+            ("chatglm3 bf16 pages", "chatglm3-6b", torch.bfloat16, ctx_lens,
+             none),
+            ("granite bf16 pages", "granite-moe-1b-a400m", torch.bfloat16,
+             ctx_lens, none)):
+        h, kvh, d, _ = dims[arch]
+        nmax = -(-max(lens) // PAGE)
+        pages = SLOTS * nmax + 1
+        shape = (pages, PAGE, kvh, d)
+        if kvdt == torch.int8:
+            k, v = (torch.randint(-127, 128, shape, generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                    for _ in range(2))
+            ks, vs = (torch.rand((pages, kvh), generator=gen, device="cuda")
+                      * 0.015 + 0.005 for _ in range(2))
+        else:
+            k, v = randn(shape, kvdt), randn(shape, kvdt)
+            ks = vs = None
+        q = randn((SLOTS, h, d), torch.bfloat16)
+        perm = torch.randperm(pages - 1, generator=gen, device="cuda") + 1
+        tab = perm[:SLOTS * nmax].reshape(SLOTS, nmax).to(torch.int32)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kwk = dict(kw, k_scale=ks, v_scale=vs)
+        got = ops.paged_decode_attention(q, k, v, tab, kv_len, **kwk)
+        want = ops.paged_decode_attention(q, k, v, tab, kv_len, impl="ref",
+                                          **kwk)
+        err = check(f"paged {case}", got, want)
+        lib_ms, note = None, ""
+        if ks is None:
+            kd = ref.gather_paged_kv(k, tab).transpose(1, 2)
+            vd = ref.gather_paged_kv(v, tab).transpose(1, 2)
+            pos = torch.arange(kd.shape[2], device="cuda")
+            live = pos[None, :] < kv_len[:, None]
+            if kw["window"]:
+                live &= pos[None, :] >= kv_len[:, None] - kw["window"]
+                note = " (SDPA, window mask, no softcap)"
+            mask = live[:, None, None]
+            lib_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, attn_mask=mask,
+                                        enable_gqa=True), cold=True)
+            del kd, vd
+        nbytes, nops = _paged_bytes_ops(torch, q, k, tab, kv_len,
+                                        kw["window"], (ks, vs))
+        report("paged_decode_attention", f"{case}: {SLOTS} slots x {h}/{kvh} "
+               f"heads x {d}, kv_len {lens[0]}-{lens[-1]}"
+               + (f", window {kw['window']} softcap {kw['softcap']:g}"
+                  if kw["window"] else ""), err,
+               timer(lambda: ops.paged_decode_attention(
+                   q, k, v, tab, kv_len, **kwk), cold=True),
+               timer(lambda: ops.paged_decode_attention(
+                   q, k, v, tab, kv_len, impl="ref", **kwk), cold=True),
+               lib_ms, bound_ms(nbytes, nops, PEAK_FP32), note)
+        del q, k, v, got, want
+
+    # ---- dense decode: 8 rows against a dense cache
+    for case, arch, lens, kw in (
+            ("gemma2 bf16", "gemma2-2b", long_lens, win),
+            ("gemma-7b bf16", "gemma-7b", ctx_lens, none),
+            ("chatglm3 bf16", "chatglm3-6b", ctx_lens, none),
+            ("granite bf16", "granite-moe-1b-a400m", ctx_lens, none)):
+        h, kvh, d, _ = dims[arch]
+        s_len = max(lens) + 200 if kw["window"] else CTX + MAX_NEW
+        q = randn((SLOTS, h, d), torch.bfloat16)
+        k = randn((SLOTS, s_len, kvh, d), torch.bfloat16)
+        v = randn((SLOTS, s_len, kvh, d), torch.bfloat16)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = ops.decode_attention(q, k, v, kv_len, **kw)
+        want = ops.decode_attention(q, k, v, kv_len, impl="ref", **kw)
+        wmean = ops.decode_attention(q.float(), k.float(), v.float().abs(),
+                                     kv_len, impl="ref", **kw)
+        err = check(f"decode {case}", got, want, wmean)
+        pos = torch.arange(s_len, device="cuda")
+        live = pos[None, :] < kv_len[:, None]
+        note = ""
+        if kw["window"]:
+            live &= pos[None, :] >= kv_len[:, None] - kw["window"]
+            note = " (SDPA, window mask, no softcap)"
+        kt, vt, mask = k.transpose(1, 2), v.transpose(1, 2), live[:, None, None]
+        lib_ms = timer(lambda: sdpa(q[:, :, None], kt, vt, attn_mask=mask,
+                                    enable_gqa=True), cold=True)
+        nbytes, nops = _decode_bytes_ops(torch, q, k, kv_len, kw["window"])
+        report("decode_attention", f"{case}: ({SLOTS}, {h}, {d}) against "
+               f"({SLOTS}, {s_len}, {kvh}, {d}), kv_len {lens[0]}-{lens[-1]}"
+               + (f", window {kw['window']} softcap {kw['softcap']:g}"
+                  if kw["window"] else ""), err,
+               timer(lambda: ops.decode_attention(q, k, v, kv_len, **kw),
+                     cold=True),
+               timer(lambda: ops.decode_attention(q, k, v, kv_len,
+                                                  impl="ref", **kw),
+                     cold=True),
+               lib_ms, bound_ms(nbytes, nops, PEAK_FP32), note)
+        del q, k, v, got, want, wmean
+
+    # ---- flash: one-shot (8, 1024) and gemma2's chunk deep in a long
+    # prompt (q_offset 5888 of 6144: the window masks its first keys); the
+    # fp32 chunk is the int8 pages' chunked prefill
+    long_off = LONG_CTX - CHUNK
+    for case, arch, dt, b, sq, sk, off, kw in (
+            ("gemma2 one-shot bf16", "gemma2-2b", torch.bfloat16, SLOTS, CTX,
+             CTX, None, win),
+            ("gemma2 chunk bf16", "gemma2-2b", torch.bfloat16, 1, CHUNK,
+             LONG_CTX, long_off, win),
+            ("gemma2 chunk fp32 (int8 pages)", "gemma2-2b", torch.float32, 1,
+             CHUNK, LONG_CTX, long_off, win),
+            ("gemma-7b one-shot bf16", "gemma-7b", torch.bfloat16, SLOTS,
+             CTX, CTX, None, none),
+            ("chatglm3 one-shot bf16", "chatglm3-6b", torch.bfloat16, SLOTS,
+             CTX, CTX, None, none),
+            ("granite one-shot bf16", "granite-moe-1b-a400m", torch.bfloat16,
+             SLOTS, CTX, CTX, None, none),
+            ("granite chunk fp32 (int8 pages)", "granite-moe-1b-a400m",
+             torch.float32, 1, CHUNK, CTX, CTX - CHUNK, none)):
+        h, kvh, d, _ = dims[arch]
+        q = randn((b, sq, h, d), dt)
+        k = randn((b, sk, kvh, d), dt)
+        v = randn((b, sk, kvh, d), dt)
+        kwf = dict(causal=True, **kw)
+        if off is not None:
+            kwf.update(q_offset=torch.full((b,), off, dtype=torch.int32,
+                                           device="cuda"),
+                       kv_len=torch.full((b,), off + sq, dtype=torch.int32,
+                                         device="cuda"))
+        got = ops.flash_attention(q, k, v, **kwf)
+        want = ops.flash_attention(q, k, v, impl="ref", **kwf)
+        wmean = None
+        if dt == torch.bfloat16:
+            wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                        impl="ref", **kwf)
+        err = check(f"flash {case}", got, want, wmean)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        note = "" if kw["window"] is None else " (SDPA, no softcap)"
+        if off is None and kw["window"] is None:
+            lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True))
+        else:
+            q_pos = (off or 0) + torch.arange(sq, device="cuda")
+            k_pos = torch.arange(sk, device="cuda")
+            live = ((k_pos[None, :] <= q_pos[:, None])
+                    & (k_pos[None, :] < (off or 0) + sq))
+            if kw["window"]:
+                live &= k_pos[None, :] > q_pos[:, None] - kw["window"]
+            mask = live[None, None]
+            lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=True))
+        nbytes, nops = _flash_bytes_ops(torch, q, k, kwf.get("kv_len"),
+                                        kwf.get("q_offset", 0), kw["window"])
+        where = ("" if off is None else f" at q_offset {off} of {sk}")
+        report("flash_attention", f"{case} ({b}, {sq}) x {h}/{kvh} heads x "
+               f"{d}{where}" + (f", window {kw['window']} softcap "
+                                f"{kw['softcap']:g}" if kw["window"] else ""),
+               err, timer(lambda: ops.flash_attention(q, k, v, **kwf)),
+               timer(lambda: ops.flash_attention(q, k, v, impl="ref", **kwf)),
+               lib_ms, bound_ms(nbytes, nops, PEAK_BF16
+                                if dt == torch.bfloat16 else PEAK_FP32), note)
+        del q, k, v, got, want, wmean
+
+    # ---- RMSNorm at the families' widths: fused with the residual add,
+    # a decode step's 8 rows (warm) and a prefill chunk's 256 (cold)
+    for arch in ("gemma2-2b", "gemma-7b", "granite-moe-1b-a400m"):
+        dm = dims[arch][3]
+        for t in (SLOTS, CHUNK):
+            x, res = randn((t, dm), torch.bfloat16), randn((t, dm),
+                                                           torch.bfloat16)
+            w = (1 + 0.1 * randn((dm,), torch.float32)).to(torch.bfloat16)
+            got_s, got = ops.add_rmsnorm(x, res, w, 1e-6)
+            if not torch.equal(got_s, x + res):
+                fail(f"add_rmsnorm ({t}, {dm}): s differs from x + r")
+            err = check(f"add_rmsnorm ({t}, {dm})", got,
+                        ops.rmsnorm(got_s, w, 1e-6, impl="ref"))
+            cold = t == CHUNK
+            nbytes = 4 * x.numel() * 2 + dm * 2
+            report("rmsnorm", f"add_rmsnorm ({t}, {dm}) bf16 ({arch})"
+                   + (", L2 flushed" if cold else ""), err,
+                   timer(lambda: ops.add_rmsnorm(x, res, w, 1e-6), cold=cold),
+                   timer(lambda: ops.add_rmsnorm(x, res, w, 1e-6, impl="ref"),
+                         cold=cold),
+                   timer(lambda: F.rms_norm(x + res, (dm,), w, 1e-6),
+                         cold=cold),
+                   bound_ms(nbytes, 5 * x.numel(), PEAK_FP32))
+    torch.cuda.synchronize()
+    return shapes
+
+
+def phase_family_models(torch, smi):
+    """Each family at full width and the depth of one pattern repeat (two
+    layers for gemma2, one for the others): card fp32 logits against the
+    port's CPU fp32 logits (chunked prefill + paged decode, one-shot
+    prefill + dense decode), then card bf16 on both paths, fed the fp32
+    card run's tokens, against each other (and, printed, card fp32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    ctx, chunk, page, steps = 40, 16, 8, 6
+    for arch in FAMILY_ARCHS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=len(full.layer_pattern))
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        p_cpu = _family_init(torch, cfg, 5, torch.float32, "cpu")
+        p_gpu = _to_dev(p_cpu)
+        g = torch.Generator().manual_seed(6)
+        prompts = torch.randint(2, cfg.vocab_size, (2, ctx), generator=g,
+                                dtype=torch.int32)
+        kw = dict(ctx=ctx, chunk=chunk, page=page, steps=steps)
+        runs = {}
+        for dev, model, params in (("cpu", cpu, p_cpu), ("cuda", gpu, p_gpu)):
+            runs[dev] = _model_logits(torch, cfg, model, params, dev,
+                                      prompts, **kw)
+        errs = []
+        for i, name in enumerate(("chunked + paged", "one-shot + dense")):
+            got, want = runs["cuda"][i], runs["cpu"][i]
+            errs.append(check_close(f"[model] {arch} fp32 {name}", got, want,
+                                    atol=FAMILY_LOGIT_TOL))
+            if not torch.equal(got.argmax(-1), want.argmax(-1)):
+                fail(f"[model] {arch} {name}: greedy tokens differ between "
+                     "card and CPU")
+        p_bf = _cast_params(torch, p_gpu, torch.bfloat16)
+        bf = _model_logits(torch, cfg, gpu, p_bf, "cuda", prompts,
+                           dtype=torch.bfloat16, force=runs["cuda"][2], **kw)
+        scale = float(runs["cuda"][1].abs().max())
+        bound = BF16_MODEL_REL * scale
+        bf_errs = [float((bf[i] - runs["cuda"][i]).abs().max())
+                   for i in range(2)]
+        cross = float((bf[0][0] - bf[1][0]).abs().max())
+        if cross > bound:
+            fail(f"[model] {arch} bf16 on the card: chunked + paged off "
+                 f"one-shot + dense by {cross} (bound {bound:.4f}, "
+                 f"{BF16_MODEL_REL} of the largest logit)")
+        log(f"[model] {arch} at full width, {cfg.num_layers} layer(s) "
+            f"({cfg.num_heads}/{cfg.num_kv_heads} heads x "
+            f"{cfg.resolved_head_dim}, d_model {cfg.d_model}): card fp32 vs "
+            f"CPU fp32 max logit err chunked+paged {errs[0]:.3e}, "
+            f"one-shot+dense {errs[1]:.3e} (tol {FAMILY_LOGIT_TOL}), greedy "
+            f"tokens equal; card bf16 off card fp32 by {bf_errs[0]:.4f} / "
+            f"{bf_errs[1]:.4f}, bf16 chunked+paged off bf16 one-shot+dense "
+            f"(prefill row) by {cross:.4f} (largest logit {scale:.3f}; "
+            f"{smi})")
+        del cpu, gpu, p_cpu, p_gpu, p_bf, runs, bf
+        _free(torch)
+
+
+def _family_engine(store, queries, gen):
+    from repro_torch.core.scheduler import BacklogScheduler
+    from repro_torch.serving import RagdollEngine
+    return RagdollEngine(store, QueryEmbedder(queries), gen,
+                         BacklogScheduler(max_batch=SLOTS),
+                         BacklogScheduler(max_batch=SLOTS),
+                         initial_partitions=PARTITIONS - SPILLED,
+                         device="cuda")
+
+
+def _serve_few(torch, eng, tag, rids, max_new, kernels, exact, smi, vocab,
+               query_of=None):
+    """Serve ``rids`` through a fresh engine with the launch counts set to
+    0 just before and read just after; checks every request's tokens and
+    exact chunks and that ``kernels`` launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import percentile
+    errors = _watch_threads()
+    eng.start()
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = _submit_and_drain(eng, list(rids), 600, tag, errors,
+                                 query_of=query_of, max_new=max_new,
+                                 total=len(rids))
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        eng.stop()
+        eng.streamer.close()
+    if errors:
+        fail(f"[{tag}] worker thread died: {errors}")
+    reqs = sorted((r for r in done if r.rid in set(rids)),
+                  key=lambda r: r.rid)
+    check_requests(torch, tag, reqs, exact, vocab, n=len(rids),
+                   max_new=max_new)
+    missing = [n for n in kernels if counts[n] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on this path: {missing}")
+    lat = [r.latency for r in reqs]
+    log(f"[{tag}] {len(reqs)} requests, {max_new} tokens and {TOP_K} exact "
+        f"chunks each, in {wall:.3f} s: p50 {percentile(lat, 50):.3f} s "
+        f"p95 {percentile(lat, 95):.3f} s, "
+        f"{len(reqs) * max_new / wall:.1f} output tokens/s ({smi})")
+    log(f"[{tag}] launches on this path: {json.dumps(counts)}")
+    return dict(counts=counts, reqs=reqs,
+                outputs={r.rid: r.output for r in reqs})
+
+
+def _chunked_row(torch, cfg, params, ids):
+    """Last-row logits of ``ids`` (1, n) through chunked prefill into a
+    fresh page pool: the serving path's function (a MoE's chunk of 256
+    tokens stays below the capacity path's threshold)."""
+    from repro_torch.models.model import Model, init_cache
+    n = ids.shape[1]
+    nmax = -(-n // PAGE)
+    cache = init_cache(cfg, nmax + 1, PAGE, params["embed"].dtype, "cuda")
+    tab = torch.arange(1, nmax + 1, dtype=torch.int32, device="cuda")[None]
+    model = Model(cfg, device="cuda")
+    for off in range(0, n, CHUNK):
+        c = min(CHUNK, n - off)
+        lg = model.chunk_prefill(
+            params, ids[:, off:off + c], cache,
+            torch.full((1,), off, dtype=torch.int32, device="cuda"), tab,
+            kv_span=n)
+    return lg[0].float()
+
+
+def _hold_tokens(torch, tag, cfg, params, reqs, other, smi, *, ctx,
+                 what, chunked=False, fp32=None):
+    """Each request's tokens against ``other`` (rid -> text): equal, or
+    apart first at a near tie that fp32 confirms (the two choices' fp32
+    logits within twice the bf16 row's largest error).  ``chunked``
+    recomputes the row by chunked prefill (a MoE's one-shot prefill would
+    take the capacity path), else by ``_near_tie``'s one-shot prefill."""
+    from repro_torch.serving.generator import HashTokenizer
+    ties = 0
+    for r in reqs:
+        if other[r.rid] == r.output:
+            continue
+        if fp32 is None:
+            fp32 = _cast_params(torch, params, torch.float32)
+        if chunked:
+            want = [int(t[3:]) for t in other[r.rid].split()]
+            got = [int(t[3:]) for t in r.output.split()]
+            t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+            toks = HashTokenizer(cfg.vocab_size).encode(r.prompt, ctx)
+            ids = torch.tensor([list(toks) + want[:t]], dtype=torch.int32,
+                               device="cuda")
+            with torch.no_grad():
+                rows = {n: _chunked_row(torch, cfg, p, ids)
+                        for n, p in (("bf16", params), ("fp32", fp32))}
+            a, b = want[t], got[t]
+            gap = float(rows["fp32"][a] - rows["fp32"][b])
+            err = float((rows["bf16"] - rows["fp32"]).abs().max())
+        else:
+            t, a, b, gap, err = _near_tie(torch, cfg, params, fp32, r,
+                                          other[r.rid], ctx=ctx)
+        msg = (f"[{tag}] request {r.rid} ({r.query}): first other token at "
+               f"{t}, {b} for {a}; fp32 logit gap {gap:.6f}, bf16 logits "
+               f"off fp32 by up to {err:.6f} in that row")
+        if abs(gap) > 2 * err:
+            fail(f"{msg}: not a near tie")
+        log(f"{msg}: a near tie ({smi})")
+        ties += 1
+    log(f"[{tag}] {len(reqs)} requests: {what}'s tokens, but for {ties} "
+        "that leave them at an fp32-witnessed near tie")
+    return ties
+
+
+def profile_decode_step(torch, tag, model, params, cache, block_tab, span,
+                        smi) -> None:
+    """One decode step of ``SLOTS`` slots at position ``CTX`` under the
+    profiler: its device kernels, busy and idle share, time by kind."""
+    from torch.profiler import ProfilerActivity, profile
+    cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((SLOTS,), CTX, dtype=torch.int32, device="cuda")
+    model.decode(params, cur, cache, pos, block_tab, kv_span=span)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode(params, cur, cache, pos, block_tab, kv_span=span)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    recs = _kernel_records(prof, torch)
+    n = sum(1 for name, _, _ in recs
+            if not name.startswith(("Memcpy", "Memset")))
+    log(f"[{tag}] one decode step ({SLOTS} slots): {n} device kernels")
+    breakdown(tag, recs, window, smi, what="one decode step")
+
+
+def phase_serve_gemma2(torch, store, queries, exact, smi):
+    """gemma2-2b at full width and depth (26 layers, seeded bf16 weights)
+    behind ``RagdollEngine``: (a) the paged, chunk-prefilled continuous
+    generator (bf16 pages of 16, chunks of 256) serves 16 requests at ctx
+    1024 (the window never masks); one profiled decode step; (b) the
+    whole-batch ``Generator`` behind the engine on the same requests: the
+    same tokens but at fp32-witnessed near ties; (c) 4 requests at ctx 6144
+    on both paths (the local layers' window masks in prefill and decode),
+    held the same way; (d) 4 requests at ctx 1024 over int8 pages (the
+    D = 256 int8 decode and fp32 chunk kernels on a serving path).
+    Returns each run's launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ContinuousGenerator, Generator
+    from repro_torch.serving import GeneratorConfig
+    t_phase = time.perf_counter()
+    tag = "serve-gemma2"
+    cfg = get_config("gemma2-2b")
+    t0 = time.perf_counter()
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers ({cfg.layer_pattern}),"
+        f" d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads x"
+        f" {cfg.resolved_head_dim}, window {cfg.sliding_window}, softcaps "
+        f"{cfg.attn_logit_softcap:g}/{cfg.final_logit_softcap:g}; {nbytes} B "
+        f"of bf16 weights in {time.perf_counter() - t0:.1f} s; KV "
+        f"{cfg.kv_cache_bytes_per_token()} B a token")
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=MAX_NEW,
+                        dtype=torch.bfloat16)
+    paged = dict(num_slots=SLOTS, paged=True, page_size=PAGE,
+                 prefill_chunk=CHUNK, device="cuda")
+    counts = []
+    # (a) the continuous path at ctx 1024
+    gen = ContinuousGenerator(cfg, params, g, **paged)
+    eng = _family_engine(store, queries, gen)
+    out = serve_path(torch, eng, tag, CONTINUOUS_KERNELS, exact, smi,
+                     cfg.vocab_size, stats=eng.retrieval_stats,
+                     step_hist=eng.registry.histogram("decode.step_seconds"),
+                     profile=False)
+    eng.streamer.close()
+    counts.append(out["counts"])
+    profile_decode_step(torch, tag, gen.model, params, gen.cache,
+                        gen.kv.device_tab(), gen._total, smi)
+    del gen, eng
+    _free(torch)
+    # (b) the whole-batch path on the same requests
+    rids = [r.rid for r in out["reqs"]]
+    wb = _serve_few(torch, _family_engine(store, queries,
+                                          Generator(cfg, params, g,
+                                                    device="cuda")),
+                    f"{tag} whole-batch", rids, MAX_NEW, WHOLE_BATCH_KERNELS,
+                    exact, smi, cfg.vocab_size)
+    counts.append(wb["counts"])
+    fp32 = _cast_params(torch, params, torch.float32)
+    _hold_tokens(torch, tag, cfg, params, out["reqs"], wb["outputs"], smi,
+                 ctx=CTX, what="the whole-batch Generator", fp32=fp32)
+    # (c) long prompts, where the window masks
+    first = WARMUP_REQ + N_REQ
+    long_rids = list(range(first, first + LONG_REQ))
+    gl = dataclasses.replace(g, ctx_len=LONG_CTX)
+    runs = {}
+    for label, make, kernels in (
+            ("paged", lambda: ContinuousGenerator(cfg, params, gl, **paged),
+             CONTINUOUS_KERNELS),
+            ("whole-batch", lambda: Generator(cfg, params, gl, device="cuda"),
+             WHOLE_BATCH_KERNELS)):
+        runs[label] = _serve_few(
+            torch, _family_engine(store, queries, make()),
+            f"{tag} ctx {LONG_CTX} {label}", long_rids, MAX_NEW, kernels,
+            exact, smi, cfg.vocab_size)
+        counts.append(runs[label]["counts"])
+        _free(torch)
+    _hold_tokens(torch, f"{tag} ctx {LONG_CTX}", cfg, params,
+                 runs["paged"]["reqs"], runs["whole-batch"]["outputs"], smi,
+                 ctx=LONG_CTX, what="the whole-batch Generator", fp32=fp32)
+    del fp32
+    _free(torch)
+    # (d) int8 pages
+    i8 = _serve_few(torch, _family_engine(store, queries, ContinuousGenerator(
+        cfg, params, g, kv_format="int8", **paged)), f"{tag} int8 pages",
+        rids[:LONG_REQ], MAX_NEW, SWAP_KERNELS, exact, smi, cfg.vocab_size)
+    counts.append(i8["counts"])
+    del params
+    _free(torch)
+    log(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_serve_families(torch, store, queries, exact, smi):
+    """gemma-7b, chatglm3-6b and granite-moe-1b-a400m at full width and
+    depth (seeded bf16 weights), one after the other: the paged continuous
+    path behind ``RagdollEngine`` serves 8 requests of 16 tokens, and the
+    whole-batch path behind it serves them again.  gemma-7b and chatglm3
+    hold the paged tokens to the whole-batch ones; granite holds them to
+    the paged path run with its weights cast to fp32, since its one-shot
+    prefill of 8 x 1024 tokens at top 8 takes the capacity path (drops)
+    and its 256-token chunks the exact one: the two paths compute
+    different functions, in both packages.  Prints how many rows the
+    capacity path dropped in one whole-batch prefill.  Returns each run's
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.serving import ContinuousGenerator, Generator
+    from repro_torch.serving import GeneratorConfig
+    counts = []
+    for arch in FAMILY_ARCHS[1:]:
+        t_phase = time.perf_counter()
+        tag = f"serve-families {arch}"
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"[{tag}] {cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+            f"{cfg.resolved_head_dim}, {cfg.mlp_kind}"
+            + (f", MoE {cfg.moe.num_experts} experts top {cfg.moe.top_k}"
+               if cfg.moe else "") + (", QKV bias, RoPE on half the head "
+                                      "dims" if cfg.qkv_bias else "")
+            + f"; {nbytes} B of weights in {time.perf_counter() - t0:.1f} s")
+        g = GeneratorConfig(ctx_len=CTX, max_new_tokens=FAMILY_NEW,
+                            dtype=torch.bfloat16)
+        paged = dict(num_slots=SLOTS, paged=True, page_size=PAGE,
+                     prefill_chunk=CHUNK, device="cuda")
+        rids = list(range(FAMILY_REQ))
+        run = _serve_few(torch, _family_engine(
+            store, queries, ContinuousGenerator(cfg, params, g, **paged)),
+            tag, rids, FAMILY_NEW, CONTINUOUS_KERNELS, exact, smi,
+            cfg.vocab_size)
+        counts.append(run["counts"])
+        _free(torch)
+        drops = []
+        grouped = moe.grouped_ffn
+        if cfg.moe is not None:
+            def counting(p, xs, gs, kind, impl="auto"):
+                if impl == "auto" and xs.shape[0] >= moe.CAPACITY_THRESHOLD:
+                    drops.append((int(moe.capacity_drops(gs, xs.shape[0])),
+                                  xs.shape[0]))
+                return grouped(p, xs, gs, kind, impl)
+            moe.grouped_ffn = counting
+        try:
+            wb = _serve_few(torch, _family_engine(
+                store, queries, Generator(cfg, params, g, device="cuda")),
+                f"{tag} whole-batch", rids, FAMILY_NEW, WHOLE_BATCH_KERNELS,
+                exact, smi, cfg.vocab_size)
+        finally:
+            moe.grouped_ffn = grouped
+        counts.append(wb["counts"])
+        _free(torch)
+        if cfg.moe is None:
+            _hold_tokens(torch, tag, cfg, params, run["reqs"], wb["outputs"],
+                         smi, ctx=CTX, what="the whole-batch Generator")
+        else:
+            first = drops[:cfg.num_layers]
+            if not first:
+                fail(f"[{tag}] no whole-batch prefill took the capacity path")
+            log(f"[{tag}] the whole-batch path's first prefill "
+                f"({first[0][1]} rows a layer: capacity path) dropped "
+                f"{sum(d for d, _ in first)} rows over {len(first)} layers "
+                f"({', '.join(str(d) for d, _ in first)}); its chunks of "
+                f"{CHUNK} tokens ({CHUNK * cfg.moe.top_k} rows) take the exact "
+                f"path ({smi})")
+            fp32 = _cast_params(torch, params, torch.float32)
+            ref = ContinuousGenerator(cfg, fp32, GeneratorConfig(
+                ctx_len=CTX, max_new_tokens=FAMILY_NEW, dtype=torch.float32),
+                **paged)
+            texts = ref.run([r.prompt for r in run["reqs"]])
+            del ref
+            _free(torch)
+            _hold_tokens(torch, tag, cfg, params, run["reqs"],
+                         dict(zip(rids, texts)), smi, ctx=CTX,
+                         what="the same path in fp32", chunked=True,
+                         fp32=fp32)
+            del fp32
+        del params
+        _free(torch)
+        log(f"[{tag}] took {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def build_weights(torch):
@@ -1097,19 +1807,20 @@ def build_weights(torch):
     return cfg, params
 
 
-def check_requests(torch, tag, reqs, exact, vocab) -> None:
-    """Fails unless all ``N_REQ`` requests came back, each with
-    ``MAX_NEW`` tokens and the exact top-5 of the full corpus."""
-    if len(reqs) != N_REQ:
-        fail(f"[{tag}] {len(reqs)} of {N_REQ} requests came back")
+def check_requests(torch, tag, reqs, exact, vocab, n=N_REQ,
+                   max_new=MAX_NEW) -> None:
+    """Fails unless all ``n`` requests came back, each with ``max_new``
+    tokens and the exact top-5 of the full corpus."""
+    if len(reqs) != n:
+        fail(f"[{tag}] {len(reqs)} of {n} requests came back")
     ex_s, ex_i = exact
     for r in reqs:
         qi = int(r.query[1:])            # QueryEmbedder: "q<i>" -> query i
         toks = r.output.split()
-        if len(toks) != MAX_NEW or not all(
+        if len(toks) != max_new or not all(
                 0 <= int(t[3:]) < vocab for t in toks):
             fail(f"[{tag}] request {r.rid}: {len(toks)} tokens, want "
-                 f"{MAX_NEW}")
+                 f"{max_new}")
         got = torch.tensor([[int(c) for c in r.retrieved]])
         if got.shape[1] != TOP_K:
             fail(f"[{tag}] request {r.rid}: {got.shape[1]} chunks, want "
@@ -1128,19 +1839,22 @@ def _watch_threads():
     return errors
 
 
-def _submit_and_drain(eng, rids, t_limit, tag, errors, query_of=None):
+def _submit_and_drain(eng, rids, t_limit, tag, errors, query_of=None,
+                      max_new=MAX_NEW, total=None):
     """Submit requests ``rids`` (request ``i`` asks ``q<query_of(i)>``,
-    default ``q<i>``) to a started engine and wait for all of them; fails
+    default ``q<i>``) to a started engine and wait until it has completed
+    ``total`` requests (default ``rids[-1] + 1``: the rids so far); fails
     as soon as a worker thread has died."""
     from repro_torch.serving import Request
     for i in rids:
         qi = i if query_of is None else query_of(i)
         eng.submit(Request(rid=i, query=f"q{qi}", arrival=time.perf_counter(),
-                           top_k=TOP_K, max_new_tokens=MAX_NEW))
+                           top_k=TOP_K, max_new_tokens=max_new))
     deadline = time.monotonic() + t_limit
     while True:
         try:
-            return eng.drain(rids[-1] + 1, timeout=5.0)
+            return eng.drain(rids[-1] + 1 if total is None else total,
+                             timeout=5.0)
         except TimeoutError:
             if errors:
                 fail(f"[{tag}] worker thread died: {errors}")
@@ -2840,8 +3554,20 @@ def main() -> int:
     shutil.rmtree(recluster_root, ignore_errors=True)
     try:
         store, queries, exact = phase_corpus(torch, store_root)
-        rows = phase_kernels(torch, Timer(torch), store, queries)
+        timer = Timer(torch)
+        rows = phase_kernels(torch, timer, store, queries)
         phase_model(torch)
+        # the attention families, before the llama weights take the card
+        t0 = time.perf_counter()
+        family_rows = phase_family_kernels(torch, Timer(torch, iters=10),
+                                           smi)
+        log(f"[family-kernel] the phase took {time.perf_counter() - t0:.1f} s")
+        del timer
+        t0 = time.perf_counter()
+        phase_family_models(torch, smi)
+        log(f"[model] the families took {time.perf_counter() - t0:.1f} s")
+        families = (phase_serve_gemma2(torch, store, queries, exact, smi)
+                    + phase_serve_families(torch, store, queries, exact, smi))
         cfg, params = build_weights(torch)
         paged = phase_serve(torch, cfg, params, store, queries, exact, smi)
         batch = phase_serve_batch(torch, cfg, params, store, queries, exact,
@@ -2863,13 +3589,15 @@ def main() -> int:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
-            + prefix + [streamed, sharded] + placement)
+            + prefix + [streamed, sharded] + placement + families)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
+        extra = ({"shapes": family_rows[kname]} if kname in family_rows
+                 else {})
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
                             launches=sum(c[kname] for c in runs),
-                            **rows[kname]))
+                            **rows[kname], **extra))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,20 +1,26 @@
 """Architecture config registry of the PyTorch port.
 
-``get_config(name)`` resolves the architectures the port serves so far
-(the dense llama family: llama3-8b on the serving paths, and the paper's
-llama3-70b, which the placement contracts price).
+``get_config(name)`` resolves the architectures the port serves: the
+attention families that the paged pool takes (dense llama, gemma2-2b's
+local/global layers, gemma-7b's MHA, chatglm3-6b's QKV bias and half
+RoPE, granite-moe-1b-a400m's MoE FFN), and the paper's llama3-70b, which
+the placement contracts price.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from repro_torch.configs.shapes import (SHAPE_ORDER, SHAPES, InputShape,
                                         shape_applicable)
 
 _MODULES = {
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "gemma2-2b": "gemma2_2b",
+    "gemma-7b": "gemma_7b",
     "llama3-8b": "llama3_8b",
+    "chatglm3-6b": "chatglm3_6b",
     "llama3-70b": "llama3_70b",
 }
 
@@ -33,5 +39,12 @@ def get_config(name: str) -> ModelConfig:
     return _cache[key]
 
 
-__all__ = ["ModelConfig", "InputShape", "SHAPES", "SHAPE_ORDER",
-           "shape_applicable", "get_config", "ASSIGNED_ARCHS"]
+def all_configs() -> Dict[str, ModelConfig]:
+    return {name: get_config(name) for name in _MODULES}
+
+
+__all__ = [
+    "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig", "InputShape",
+    "SHAPES", "SHAPE_ORDER", "shape_applicable", "get_config",
+    "all_configs", "ASSIGNED_ARCHS",
+]

@@ -6,7 +6,11 @@ JAX stacks each position of ``layer_pattern`` on a leading repeats axis
 (``blocks[j]`` leaves are ``(R, ...)``); layer ``r * len(pattern) + j``
 is slice ``r`` of ``blocks[j]``.  Layouts are kept as they are:
 ``wq (D, H, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (H, hd, D)``,
-``embed (V, D)``, ``lm_head (D, V)``, norms ``(D,)``.
+``embed (V, D)``, ``lm_head (D, V)``, norms ``(D,)``; QKV biases
+``bq (H, hd)``, ``bk``/``bv (KV, hd)``; MoE leaves ``moe.router (D, E)``
+and ``moe.w_gate``/``w_up (E, D, F)``, ``moe.w_down (E, F, D)``.  Every
+leaf takes ``dtype`` but the router, which stays fp32 as the reference
+creates it.
 """
 from __future__ import annotations
 
@@ -20,9 +24,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
 
+# leaves the reference keeps in fp32 whatever the model's dtype
+FP32_LEAVES = ("router",)
+
+
 def _to_torch(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_torch(v, device,
+                             torch.float32 if k in FP32_LEAVES else dtype)
+                for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
         device=device, dtype=dtype)
 

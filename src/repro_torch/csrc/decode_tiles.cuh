@@ -36,11 +36,17 @@
 // cp.async copies through a ring of 3 stages: the copies of the next two
 // units are in flight while the warps work on this one.  Rows are padded
 // by 16 bytes in shared memory.  A block holds at most 128 registers a
-// thread and 53 KB of shared memory (bf16, D = 128): four fit an SM.  Each warp takes one tile of T tokens of
-// a unit (T * G = 32 (token, head) pairs for G >= 4): a lane holds D/32
-// elements of every query head and of each of the tile's K and V rows in
-// registers (a lane's elements are 32 apart, d = e * 32 + lane, so a warp
-// reads contiguous spans of a row).  The warp reduces the tile's 32
+// thread and 53 KB of shared memory (bf16, D = 128): four fit an SM; at
+// D = 256 a bf16 stage is 34 KB and two fit.  A warp holds Gw of the G
+// query heads: all of them for G <= 4, else 4, and then the block's warps
+// split the heads into G / 4 groups that each read every staged row (G =
+// 16, chatglm3: 4 groups of 4, a warp a group, each over all 32 tokens of
+// a unit), so each K/V row still leaves device memory once for all G
+// heads.  A warp takes tiles of T tokens of a unit (T * Gw (token, head)
+// pairs, 32 for Gw = 4; T = 8 at most): a lane holds D/32 elements of each
+// of its query heads and of a tile's K and V rows in registers (a lane's
+// elements are 32 apart, d = e * 32 + lane, so a warp reads contiguous
+// spans of a row).  The warp reduces the tile's 32
 // partial dot products in one butterfly that scatters as it sums (31
 // shuffles, after which lane i holds the score of pair i), so softmax work
 // is spread over the lanes: one exp per lane and tile for the
@@ -75,13 +81,20 @@ constexpr int kCombineThreads = 512;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNegInit = -1e30f;
 
-// Tile shape for G query heads and EPL head-dim elements per lane.
+// Tile shape for G query heads and EPL head-dim elements per lane: a warp
+// holds kGw heads (head group warp % kGroups) and takes kSub tiles of kTok
+// tokens of every unit (token group warp / kGroups).
 template <int G, int EPL>
 struct Tile {
-  static constexpr int kTok = 32 / G < 8 ? 32 / G : 8;
-  static constexpr int kPairs = kTok * G;      // (token, head) pairs, <= 32
+  static constexpr int kGw = G > 4 ? 4 : G;            // heads a warp
+  static constexpr int kGroups = G / kGw;              // head groups
+  static constexpr int kTokWarps = kWarps / kGroups;   // warps along the tokens
+  static constexpr int kTok = 32 / kGw < 8 ? 32 / kGw : 8;
+  static constexpr int kPairs = kTok * kGw;    // (token, head) pairs, <= 32
   static constexpr int kRep = 32 / kPairs;     // lanes that end up holding each pair
-  static_assert(kTok * kWarps == kUnit, "a unit is one tile for each warp");
+  static constexpr int kSub = kUnit / (kTokWarps * kTok);   // tiles a warp a unit
+  static_assert(G % kGw == 0 && kWarps % kGroups == 0, "head groups");
+  static_assert(kSub * kTokWarps * kTok == kUnit, "a unit is whole tiles");
 };
 
 // One level of a butterfly over the warp that sums n values per lane and
@@ -271,24 +284,27 @@ __device__ __forceinline__ void decode_split(const Args& a) {
     }
   };
 
-  float qr[G][EPL];              // pre-scaled queries
-  float acc[G][EPL];
-  float m[G], l[G];
+  constexpr int GW = T::kGw;
+  const int hg = warp % T::kGroups;               // this warp's heads: hg * GW + g
+  const int tw = warp / T::kGroups;               // and its tiles of each unit
+  float qr[GW][EPL];             // pre-scaled queries
+  float acc[GW][EPL];
+  float m[GW], l[GW];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GW; ++g) {
     m[g] = kNegInit;
     l[g] = 0.f;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = e * 32 + lane;
-      qr[g][e] = d < D ? to_f32(q[q_base + g * D + d]) * a.scale : 0.f;
+      qr[g][e] = d < D ? to_f32(q[q_base + (hg * GW + g) * D + d]) * a.scale : 0.f;
       acc[g][e] = 0.f;
     }
   }
   // the pair this lane holds after the reduction: token jj, head gg
   const int pair = lane / T::kRep;
-  const int jj = pair / G;
-  const int gg = pair % G;
+  const int jj = pair / GW;
+  const int gg = pair % GW;
 
   const int units = (s_hi - s_lo + kUnit - 1) / kUnit;
 #pragma unroll
@@ -301,34 +317,35 @@ __device__ __forceinline__ void decode_split(const Args& a) {
     cp_async_commit();
     cp_async_wait<kStages - 1>();                 // unit u has landed
     __syncthreads();
-    const int t0 = s_lo + u * kUnit + warp * T::kTok;
-    if (t0 < s_hi) {                              // warp-uniform
-      const unsigned char* st = smem + (u % kStages) * sb;
-      const unsigned char* krow = st + warp * T::kTok * rs;
+    const unsigned char* st = smem + (u % kStages) * sb;
+#pragma unroll 1
+    for (int sub = 0; sub < T::kSub; ++sub) {
+      const int tile = tw * T::kSub + sub;        // of the unit's kUnit / kTok
+      const int t0 = s_lo + u * kUnit + tile * T::kTok;
+      if (t0 >= s_hi) break;                      // warp-uniform
+      const unsigned char* krow = st + tile * T::kTok * rs;
       const unsigned char* vrow = krow + kUnit * rs;
-      const float* ksm = reinterpret_cast<const float*>(st + 2 * kUnit * rs) + warp * T::kTok;
+      const float* ksm = reinterpret_cast<const float*>(st + 2 * kUnit * rs) + tile * T::kTok;
       const float* vsm = ksm + kUnit;
-      float kx[T::kTok][EPL], ksc[T::kTok];
-#pragma unroll
-      for (int j = 0; j < T::kTok; ++j) {
-        const KT* kr = reinterpret_cast<const KT*>(krow + j * rs);
-        ksc[j] = quant ? ksm[j] : 1.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          const int d = e * 32 + lane;
-          kx[j][e] = d < D ? to_f32(kr[d]) : 0.f;
-        }
-      }
-      // scores of the tile's pairs: partial dots, then one scattering sum
+      // scores of the tile's pairs: partial dots, a row at a time, then
+      // one scattering sum
       float part[T::kPairs];
 #pragma unroll
       for (int j = 0; j < T::kTok; ++j) {
+        const KT* kr = reinterpret_cast<const KT*>(krow + j * rs);
+        const float ksc = quant ? ksm[j] : 1.f;
+        float kx[EPL];
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int e = 0; e < EPL; ++e) {
+          const int d = e * 32 + lane;
+          kx[e] = d < D ? to_f32(kr[d]) : 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < GW; ++g) {
           float sum = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) sum += qr[g][e] * kx[j][e];
-          part[j * G + g] = sum * ksc[j];
+          for (int e = 0; e < EPL; ++e) sum += qr[g][e] * kx[e];
+          part[j * GW + g] = sum * ksc;
         }
       }
       reduce_scatter<T::kPairs, 16>(part, lane);
@@ -336,23 +353,23 @@ __device__ __forceinline__ void decode_split(const Args& a) {
       if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
       if (t0 + jj >= s_hi) s = -INFINITY;
       // per-head maximum and probability sum over the tile's tokens: the
-      // lanes of one head differ in the bits above kRep * G
+      // lanes of one head differ in the bits above kRep * GW
       float tmax = s;
 #pragma unroll
-      for (int o = T::kRep * G; o < 32; o <<= 1)
+      for (int o = T::kRep * GW; o < 32; o <<= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(kFull, tmax, o));
       float m_own = m[0];
 #pragma unroll
-      for (int g = 1; g < G; ++g)
+      for (int g = 1; g < GW; ++g)
         if (gg == g) m_own = m[g];
       const float mn_own = fmaxf(m_own, tmax);
       const float p = expf(s - mn_own);
       float psum = p;
 #pragma unroll
-      for (int o = T::kRep * G; o < 32; o <<= 1)
+      for (int o = T::kRep * GW; o < 32; o <<= 1)
         psum += __shfl_xor_sync(kFull, psum, o);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {              // lane g * kRep holds (token 0, head g)
+      for (int g = 0; g < GW; ++g) {             // lane g * kRep holds (token 0, head g)
         const float mn = __shfl_sync(kFull, mn_own, g * T::kRep);
         const float ps = __shfl_sync(kFull, psum, g * T::kRep);
         const float c = expf(m[g] - mn);
@@ -372,8 +389,8 @@ __device__ __forceinline__ void decode_split(const Args& a) {
         }
         const float vsc = quant ? vsm[j] : 1.f;
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pv = __shfl_sync(kFull, p, (j * G + g) * T::kRep) * vsc;
+        for (int g = 0; g < GW; ++g) {
+          const float pv = __shfl_sync(kFull, p, (j * GW + g) * T::kRep) * vsc;
 #pragma unroll
           for (int e = 0; e < EPL; ++e) acc[g][e] += pv * vx[e];
         }
@@ -383,29 +400,32 @@ __device__ __forceinline__ void decode_split(const Args& a) {
   }
   cp_async_wait<0>();
 
-  // merge the warps' softmax states, in the (now idle) staging memory
-  float* sm_m = reinterpret_cast<float*>(smem);  // kWarps * G
-  float* sm_l = sm_m + kWarps * G;               // kWarps * G
-  float* sm_acc = sm_l + kWarps * G;             // kWarps * G * D
+  // merge the token groups' softmax states, in the (now idle) staging
+  // memory: state (w, h) is head h of the warps of token group w
+  constexpr int TW = T::kTokWarps;
+  float* sm_m = reinterpret_cast<float*>(smem);  // TW * G
+  float* sm_l = sm_m + TW * G;                   // TW * G
+  float* sm_acc = sm_l + TW * G;                 // TW * G * D
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GW; ++g) {
+    const int st = tw * G + hg * GW + g;
     if (lane == 0) {
-      sm_m[warp * G + g] = m[g];
-      sm_l[warp * G + g] = l[g];
+      sm_m[st] = m[g];
+      sm_l[st] = l[g];
     }
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = e * 32 + lane;
-      if (d < D) sm_acc[(warp * G + g) * D + d] = acc[g][e];
+      if (d < D) sm_acc[st * D + d] = acc[g][e];
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < G * D; i += kThreads) {
     const int g = i / D;
     float mx = kNegInit;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
+    for (int w = 0; w < TW; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
     float lsum = 0.f, o = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < TW; ++w) {
       const float c = expf(sm_m[w * G + g] - mx);
       lsum += c * sm_l[w * G + g];
       o += c * sm_acc[w * G * D + i];
@@ -498,7 +518,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   // the ring, then the split's table entries
   const size_t ring = static_cast<size_t>(kStages) * stage_bytes(a.D * sizeof(KT))
                       + sizeof(int32_t) * (a.split_len / a.page + 1);
-  const size_t merge_bytes = sizeof(float) * kWarps * G * (a.D + 2);
+  const size_t merge_bytes = sizeof(float) * Tile<G, EPL>::kTokWarps * G * (a.D + 2);
   const size_t smem = ring > merge_bytes ? ring : merge_bytes;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -514,23 +534,42 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Only the shapes a port config or a card test reaches are instantiated:
-// G = 4, D = 128 (llama3-8b) and G = 2, D = 16 (the reduced configs), and
-// their crossings.  Others return cudaErrorInvalidValue until a config
-// that needs them is ported with a card test.
+// Only the shapes a port config or a card test reaches are instantiated
+// (G query heads a kv head, EPL = head dim / 32 rounded up to 1, 2, 4, 8):
+//   G = 1:  EPL 1, 8      (reduced, gemma-7b D = 256)
+//   G = 2:  EPL 1, 2, 4, 8 (reduced, granite D = 64, D = 128, gemma2 D = 256)
+//   G = 4:  EPL 1, 4      (reduced, llama3-8b D = 128)
+//   G = 16: EPL 1, 4      (reduced, chatglm3-6b D = 128)
+// Others return cudaErrorInvalidValue; kernels/paged_attention.py's
+// BUILT_SHAPES mirrors this table.
+__host__ __device__ constexpr bool built(int G, int EPL) {
+  return (G == 1 && (EPL == 1 || EPL == 8)) || G == 2
+         || ((G == 4 || G == 16) && (EPL == 1 || EPL == 4));
+}
+
+template <typename QT, typename KT, int G, int EPL, bool kDense>
+cudaError_t launch_built(const Args& a, int B, cudaStream_t stream) {
+  if constexpr (built(G, EPL)) return launch<QT, KT, G, EPL, kDense>(a, B, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename QT, typename KT, int G, bool kDense>
 cudaError_t dispatch_dim(const Args& a, int B, cudaStream_t stream) {
   if ((a.D * static_cast<int>(sizeof(KT))) % 16 != 0) return cudaErrorInvalidValue;
-  if (a.D <= 32) return launch<QT, KT, G, 1, kDense>(a, B, stream);
-  if (a.D <= 128) return launch<QT, KT, G, 4, kDense>(a, B, stream);
+  if (a.D <= 32) return launch_built<QT, KT, G, 1, kDense>(a, B, stream);
+  if (a.D <= 64) return launch_built<QT, KT, G, 2, kDense>(a, B, stream);
+  if (a.D <= 128) return launch_built<QT, KT, G, 4, kDense>(a, B, stream);
+  if (a.D <= 256) return launch_built<QT, KT, G, 8, kDense>(a, B, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename QT, typename KT, bool kDense>
 cudaError_t dispatch_group(const Args& a, int B, cudaStream_t stream) {
   switch (a.H / a.KV) {
+    case 1: return dispatch_dim<QT, KT, 1, kDense>(a, B, stream);
     case 2: return dispatch_dim<QT, KT, 2, kDense>(a, B, stream);
     case 4: return dispatch_dim<QT, KT, 4, kDense>(a, B, stream);
+    case 16: return dispatch_dim<QT, KT, 16, kDense>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -545,8 +584,7 @@ cudaError_t decode_dispatch(const Args& a, int B, int q_dtype, int kv_dtype,
   if (a.nsplit <= 0 || a.split_len <= 0 || (a.nsplit > 1 && a.partial == nullptr))
     return cudaErrorInvalidValue;
   if (!kDense && a.split_len % a.page != 0) return cudaErrorInvalidValue;
-  const int G = a.H / a.KV;
-  if ((G != 2 && G != 4) || a.D > 128) return cudaErrorInvalidValue;
+  if (a.D > 256) return cudaErrorInvalidValue;
   if ((kv_dtype == kI8) != (a.k_scale != nullptr && a.v_scale != nullptr))
     return cudaErrorInvalidValue;
   if (kDense && kv_dtype == kI8) return cudaErrorInvalidValue;

@@ -33,13 +33,15 @@
 //   issues TMA tensor loads (4-D maps over (B, Sq, H, D) and (B, Sk, KV,
 //   D), made on the host; ragged rows arrive as zeros and never from the
 //   next batch row): an item's q rows, then its 128-key K and V tiles
-//   into a ring of 3 stages that runs on from one item to the next,
+//   into a ring of 3 stages (64-key tiles and 2 stages at D = 256, see
+//   Geo) that runs on from one item to the next,
 //   completion counted in bytes on mbarriers; a K slot is released as soon
 //   as S is computed, a V slot once PV is.  One or two consumer warpgroups
 //   of 64 q rows each (setmaxnreg moves the producer's registers to them)
-//   run S = QK^T as wgmma m64n128k16 with Q and K from shared memory
-//   (128-byte swizzle, 32-byte at D = 16, as the TMA boxes write it) and
-//   O += PV as wgmma m64nDk16 with P from registers (the S accumulator,
+//   run S = QK^T as wgmma m64n128k16 (m64n64k16 at D = 256) with Q and K
+//   from shared memory (128-byte swizzle, 32-byte at D = 16, as the TMA
+//   boxes write it) and O += PV as wgmma m64nDk16 (two m64n128k16 at D =
+//   256) with P from registers (the S accumulator,
 //   packed to bf16, is already the A operand's layout) and V from shared
 //   memory as the transposed B operand.  The two products are software-
 //   pipelined: S of tile j and PV of tile j - 1 are in flight together,
@@ -234,7 +236,6 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int kKeys = 128;           // keys a kv tile: N of S = QK^T, K of O += PV
 constexpr int kWgRows = 64;          // q rows a consumer warpgroup: M of wgmma
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -242,10 +243,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 // cut into chunks of kChunk columns, one TMA box each; a chunk is a
 // (rows x kSw bytes) slab, swizzled over kSw bytes (128, or 32 at D = 16,
 // whose rows are 32 bytes), so 8 rows make one swizzle atom of 8 * kSw
-// bytes.  Slabs start 1024-byte aligned.
+// bytes.  Slabs start 1024-byte aligned.  A kv tile holds kKeys keys (N
+// of S = QK^T, K of O += PV) and the ring kStages of them: 128 keys and 3
+// stages up to D = 128; at D = 256 a 128-key K or V tile is 64 KB and three
+// stages of both would need 384 KB of the 227 KB a block has, so 64 keys
+// and 2 stages (128 KB, beside 32 KB of q rows a consumer warpgroup).
 template <int D>
 struct Geo {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  static_assert(D % 16 == 0 && D <= 256, "head dim");
+  static constexpr int kKeys = D > 128 ? 64 : 128;
+  static constexpr int kStages = D > 128 ? 2 : 3;
   static constexpr int kSw = D >= 64 ? 128 : 32;
   static constexpr int kChunk = kSw / 2;
   static constexpr int kChunks = D / kChunk;
@@ -265,18 +272,21 @@ struct Geo {
   // V, MN-major (D contiguous, keys the K of PV): k-step j covers keys
   // 16j..16j+15, two 8-row atoms; the leading offset steps from one
   // column chunk to the next, the stride offset from one atom to the next.
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j) {
-    return hopper::make_desc(tile + j * 16 * kSw, kKeys * kSw, 8 * kSw, kLayout);
+  // Columns from chunk c0 on (a PV product n128 wide covers two chunks).
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j, int c0 = 0) {
+    return hopper::make_desc(tile + c0 * kKeys * kSw + j * 16 * kSw, kKeys * kSw, 8 * kSw,
+                             kLayout);
   }
 };
 
 // One block an SM: the launch takes every register (168 a thread with two
 // consumer warpgroups, 255 with one), and setmaxnreg moves the producer
 // warpgroup's share to the consumers.  The ring fills what shared memory
-// the q rows leave (3 x 64 KB beside 32 KB at D = 128).
+// the q rows leave (3 x 64 KB beside 32 KB at D = 128; Geo<D>::kStages).
+// At D = 256 the 64 x 256 fp32 O accumulator is 128 registers a thread of
+// the 240.
 template <int NWG>
 struct Pipe {
-  static constexpr int kStages = 3;                          // K/V ring depth
   static constexpr int kThreads = (NWG + 1) * 128;           // + a producer warpgroup
   static constexpr int kConsumerRegs = NWG == 2 ? 240 : 256;
   static constexpr int kProducerRegs = 24;
@@ -286,15 +296,33 @@ template <int D, int NWG>
 constexpr size_t wgmma_smem() {
   using Gm = Geo<D>;
   return 1024 + static_cast<size_t>(NWG) * Gm::kQBytes
-         + 2 * static_cast<size_t>(Pipe<NWG>::kStages) * Gm::kKvBytes
-         + 8 * (2 + 4 * Pipe<NWG>::kStages);
+         + 2 * static_cast<size_t>(Gm::kStages) * Gm::kKvBytes
+         + 8 * (2 + 4 * Gm::kStages);
 }
 
+// O += P V's k-step j over the V tile at `tile`; at D = 256 as two
+// m64n128k16 products, columns 0-127 into o[0..63] and 128-255 into
+// o[64..127] (the accumulator's layout continues across them).
 template <int D>
-__device__ __forceinline__ void pv_mma(float* o, const uint32_t* p, uint64_t desc) {
-  if constexpr (D == 128) hopper::wgmma_rs_n128(o, p, desc);
-  else if constexpr (D == 64) hopper::wgmma_rs_n64(o, p, desc);
-  else hopper::wgmma_rs_n16(o, p, desc);
+__device__ __forceinline__ void pv_mma(float* o, const uint32_t* p, uint32_t tile, int j) {
+  using Gm = Geo<D>;
+  if constexpr (D == 256) {
+    hopper::wgmma_rs_n128(o, p, Gm::mnmajor(tile, j, 0));
+    hopper::wgmma_rs_n128(o + 64, p, Gm::mnmajor(tile, j, 2));
+  } else if constexpr (D == 128) {
+    hopper::wgmma_rs_n128(o, p, Gm::mnmajor(tile, j));
+  } else if constexpr (D == 64) {
+    hopper::wgmma_rs_n64(o, p, Gm::mnmajor(tile, j));
+  } else {
+    hopper::wgmma_rs_n16(o, p, Gm::mnmajor(tile, j));
+  }
+}
+
+// S = Q K^T's k-step kk, n = kKeys
+template <int D>
+__device__ __forceinline__ void qk_mma(float* sc, uint64_t dq, uint64_t dk, int acc) {
+  if constexpr (Geo<D>::kKeys == 64) hopper::wgmma_ss_n64(sc, dq, dk, acc);
+  else hopper::wgmma_ss_n128(sc, dq, dk, acc);
 }
 
 // 2**x (ex2.approx.ftz: about 2 ulp; -1e30 and below give 0)
@@ -318,8 +346,9 @@ struct Item {
 // Work items in descending cost: item i is q tile (nqt - 1 - i / (H * B))
 // of head i % H, batch (i / H) % B, so under the causal mask the heaviest
 // tiles start first and the light ones fill the tail.
-template <int NWG>
+template <int D, int NWG>
 __device__ __forceinline__ Item make_item(const Args& a, int i, int nqt, int B) {
+  constexpr int kKeys = Geo<D>::kKeys;
   Item w;
   const int per = a.H * B;
   const int qt = nqt - 1 - i / per;
@@ -355,7 +384,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, Args a, int B, int nqt) {
   using Gm = Geo<D>;
-  constexpr int ST = Pipe<NWG>::kStages;
+  constexpr int ST = Gm::kStages;
+  constexpr int kKeys = Gm::kKeys;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sk = sq + NWG * Gm::kQBytes;
@@ -394,7 +424,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       int gt = 0;                                   // kv tiles so far, all items
       int n = 0;                                    // items so far
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
-        const Item w = make_item<NWG>(a, i, nqt, B);
+        const Item w = make_item<D, NWG>(a, i, nqt, B);
         if (n > 0) hopper::mbar_wait(q_empty, (n - 1) & 1);
         hopper::mbar_expect_tx(q_full, NWG * Gm::kQBytes);
         for (int r = 0; r < NWG; ++r)
@@ -450,7 +480,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     int gt = 0;
     int n = 0;
     for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
-      const Item w = make_item<NWG>(a, i, nqt, B);
+      const Item w = make_item<D, NWG>(a, i, nqt, B);
       const int r0 = w.row0 + wg * kWgRows + warp * 16 + g, r1 = r0 + 8;
       const int qp0 = w.off + r0, qp1 = w.off + r1;
       const int wq_lo = w.off + w.row0 + wg * kWgRows, wq_hi = wq_lo + kWgRows - 1;
@@ -468,8 +498,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::wgmma_ss_n128(sc, Gm::kmajor(q_tile, kWgRows, kk),
-                                Gm::kmajor(sk + s * Gm::kKvBytes, kKeys, kk), kk > 0);
+          qk_mma<D>(sc, Gm::kmajor(q_tile, kWgRows, kk),
+                    Gm::kmajor(sk + s * Gm::kKvBytes, kKeys, kk), kk > 0);
         hopper::wgmma_commit();
         hopper::fence_regs<kKeys / 2>(sc);
       };
@@ -482,7 +512,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         hopper::wgmma_fence();
 #pragma unroll
         for (int j = 0; j < kKeys / 16; ++j)
-          pv_mma<D>(o, pa[j], Gm::mnmajor(sv + s * Gm::kKvBytes, j));
+          pv_mma<D>(o, pa[j], sv + s * Gm::kKvBytes, j);
         hopper::wgmma_commit();
         hopper::fence_regs<D / 2>(o);
         hopper::fence_regs<kKeys / 4>(&pa[0][0]);
@@ -712,8 +742,8 @@ template <int D, int NWG>
 cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t s) {
   CUtensorMap qm, km, vm;
   if (!make_map<D>(&qm, a.q, a.H, a.Sq, B, kWgRows)
-      || !make_map<D>(&km, a.k, a.KV, a.Sk, B, kKeys)
-      || !make_map<D>(&vm, a.v, a.KV, a.Sk, B, kKeys))
+      || !make_map<D>(&km, a.k, a.KV, a.Sk, B, Geo<D>::kKeys)
+      || !make_map<D>(&vm, a.v, a.KV, a.Sk, B, Geo<D>::kKeys))
     return cudaErrorInvalidValue;
   const int rows = NWG * kWgRows;
   const int nqt = (a.Sq + rows - 1) / rows;
@@ -736,8 +766,9 @@ cudaError_t dispatch_wgmma(const Args& a, int B, cudaStream_t s) {
 }  // namespace
 
 // Only the head dims a port config or a card test reaches are
-// instantiated: D = 128 (llama3-8b) and D = 16 (the reduced configs), and
-// D = 64 for bf16.  Others return cudaErrorInvalidValue.  The bf16 kernel
+// instantiated for bf16: D = 16 (the reduced configs), 64 (granite), 128
+// (llama3-8b, chatglm3-6b) and 256 (gemma2-2b, gemma-7b).  fp32 takes any
+// D up to 256.  Others return cudaErrorInvalidValue.  The bf16 kernel
 // takes 16-byte aligned q, k, v (TMA).
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, const void* kv_len, const void* q_off,
@@ -753,6 +784,7 @@ extern "C" int flash_attention(
       case 16: return dispatch_wgmma<16>(a, B, s);
       case 64: return dispatch_wgmma<64>(a, B, s);
       case 128: return dispatch_wgmma<128>(a, B, s);
+      case 256: return dispatch_wgmma<256>(a, B, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -761,6 +793,7 @@ extern "C" int flash_attention(
     const size_t smem = simt_smem(D);
     if (D <= 32) return launch(flash_fp32_kernel<1>, grid, kSimtWarps * 32, smem, s, a);
     if (D <= 128) return launch(flash_fp32_kernel<4>, grid, kSimtWarps * 32, smem, s, a);
+    if (D <= 256) return launch(flash_fp32_kernel<8>, grid, kSimtWarps * 32, smem, s, a);
     return cudaErrorInvalidValue;
   }
   return cudaErrorInvalidValue;
@@ -774,12 +807,13 @@ extern "C" void flash_attention_shape(int B, int Sq, int H, int D, int* info) {
   const int nwg = tiles2 >= 2L * sm_count() ? 2 : 1;
   info[0] = nwg;
   info[1] = nwg * kWgRows;
-  info[2] = nwg == 2 ? Pipe<2>::kStages : Pipe<1>::kStages;
+  info[2] = D > 128 ? Geo<256>::kStages : Geo<128>::kStages;
   info[3] = nwg == 2 ? Pipe<2>::kThreads : Pipe<1>::kThreads;
   size_t smem = 0;
   switch (D) {
     case 16: smem = nwg == 2 ? wgmma_smem<16, 2>() : wgmma_smem<16, 1>(); break;
     case 64: smem = nwg == 2 ? wgmma_smem<64, 2>() : wgmma_smem<64, 1>(); break;
+    case 256: smem = nwg == 2 ? wgmma_smem<256, 2>() : wgmma_smem<256, 1>(); break;
     default: smem = nwg == 2 ? wgmma_smem<128, 2>() : wgmma_smem<128, 1>(); break;
   }
   info[4] = static_cast<int>(smem);

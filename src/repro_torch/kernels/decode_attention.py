@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import split_plan
+from repro_torch.kernels.paged_attention import check_decode_shape, split_plan
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
 # a dense cache's splits are made of this many tokens (two per stage unit)
@@ -62,9 +62,7 @@ def decode_attention_cuda(
     if bk != b or dk != d or v_cache.shape != k_cache.shape or h % kvh:
         raise ValueError(f"shapes q {tuple(q.shape)} cache "
                          f"{tuple(k_cache.shape)}")
-    if h // kvh not in (2, 4) or d > 128:
-        raise ValueError(f"the kernel takes 2 or 4 query heads per kv head "
-                         f"and head_dim <= 128, got {h}/{kvh} x {d}")
+    check_decode_shape(h, kvh, d)
     if kv_len.shape != (b,):
         raise ValueError("kv_len must be (B,)")
     if q.dtype not in _DTYPE_CODE:

@@ -16,7 +16,8 @@ head, batch, q tile) loops over the kv tiles its causal and window reach
 can touch, with the softmax state in registers.  bf16 is a persistent,
 warp-specialised kernel (one block an SM over the q tiles, heaviest causal
 tiles first): a producer thread issues TMA loads of the q rows and of
-128-key K and V tiles into a ring of 3 stages (mbarrier completion),
+128-key K and V tiles into a ring of 3 stages (64 keys and 2 stages at
+head dim 256, whose tiles are twice as wide; mbarrier completion),
 and one or two consumer warpgroups of 64 q rows run S = QK^T and O += PV
 as ``wgmma`` (P from registers), the softmax of one tile under the PV of
 the one before and under the other warpgroup's products.  fp32 runs on the CUDA cores in the JAX order of
@@ -33,7 +34,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = {torch.float32: (16, 128), torch.bfloat16: (16, 64, 128)}
+# head dims each path is built for (csrc/flash_attention.cu); the fp32
+# path takes any multiple of 16 up to 256
+_HEAD_DIMS = {torch.float32: tuple(range(16, 257, 16)),
+              torch.bfloat16: (16, 64, 128, 256)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float

@@ -38,6 +38,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# (query heads a kv head) -> the head-dim buckets the decode kernels are
+# built for (csrc/decode_tiles.cuh, ``built``): a head dim takes the
+# smallest bucket that holds it
+BUILT_SHAPES = {1: (32, 256), 2: (32, 64, 128, 256), 4: (32, 128),
+                16: (32, 128)}
+_DIM_BUCKETS = (32, 64, 128, 256)
+
+
+def check_decode_shape(h: int, kvh: int, d: int) -> None:
+    """Raise unless the decode kernels are built for ``h / kvh`` query
+    heads a kv head at head dim ``d``."""
+    g = h // kvh
+    bucket = next((b for b in _DIM_BUCKETS if d <= b), None)
+    if h % kvh or bucket not in BUILT_SHAPES.get(g, ()):
+        raise ValueError(
+            f"the decode kernels are not built for {h}/{kvh} heads x {d} "
+            f"(built: query heads a kv head -> head-dim buckets "
+            f"{BUILT_SHAPES})")
+
+
 # split-K grid: aim at this many blocks for every SM (a bf16 block stages
 # 53 KB, so four fit an SM), and give no split fewer than this many tokens
 BLOCKS_PER_SM = 4
@@ -131,9 +151,7 @@ def paged_decode_attention_cuda(
         raise ValueError("paged_decode_attention_cuda takes CUDA tensors")
     if dk != d or v_pool.shape != k_pool.shape or h % kvh:
         raise ValueError(f"shapes q {tuple(q.shape)} pool {tuple(k_pool.shape)}")
-    if h // kvh not in (2, 4) or d > 128:
-        raise ValueError(f"the kernel takes 2 or 4 query heads per kv head "
-                         f"and head_dim <= 128, got {h}/{kvh} x {d}")
+    check_decode_shape(h, kvh, d)
     if block_tab.shape[0] != b or kv_len.shape != (b,):
         raise ValueError("block_tab / kv_len rows must match the batch")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -175,5 +193,6 @@ def paged_decode_attention_cuda(
 
 paged_decode_attention_cuda.launches = 0
 
-__all__ = ["decode_splits", "paged_decode_attention_cuda",
+__all__ = ["BUILT_SHAPES", "check_decode_shape", "decode_splits",
+           "paged_decode_attention_cuda",
            "paged_decode_attention_plain"]

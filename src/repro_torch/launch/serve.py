@@ -18,7 +18,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.core.scheduler import BacklogScheduler
 from repro_torch.models.model import Model
 from repro_torch.retrieval.embedding import HashEmbedder
@@ -39,7 +39,9 @@ def build_corpus(n: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=sorted(ASSIGNED_ARCHS),
+                    help="the model family (run at its reduced size)")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--rate", type=float, default=120.0,
                     help="requests per minute")

@@ -40,21 +40,28 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
                    device) -> dict:
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv bias: not in the llama family")
-    return {
+    p = {
         "wq": layers.dense_init(gen, (d, h, hd), dtype, device, fan_in=d),
         "wk": layers.dense_init(gen, (d, kv, hd), dtype, device, fan_in=d),
         "wv": layers.dense_init(gen, (d, kv, hd), dtype, device, fan_in=d),
         "wo": layers.dense_init(gen, (h, hd, d), dtype, device,
                                 fan_in=h * hd),
     }
+    if cfg.qkv_bias:                 # chatglm3; zeros, as the reference
+        p["bq"] = torch.zeros((h, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=device)
+    return p
 
 
 def _project_qkv(p: dict, x: torch.Tensor):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
     return q, k, v
 
 

@@ -1,4 +1,4 @@
-"""Shared building blocks: init, norms, RoPE, SwiGLU MLP, softcap."""
+"""Shared building blocks: init, norms, RoPE, MLPs, softcap."""
 from __future__ import annotations
 
 import math
@@ -73,24 +73,47 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLPs: SwiGLU, GeGLU (gated, tanh-approximate GELU) and plain GELU
 # ---------------------------------------------------------------------------
+
+MLP_KINDS = ("swiglu", "geglu", "gelu")
+
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
              dtype, device) -> dict:
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {kind!r}: the port serves the "
-                                  "dense llama family (swiglu) so far")
+    if kind not in MLP_KINDS:
+        raise ValueError(f"mlp kind {kind!r}")
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, device,
+                                 fan_in=d_ff),
+        }
     return {
-        "w_gate": dense_init(gen, (d_model, d_ff), dtype, device),
         "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
         "w_down": dense_init(gen, (d_ff, d_model), dtype, device,
                              fan_in=d_ff),
     }
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {kind!r}")
-    g = F.silu(x @ params["w_gate"])
-    return (g * (x @ params["w_up"])) @ params["w_down"]
+    if kind == "swiglu":
+        g = F.silu(x @ params["w_gate"])
+        return (g * (x @ params["w_up"])) @ params["w_down"]
+    if kind == "geglu":
+        g = gelu(x @ params["w_gate"])
+        return (g * (x @ params["w_up"])) @ params["w_down"]
+    if kind == "gelu":
+        return gelu(x @ params["w_up"]) @ params["w_down"]
+    raise ValueError(f"mlp kind {kind!r}")
+
+
+def mlp_flops(d_model: int, d_ff: int, kind: str, tokens: int) -> int:
+    n_mat = 3 if kind in ("swiglu", "geglu") else 2
+    return 2 * n_mat * d_model * d_ff * tokens

@@ -36,10 +36,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 class Model:
-    """Dense transformer entry point; parameters live outside, as in JAX.
+    """Transformer entry point of the attention families (dense llama,
+    gemma2's local/global layers, gemma's MHA, chatglm3's QKV bias and half
+    RoPE, granite's MoE FFN); parameters live outside, as in JAX.
 
     ``device`` defaults to CUDA and raises when it is absent; ``init``
-    draws random weights from a seeded ``torch.Generator`` on it.
+    draws random weights from a seeded ``torch.Generator`` on it (a MoE
+    router in fp32 whatever ``dtype``).
     """
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):

@@ -1,0 +1,219 @@
+"""Mixture-of-experts FFN: sort-based dispatch and a grouped GEMM.
+
+The port of ``repro.models.moe`` without a mesh (``ctx=None``): route
+each token to its top-k experts, sort the ``T * K`` (token, expert) rows
+by expert (a stable sort, as ``jnp.argsort``), run each expert's FFN on
+its rows, and add the weighted rows back to their tokens.  Two grouped
+GEMMs, as in the reference:
+
+* exact (``_grouped_ffn``, below ``CAPACITY_THRESHOLD`` rows): every row
+  goes through its expert.  ``lax.ragged_dot`` becomes one batched product
+  over a zero-padded ``(E, T * K, D)`` buffer, so no group size is read
+  back to the host: a decode step issues the same few launches whatever
+  the routing;
+* capacity (``_grouped_ffn_capacity``, at or above it): each expert takes
+  a window of ``cap`` rows from its group's start, clamped to ``tk - cap``
+  and masked to its own group, so rows past an expert's capacity are
+  dropped, exactly the rows the reference drops.
+
+The products are plain matrix products outside any Pallas kernel in the
+reference, and stay ``torch.bmm`` here.  Expert parallelism
+(``moe_forward_ep``) and the tensor-parallel ``shard_map`` need a mesh and
+wait for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models import layers
+
+# rows (tokens x top-k) at or above this switch to the capacity path
+CAPACITY_THRESHOLD = 8192
+CAPACITY_FACTOR = 1.25
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    """Router in fp32 whatever ``dtype``, as the reference creates it."""
+    m = cfg.moe
+    d = cfg.d_model
+    e, f = m.num_experts, m.d_ff_expert
+    p = {
+        "router": layers.dense_init(gen, (d, e), torch.float32, device),
+        "w_gate": layers.dense_init(gen, (e, d, f), dtype, device, fan_in=d),
+        "w_up": layers.dense_init(gen, (e, d, f), dtype, device, fan_in=d),
+        "w_down": layers.dense_init(gen, (e, f, d), dtype, device, fan_in=f),
+    }
+    if m.num_shared_experts:
+        f_sh = (m.d_ff_shared or f) * m.num_shared_experts
+        p["shared"] = layers.init_mlp(gen, d, f_sh, cfg.mlp_kind, dtype,
+                                      device)
+    return p
+
+
+def _route(p: dict, x2: torch.Tensor, m: MoEConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x2 (T, D) -> weights (T, K), ids (T, K), probs (T, E), fp32.
+
+    ``jax.lax.top_k`` returns the lower index first among equal values: a
+    stable descending sort does the same."""
+    logits = x2.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :m.top_k], ids[:, :m.top_k]
+    w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+    return w, ids, probs
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each of ``n`` ids (``bincount`` without its read
+    of the largest id back to the host)."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
+def _act(g: torch.Tensor, mlp_kind: str) -> torch.Tensor:
+    return F.silu(g) if mlp_kind == "swiglu" else layers.gelu(g)
+
+
+def _group_index(gs: torch.Tensor, tk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-sorted rows' expert and position in their group."""
+    e = gs.shape[0]
+    expert = torch.repeat_interleave(
+        torch.arange(e, device=gs.device), gs, output_size=tk)
+    starts = torch.cumsum(gs, 0) - gs
+    return expert, torch.arange(tk, device=gs.device) - starts[expert]
+
+
+def _grouped_ffn(p: dict, xs: torch.Tensor, gs: torch.Tensor,
+                 mlp_kind: str) -> torch.Tensor:
+    """(T*K, D) rows sorted by expert, group sizes (E,) -> (T*K, D) fp32.
+
+    Exact: every row meets its expert's weights; the activation in fp32,
+    the hidden rows rounded to ``xs``'s type, as the reference.  One
+    rounding differs under bf16: the products come out of ``bmm`` in bf16,
+    where ``ragged_dot(..., preferred_element_type=f32)`` keeps them fp32
+    (fp32 products are the same)."""
+    tk, d = xs.shape
+    e = gs.shape[0]
+    expert, at = _group_index(gs, tk)
+    buf = xs.new_zeros((e, tk, d))
+    buf[expert, at] = xs
+    g = torch.bmm(buf, p["w_gate"]).float()
+    u = torch.bmm(buf, p["w_up"]).float()
+    h = (_act(g, mlp_kind) * u).to(xs.dtype)
+    y = torch.bmm(h, p["w_down"])
+    return y[expert, at].float()
+
+
+def capacity(tk: int, num_experts: int,
+             capacity_factor: float = CAPACITY_FACTOR) -> int:
+    """Rows an expert takes on the capacity path."""
+    cap = -(-int(capacity_factor * tk) // num_experts)
+    return min(max(8, -(-cap // 8) * 8), tk)
+
+
+def _capacity_windows(gs: torch.Tensor, tk: int, cap: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each expert's window of rows (E, cap) and which of them are its own."""
+    starts = torch.cumsum(gs, 0) - gs
+    clamped = torch.clamp(starts, max=tk - cap)
+    idx = clamped[:, None] + torch.arange(cap, device=gs.device)
+    valid = (idx >= starts[:, None]) & (idx < (starts + gs)[:, None])
+    return idx, valid
+
+
+def capacity_drops(gs: torch.Tensor, tk: int,
+                   capacity_factor: float = CAPACITY_FACTOR) -> torch.Tensor:
+    """Rows the capacity path drops, from the group sizes (a 0-d tensor)."""
+    _, valid = _capacity_windows(gs, tk, capacity(tk, gs.shape[0],
+                                                  capacity_factor))
+    return gs.sum() - valid.sum()
+
+
+def _grouped_ffn_capacity(p: dict, xs: torch.Tensor, gs: torch.Tensor,
+                          mlp_kind: str,
+                          capacity_factor: float = CAPACITY_FACTOR
+                          ) -> torch.Tensor:
+    """Fixed-capacity grouped GEMM: every expert runs its (cap, D) window
+    of the sorted rows (all experts in one batched product, where the
+    reference scans them); rows outside an expert's window are dropped
+    and come back as zeros.  Products in ``xs``'s type, as the
+    reference's ``blk @ w``; the activation in fp32."""
+    tk, d = xs.shape
+    cap = capacity(tk, gs.shape[0], capacity_factor)
+    idx, valid = _capacity_windows(gs, tk, cap)
+    blk = xs[idx]                                    # (E, cap, D)
+    g = torch.bmm(blk, p["w_gate"])
+    u = torch.bmm(blk, p["w_up"])
+    h = (_act(g.float(), mlp_kind) * u.float()).to(xs.dtype)
+    out = torch.bmm(h, p["w_down"]).float()
+    out = torch.where(valid[..., None], out, torch.zeros_like(out))
+    # each row is valid in one window at most: the adds meet zeros only
+    y = torch.zeros((tk, d), dtype=torch.float32, device=xs.device)
+    return y.index_add_(0, idx.reshape(-1), out.reshape(-1, d))
+
+
+def grouped_ffn(p: dict, xs: torch.Tensor, gs: torch.Tensor, mlp_kind: str,
+                impl: str = "auto") -> torch.Tensor:
+    if impl == "ragged" or (impl == "auto"
+                            and xs.shape[0] < CAPACITY_THRESHOLD):
+        return _grouped_ffn(p, xs, gs, mlp_kind)
+    if impl not in ("auto", "capacity"):
+        raise ValueError(f"unknown grouped GEMM {impl!r}")
+    return _grouped_ffn_capacity(p, xs, gs, mlp_kind)
+
+
+def _moe_local(p: dict, x2: torch.Tensor, cfg: ModelConfig,
+               gemm_impl: str = "auto"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dropless (below the threshold) MoE of (T, D) tokens: returns
+    (out (T, D) fp32, load (E,), importance (E,)).
+
+    The reference adds the weighted rows back with a scatter-add in sorted
+    order, so each token sums its experts' rows in ascending expert id;
+    the same order here, as K adds, gives the same bits on either device
+    (no atomics)."""
+    m = cfg.moe
+    t, d = x2.shape
+    w, ids, probs = _route(p, x2, m)
+    flat_ids = ids.reshape(-1)
+    order = torch.argsort(flat_ids, stable=True)
+    tok = order // m.top_k
+    xs = x2[tok]
+    gs = _counts(flat_ids, m.num_experts)
+    y = grouped_ffn(p, xs, gs, cfg.mlp_kind, gemm_impl)
+    wsort = w.reshape(-1)[order].float()
+    rows = torch.empty_like(y)
+    rows[order] = y * wsort[:, None]                 # back to (t, k) order
+    rows = rows.reshape(t, m.top_k, d)
+    by_id = torch.argsort(ids, dim=-1)               # ids differ in a row
+    out = torch.zeros((t, d), dtype=torch.float32, device=x2.device)
+    for k in range(m.top_k):
+        out = out + torch.gather(
+            rows, 1, by_id[:, k, None, None].expand(t, 1, d))[:, 0]
+    if "shared" in p:
+        out = out + layers.apply_mlp(p["shared"], x2, cfg.mlp_kind).float()
+    load = gs.float()
+    importance = probs.sum(dim=0)
+    return out, load, importance
+
+
+def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                ctx: Optional[object] = None, gemm_impl: str = "auto"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (out (B, S, D) in x's type, aux_loss scalar)."""
+    if ctx is not None:
+        raise NotImplementedError("MoE over a mesh (tensor or expert "
+                                  "parallel) waits for the training slice")
+    b, s, d = x.shape
+    m = cfg.moe
+    out, load, imp = _moe_local(p, x.reshape(-1, d), cfg, gemm_impl)
+    t = b * s
+    aux = m.num_experts * torch.sum(
+        (load / (t * m.top_k)) * (imp / t)) * m.aux_loss_coef
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -1,4 +1,11 @@
-"""Dense transformer on a dense or a paged KV cache (family ``dense``).
+"""Transformer of the attention families on a dense or a paged KV cache.
+
+The layers the paged pool serves: ``attn`` (global) and ``local``
+(sliding-window) mixers, each with a ``dense`` MLP (SwiGLU, GeGLU or
+GELU) or a ``moe`` FFN; QKV bias, partial RoPE, attention and final
+logit softcaps, scaled and tied embeddings as the config says.  MLA,
+Mamba, encoder-decoder stacks and ``first_k_dense`` prefixes are refused
+(``_check_family``).
 
 Parameters are a plain dict of tensors in the JAX package's layouts, with
 ``blocks`` a list of per-layer dicts (JAX stacked them on a leading
@@ -18,28 +25,43 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import LayerKind, ModelConfig
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 Params = Dict[str, Any]
 
 
+MIXERS = ("attn", "local")
+FFNS = ("dense", "moe")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    kinds = {k for k, _ in cfg.layer_kinds()} | {f for _, f in cfg.layer_kinds()}
-    if (cfg.family != "dense" or cfg.encdec or cfg.first_k_dense
-            or kinds - {"attn", "local", "dense"}):
+    """What the paged pool takes: attention mixers with dense or MoE FFNs."""
+    mixers = {k for k, _ in cfg.layer_kinds()}
+    ffns = {f for _, f in cfg.layer_kinds()}
+    if (cfg.encdec or cfg.first_k_dense or cfg.frontend != "token"
+            or mixers - set(MIXERS) or ffns - set(FFNS)
+            or ("moe" in ffns and cfg.moe is None)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense attention family so far")
+            f"{cfg.name}: the port serves attn/local mixers with dense or "
+            f"moe FFNs and a token frontend (got mixers {sorted(mixers)}, "
+            f"ffns {sorted(ffns)}, encdec={cfg.encdec}, "
+            f"first_k_dense={cfg.first_k_dense}, frontend={cfg.frontend!r})")
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype,
-               device) -> Params:
+def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind,
+               dtype, device) -> Params:
     d = cfg.d_model
-    return {
+    p: Params = {
         "norm1": torch.ones((d,), dtype=dtype, device=device),
         "attn": attention.init_attention(gen, cfg, dtype, device),
         "norm2": torch.ones((d,), dtype=dtype, device=device),
-        "ffn": layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype, device),
     }
+    if kind[1] == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, dtype, device)
+    else:
+        p["ffn"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                   device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
@@ -48,14 +70,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     p: Params = {
         "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
                                    device),
-        "blocks": [init_layer(gen, cfg, dtype, device)
-                   for _ in range(cfg.num_layers)],
+        "blocks": [init_layer(gen, cfg, kind, dtype, device)
+                   for kind in cfg.layer_kinds()],
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                          dtype, device)
     return p
+
+
+def ffn_forward(p: Params, h: torch.Tensor, cfg: ModelConfig,
+                ffn: str) -> torch.Tensor:
+    """The layer's FFN on its normed input; the MoE's aux loss is a
+    training signal and is dropped here, as the reference's serving
+    passes drop it."""
+    if ffn == "moe":
+        return moe.moe_forward(p["moe"], h, cfg)[0]
+    return layers.apply_mlp(p["ffn"], h, cfg.mlp_kind)
 
 
 def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
@@ -67,7 +99,7 @@ def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
     output ``delta`` still to add (None before the first layer).  Each
     residual add rides in the norm after it (``add_rms_norm``), so the
     layer returns its stream and its own MLP output, pending."""
-    mixer, _ = kind
+    mixer, ffn = kind
     if delta is None:
         h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     else:
@@ -76,7 +108,7 @@ def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
         p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
         block_tab=block_tab, kv_span=kv_span)
     x, h2 = layers.add_rms_norm(x, a, p["norm2"], cfg.norm_eps)
-    return x, layers.apply_mlp(p["ffn"], h2, cfg.mlp_kind)
+    return x, ffn_forward(p, h2, cfg, ffn)
 
 
 def _run_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,

@@ -365,6 +365,109 @@ def test_flash_attention_prefix_suffix_on_card(cuda_device, dtype, sq,
         float(err.max())
 
 
+# ------------------------------------------ the attention families' shapes
+# (query heads, kv heads, head dim): gemma2-2b, gemma-7b, chatglm3-6b and
+# granite-moe-1b-a400m
+FAMILY_SHAPES = [(8, 4, 256), (16, 16, 256), (32, 2, 128), (16, 8, 64)]
+FAMILY_IDS = ["gemma2", "gemma7b", "chatglm3", "granite"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh,d", FAMILY_SHAPES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32,
+                                      torch.int8])
+@pytest.mark.parametrize("window,softcap", [(None, None), (100, 50.0)])
+def test_paged_decode_family_shapes_on_card(cuda_device, h, kvh, d,
+                                            kv_dtype, window, softcap):
+    """Pages of 16 over 40 pages a slot, in splits: G = 1, 2 and 16 query
+    heads a kv head at head dims 64, 128 and 256, bf16, fp32 and int8
+    pages, with and without window and softcap; a dead slot on page 0."""
+    lengths = [1, 17, 300, 640, -1]
+    args, kw = _wide_paged_case(cuda_device, kv_dtype, lengths, nmax=40,
+                                h=h, kvh=kvh, d=d)
+    kw.update(window=window, softcap=softcap)
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(*args, **kw)
+    again = ops.paged_decode_attention(*args, **kw)
+    want = ops.paged_decode_attention(*args, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 2
+    assert torch.equal(got, again)
+    _check_decode(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh,d", FAMILY_SHAPES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (300, 50.0)])
+def test_dense_decode_family_shapes_on_card(cuda_device, h, kvh, d, dtype,
+                                            window, softcap):
+    """S = 700 in splits, kv_len 1, 17, 450, 700; the family shapes."""
+    rng = np.random.default_rng(29)
+    b, s = 4, 700
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32)).to(cuda_device,
+                                                              dtype)
+    k, v = (_t(rng.normal(size=(b, s, kvh, d)).astype(np.float32))
+            .to(cuda_device, dtype) for _ in range(2))
+    kv_len = _t(np.array([1, 17, 450, 700], np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=softcap)
+    got = ops.decode_attention(q, k, v, kv_len, **kw)
+    want = ops.decode_attention(q, k, v, kv_len, impl="ref", **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.decode_attention(q.float(), k.float(), v.float().abs(),
+                                 kv_len, impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh,d", FAMILY_SHAPES, ids=FAMILY_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,per_row,window,softcap", [
+    (2, 300, False, None, None), (2, 300, False, 70, 50.0),
+    (3, 70, True, None, None), (3, 70, True, 40, 50.0),
+    (8, 600, False, 150, 50.0)])
+def test_flash_attention_family_shapes_on_card(cuda_device, h, kvh, d, dtype,
+                                               b, sq, per_row, window,
+                                               softcap):
+    """The family shapes, bf16 (one and two consumer warpgroups: b = 8
+    and Sq = 600 takes two at every shape) and fp32 (the int8 chunked prefill's path),
+    scalar and per-row q_offset, ragged Sq and Sk = Sq + 33 against the
+    64-key tiles of head dim 256 and the 128-key tiles below it; windows
+    skip whole kv tiles."""
+    rng = np.random.default_rng(31)
+    sk = sq + 33
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d)))
+    if per_row:
+        off = rng.integers(0, 34, size=b).astype(np.int32)
+        kw = dict(q_offset=_t(off).to(cuda_device),
+                  kv_len=_t(off + sq).to(cuda_device))
+    else:
+        lens = np.linspace(sk, sq, b).astype(np.int32)
+        kw = dict(q_offset=0, kv_len=_t(lens).to(cuda_device))
+    kw.update(causal=True, window=window, softcap=softcap)
+    if dtype == torch.bfloat16 and b == 8:
+        from repro_torch.kernels.flash_attention import launch_shape
+        assert launch_shape(b, sq, h, d)["consumers"] == 2
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
 # ------------------------------------------------------ streaming top-k
 TOPK_SCORE_TOL = 1e-4       # fp32 dot products of unit vectors
 TIE_GAP = 1e-5              # ids must match where neighbours differ by more
