@@ -50,6 +50,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               paged path with the weights cast to fp32 (its whole-batch
               prefill takes the capacity path, which drops rows; the
               drops of one prefill are printed).
+5e. serve-deepseek -- deepseek-v2-lite-16b at full width and depth (27
+              layers: MLA, a dense first layer, 26 MoE layers of 64
+              experts top 6 and 2 shared): 8 requests of 16 tokens at ctx
+              1024 on the whole-batch path (the capacity path's drops
+              printed) and the dense continuous path (no paged path: it
+              must raise), the latter held to the whole-batch
+              ``Generator`` run a request at a time (the exact grouped
+              GEMM, as a join) but at near ties witnessed in fp32 cast a
+              layer at a time; one profiled decode step; one 1024-token
+              join and one layer's exact grouped GEMM timed; then streamed
+              at 9 layers (the prefix and 8 MoE layers): 2 requests x 4
+              tokens equal to the resident run's, flash and RMSNorm
+              launched in the streamed run itself (its counts alone), a
+              decode pass against its copy bound.  The family-kernel phase
+              holds the flash kernel at its q/k 192, v 128 (bf16 and fp32),
+              RMSNorm at 512 and 2048, and the exact MoE path's bf16
+              products to fp32 at granite's and deepseek's expert shapes;
+              the model phase holds deepseek at depth 2 and mamba2 at
+              depth 1, card fp32 against CPU fp32.
+5f. serve-mamba2 -- mamba2-370m at full width and depth (48 SSD layers):
+              the same two paths, held to each other at near ties, a
+              profiled step, the paged refusal, streamed at full depth
+              (RMSNorm launched in the streamed run).
 6. serve   -- llama3-8b at full width (bf16, seeded random weights) behind a
               threaded ``RagdollEngine`` with a paged, chunk-prefilled
               ``ContinuousGenerator``: 16 RAG requests, each checked for 32
@@ -251,7 +274,27 @@ GEMMA2_WINDOW, GEMMA2_SOFTCAP = 4096, 50.0
 LONG_CTX, LONG_REQ = 6144, 4
 FAMILY_REQ, FAMILY_NEW = 8, 16
 FAMILY_LOGIT_TOL = 1e-3
+# the exact MoE path's bf16 x bf16 -> fp32 products against the same
+# products of fp32 copies, over the largest |value|: fp32 rounding (a
+# product rounded to bf16 is about 2e-3 off)
+MOE_PRODUCT_TOL = 1e-5
 BF16_MODEL_REL = 0.1
+# the dense-cache families: deepseek-v2-lite's MLA over a dense
+# first layer and 26 MoE layers (64 experts top 6, 2 shared), mamba2-370m's
+# 48 SSD layers; neither has a paged path.  Card fp32 against CPU fp32 at
+# full width and a cut depth; serving at full depth; streamed at 9 layers
+# (deepseek: the prefix and 8 MoE layers) and 48 (mamba2), 2 requests x 4
+# tokens each
+DEEPSEEK, MAMBA2 = "deepseek-v2-lite-16b", "mamba2-370m"
+DENSE_MODEL_DEPTH = {DEEPSEEK: 2, MAMBA2: 1}
+DEEPSEEK_STREAMED_DEPTH = 9
+STREAMED_REQ, STREAMED_NEW = 2, 4
+DEEPSEEK_KERNELS = ("rmsnorm", "flash_attention", "retrieval_topk",
+                    "retrieval_topk_merge")
+MAMBA2_KERNELS = ("rmsnorm", "retrieval_topk", "retrieval_topk_merge")
+# the streamed generators (no retrieval)
+DEEPSEEK_STREAMED_KERNELS = ("rmsnorm", "flash_attention")
+MAMBA2_STREAMED_KERNELS = ("rmsnorm",)
 # the recluster check's store, apart from the shared one
 RECLUSTER_N, RECLUSTER_PARTS, RECLUSTER_SPILLED, RECLUSTER_HOT = (
     100_000, 16, 4, 2)
@@ -276,7 +319,8 @@ def _kernel_records(prof, torch):
 class Timer:
     """Device time of one call: the profiler's (CUPTI) records of the
     kernels the call launched, summed, averaged over ``iters`` calls; a
-    trace short of any call's records is taken again.
+    trace short of any call's records is taken again, and after three
+    short traces the call is timed by CUDA events (logged).
     ``cold`` overwrites the 50 MB L2 (a 256 MiB device-to-device copy,
     left out of the sum) before each call, for inputs the main path finds
     cold: the KV pages of a layer and a freshly copied partition."""
@@ -324,12 +368,34 @@ class Timer:
             if len(recs) >= per_call * self.iters:
                 break
         else:
-            fail(f"the profiler recorded {len(recs)} device records for "
-                 f"{self.iters} calls of {per_call}")
+            log(f"[timer] the profiler kept {len(recs)} of "
+                f"{per_call * self.iters} device records in three traces: "
+                "this call is timed by CUDA events instead")
+            return self._events_ms(fn, cold)
         us = sum(d for _, _, d in recs)
         if us <= 0:
             fail("the profiler recorded no device time")
         return us / self.iters / 1e3
+
+    def _events_ms(self, fn, cold: bool) -> float:
+        """Device ms a call by CUDA events: around the ``iters`` calls
+        back to back, or around each call after its L2 flush when
+        ``cold``.  The gaps between kernels count too, so this never
+        reads below the profiler's sum."""
+        torch = self.torch
+        if not cold:
+            return _events_ms(torch, fn, self.iters)
+        ms = 0.0
+        for _ in range(self.iters):
+            self.dst.copy_(self.src)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms += start.elapsed_time(end)
+        return ms / self.iters
 
 
 def host_us(torch, fn, calls: int = 1000, rounds: int = 5) -> float:
@@ -460,7 +526,7 @@ def phase_device(torch):
 
 
 # the redesigned kernels' variants on the main paths (demangled names)
-REDESIGNED = ("flash_wgmma_kernel<128,",
+REDESIGNED = ("flash_wgmma_kernel<128,", "flash_wgmma_kernel<192,",
               "merge_kernel",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
               "decode_combine_kernel<__nv_bfloat16>",
@@ -516,8 +582,12 @@ def phase_build(torch):
         for kern, regs, spill in ptxas_entries(text):
             if any(k in kern for k in REDESIGNED):
                 log(f"[build] {kern[:150]}: {regs}; {spill}")
-    for case, b, sq in (("one-shot", SLOTS, CTX), ("chunk", 1, CHUNK)):
-        shp = fa.launch_shape(b, sq, HEADS, HEAD_DIM)
+    for case, b, sq, h, d, dv in (
+            ("one-shot", SLOTS, CTX, HEADS, HEAD_DIM, HEAD_DIM),
+            ("chunk", 1, CHUNK, HEADS, HEAD_DIM, HEAD_DIM),
+            ("deepseek one-shot, 16 heads, q/k 192, v 128", SLOTS, CTX, 16,
+             192, 128)):
+        shp = fa.launch_shape(b, sq, h, d, dv)
         log(f"[build] flash_wgmma_kernel {case} ({b} x {sq}): "
             f"{shp['blocks']} persistent blocks x {shp['threads']} threads "
             f"over {shp['items']} q tiles of {shp['rows']} rows, "
@@ -627,11 +697,12 @@ def _paged_bytes_ops(torch, q, k, tab, kv_len, window, scales):
     return nbytes, ops
 
 
-def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window):
-    """Bytes of q, k, v and o, each moved once, and 4 * D flops per
-    unmasked (query, key) pair and head (causal)."""
+def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window, dv=None):
+    """Bytes of q, k, v and o, each moved once, and 2 * (D + DV) flops per
+    unmasked (query, key) pair and head (causal); ``dv`` defaults to D."""
     b, sq, h, d = q.shape
-    sk = k.shape[1]
+    sk, kvh = k.shape[1], k.shape[2]
+    dv = d if dv is None else dv
     offs = (q_offset.long().cpu() if torch.is_tensor(q_offset)
             else torch.full((b,), q_offset, dtype=torch.long))
     lens = (kv_len.long().cpu() if kv_len is not None
@@ -640,8 +711,9 @@ def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window):
     hi = torch.minimum(lens[:, None], q_pos + 1)
     lo = (q_pos - window + 1).clamp(min=0) if window else torch.zeros_like(hi)
     pairs = int((hi - lo).clamp(min=0).sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + 8 * b
-    return nbytes, 4 * pairs * h * d
+    nbytes = ((b * sq * h + b * sk * kvh) * (d + dv) * q.element_size()
+              + 8 * b)
+    return nbytes, 2 * pairs * h * (d + dv)
 
 
 def _decode_bytes_ops(torch, q, k, kv_len, window):
@@ -1053,12 +1125,12 @@ def phase_kernels(torch, timer, store, queries):
     return rows
 
 
-def _to_dev(t):
+def _to_dev(t, dev="cuda"):
     if isinstance(t, dict):
-        return {k: _to_dev(v) for k, v in t.items()}
+        return {k: _to_dev(v, dev) for k, v in t.items()}
     if isinstance(t, list):
-        return [_to_dev(v) for v in t]
-    return t.cuda()
+        return [_to_dev(v, dev) for v in t]
+    return t.to(dev)
 
 
 def _model_logits(torch, cfg, model, params, dev, prompts, *, ctx, chunk,
@@ -1102,17 +1174,36 @@ def _model_logits(torch, cfg, model, params, dev, prompts, *, ctx, chunk,
             cur = next_tok("paged", out[-1], s + 1)
     paged = torch.stack(out).float().cpu()
     del cache
-    # one-shot prefill into a dense cache, then dense decode
-    cache = init_cache(cfg, 2, ctx + steps, dtype, dev)
+    dense, fed["dense"] = _dense_logits(
+        torch, cfg, model, params, dev, prompts, ctx=ctx, steps=steps,
+        dtype=dtype, force=None if force is None else force["dense"])
+    return paged, dense, {k: torch.stack(v) for k, v in fed.items()}
+
+
+def _dense_logits(torch, cfg, model, params, dev, prompts, *, ctx, steps,
+                  dtype=None, force=None):
+    """Logits of one-shot prefill into a dense cache, then ``steps - 1``
+    dense decode steps, each fed the rows' greedy tokens or ``force``
+    ((steps - 1, 2) tokens).  Returns the logits on the CPU and the list
+    of tokens fed."""
+    from repro_torch.models.model import init_cache
+    cache = init_cache(cfg, 2, ctx + steps, dtype or torch.float32, dev)
     out = [model.prefill(params, prompts.to(dev), cache)]
-    cur = next_tok("dense", out[-1], 0)
+    fed = []
+
+    def next_tok(logits, s):
+        cur = (logits.argmax(-1).to(torch.int32) if force is None
+               else force[s].to(dev))
+        fed.append(cur.cpu())
+        return cur
+
+    cur = next_tok(out[-1], 0)
     for s in range(steps - 1):
         pos = torch.full((2,), ctx + s, dtype=torch.int32, device=dev)
         out.append(model.decode(params, cur[:, None], cache, pos))
         if s + 2 < steps:
-            cur = next_tok("dense", out[-1], s + 1)
-    dense = torch.stack(out).float().cpu()
-    return paged, dense, {k: torch.stack(v) for k, v in fed.items()}
+            cur = next_tok(out[-1], s + 1)
+    return torch.stack(out).float().cpu(), fed
 
 
 def phase_model(torch):
@@ -1183,6 +1274,51 @@ def _free(torch):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def _moe_product_errors(torch, cfg, tokens, gen):
+    """The exact MoE path's three products at ``cfg``'s expert shapes for
+    ``tokens`` tokens (the upper half of the experts get no row): each on
+    bf16 operands through ``moe._mm_f32`` and on their fp32 copies.
+    Returns {product: (error of the fp32 result, error of the same product
+    rounded to bf16)}, each over the largest |product|, and the error of
+    the whole ``_grouped_ffn`` against the down product of fp32 copies of
+    the hidden rows these products give, over its largest |y|.  (Against
+    a run on fp32 copies throughout, the hidden rows, rounded to bf16,
+    would differ by an ulp wherever a product's last bits tip them.)"""
+    from repro_torch.models import moe
+    m, d = cfg.moe, cfg.d_model
+    e, f, tk = m.num_experts, m.d_ff_expert, tokens * m.top_k
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    p = {"w_gate": w(e, d, f), "w_up": w(e, d, f), "w_down": w(e, f, d)}
+    xs = torch.randn((tk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    gs = torch.bincount(torch.randint(0, e // 2, (tk,), generator=gen,
+                                      device="cuda"), minlength=e)
+    expert, at = moe._group_index(gs, tk)
+    buf = xs.new_zeros((e, tk, d))
+    buf[expert, at] = xs
+    errs = {}
+
+    def product(name, a, b):
+        got = moe._mm_f32(a, b)
+        want = torch.bmm(a.float(), b.float())
+        errs[name] = (rel(got, want), rel(torch.bmm(a, b).float(), want))
+        return got
+
+    g = product("gate", buf, p["w_gate"])
+    u = product("up", buf, p["w_up"])
+    h = (moe._act(g, cfg.mlp_kind) * u).to(torch.bfloat16)
+    product("down", h, p["w_down"])
+    y = moe._grouped_ffn(p, xs, gs, cfg.mlp_kind)
+    want = torch.bmm(h.float(), p["w_down"].float())[expert, at]
+    return errs, rel(y, want)
 
 
 def phase_family_kernels(torch, timer, smi):
@@ -1392,6 +1528,66 @@ def phase_family_kernels(torch, timer, smi):
                                 if dt == torch.bfloat16 else PEAK_FP32), note)
         del q, k, v, got, want, wmean
 
+    # ---- MLA's flash (deepseek-v2-lite): 16/16 heads, q and k of 192
+    # columns (128 nope + 64 rope), v of 128, causal, scale 192**-0.5;
+    # one-shot bf16 at (8, 1024) and the fp32 path at (1, 256)
+    ds = get_config(DEEPSEEK)
+    hm, dqk, dvm = ds.num_heads, ds.mla.qk_head_dim, ds.mla.v_head_dim
+    for case, dt, b, sq in (("deepseek one-shot bf16", torch.bfloat16, SLOTS,
+                             CTX),
+                            ("deepseek one-shot fp32", torch.float32, 1,
+                             CHUNK)):
+        q, k = randn((b, sq, hm, dqk), dt), randn((b, sq, hm, dqk), dt)
+        v = randn((b, sq, hm, dvm), dt)
+        kwf = dict(causal=True, scale=dqk ** -0.5)
+        got = ops.flash_attention(q, k, v, **kwf)
+        want = ops.flash_attention(q, k, v, impl="ref", **kwf)
+        if tuple(got.shape) != (b, sq, hm, dvm) or got.shape != want.shape:
+            fail(f"flash {case}: output {tuple(got.shape)}, plain "
+                 f"{tuple(want.shape)}, want {(b, sq, hm, dvm)}")
+        wmean = None
+        if dt == torch.bfloat16:
+            wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                        impl="ref", **kwf)
+        err = check(f"flash {case}", got, want, wmean)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            lib_ms, note = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                              scale=kwf["scale"])), ""
+        except RuntimeError as e:       # no SDPA backend takes dv != dqk
+            lib_ms, note = None, ""
+            log(f"[family-kernel] flash {case}: SDPA refused the shape: "
+                f"{str(e).splitlines()[0][:200]}")
+        nbytes, nops = _flash_bytes_ops(torch, q, k, None, 0, None, dv=dvm)
+        report("flash_attention", f"{case} ({b}, {sq}) x {hm}/{hm} heads x "
+               f"q/k {dqk}, v {dvm}", err,
+               timer(lambda: ops.flash_attention(q, k, v, **kwf)),
+               timer(lambda: ops.flash_attention(q, k, v, impl="ref", **kwf)),
+               lib_ms, bound_ms(nbytes, nops, PEAK_BF16
+                                if dt == torch.bfloat16 else PEAK_FP32),
+               note)
+        del q, k, v, got, want, wmean
+
+    # ---- RMSNorm alone at MLA's latent (512: deepseek's norm_kv, a decode
+    # step's 8 rows) and at 2048 (mamba2's gate norm: a decode step's 8
+    # rows and a whole-batch prefill's 8192)
+    for t, dm, what in ((SLOTS, ds.mla.kv_lora_rank, "deepseek norm_kv"),
+                        (SLOTS, 2048, "mamba2 gate_norm"),
+                        (SLOTS * CTX, 2048, "mamba2 gate_norm, prefill")):
+        x = randn((t, dm), torch.bfloat16)
+        w = (1 + 0.1 * randn((dm,), torch.float32)).to(torch.bfloat16)
+        got = ops.rmsnorm(x, w, 1e-6)
+        err = check(f"rmsnorm ({t}, {dm})", got,
+                    ops.rmsnorm(x, w, 1e-6, impl="ref"))
+        cold = t > CHUNK
+        report("rmsnorm", f"rmsnorm ({t}, {dm}) bf16 ({what})"
+               + (", L2 flushed" if cold else ""), err,
+               timer(lambda: ops.rmsnorm(x, w, 1e-6), cold=cold),
+               timer(lambda: ops.rmsnorm(x, w, 1e-6, impl="ref"), cold=cold),
+               timer(lambda: F.rms_norm(x, (dm,), w, 1e-6), cold=cold),
+               bound_ms(2 * x.numel() * 2 + dm * 2, 4 * x.numel(), PEAK_FP32))
+        del x, w, got
+
     # ---- RMSNorm at the families' widths: fused with the residual add,
     # a decode step's 8 rows (warm) and a prefill chunk's 256 (cold)
     for arch in ("gemma2-2b", "gemma-7b", "granite-moe-1b-a400m"):
@@ -1415,6 +1611,27 @@ def phase_family_kernels(torch, timer, smi):
                    timer(lambda: F.rms_norm(x + res, (dm,), w, 1e-6),
                          cold=cold),
                    bound_ms(nbytes, 5 * x.numel(), PEAK_FP32))
+
+    # ---- the exact MoE path's products (a decode step's rows, granite and
+    # deepseek): bf16 operands to an fp32 result, as the reference's
+    # ragged_dot, within MOE_PRODUCT_TOL of the largest |product|
+    for arch in ("granite-moe-1b-a400m", DEEPSEEK):
+        errs, y_err = _moe_product_errors(torch, get_config(arch), SLOTS, gen)
+        for name, (err, b16) in errs.items():
+            if not err <= MOE_PRODUCT_TOL:
+                fail(f"[family-kernel] {arch} MoE {name} product: {err:.3e} "
+                     f"of its largest value off the fp32 product, tol "
+                     f"{MOE_PRODUCT_TOL}")
+        if not y_err <= MOE_PRODUCT_TOL:
+            fail(f"[family-kernel] {arch} _grouped_ffn: {y_err:.3e} off the "
+                 f"fp32 down product of its hidden rows, tol "
+                 f"{MOE_PRODUCT_TOL}")
+        log(f"[family-kernel] {arch} exact MoE path, {SLOTS} tokens: "
+            + ", ".join(f"{n} product {e:.2e} off fp32 (a bf16 result "
+                        f"{b:.2e})" for n, (e, b) in errs.items())
+            + f"; _grouped_ffn {y_err:.2e} off the fp32 down product of its "
+            f"hidden rows; relative to the largest value, tol "
+            f"{MOE_PRODUCT_TOL} ({smi})")
     torch.cuda.synchronize()
     return shapes
 
@@ -1545,18 +1762,19 @@ def _chunked_row(torch, cfg, params, ids):
 
 
 def _hold_tokens(torch, tag, cfg, params, reqs, other, smi, *, ctx,
-                 what, chunked=False, fp32=None):
+                 what, chunked=False, fp32=None, layerwise=False):
     """Each request's tokens against ``other`` (rid -> text): equal, or
     apart first at a near tie that fp32 confirms (the two choices' fp32
     logits within twice the bf16 row's largest error).  ``chunked``
     recomputes the row by chunked prefill (a MoE's one-shot prefill would
-    take the capacity path), else by ``_near_tie``'s one-shot prefill."""
+    take the capacity path), else by ``_near_tie``'s prefill and decode
+    steps; ``layerwise`` casts the weights to fp32 a layer at a time."""
     from repro_torch.serving.generator import HashTokenizer
     ties = 0
     for r in reqs:
         if other[r.rid] == r.output:
             continue
-        if fp32 is None:
+        if fp32 is None and not layerwise:
             fp32 = _cast_params(torch, params, torch.float32)
         if chunked:
             want = [int(t[3:]) for t in other[r.rid].split()]
@@ -1786,6 +2004,319 @@ def phase_serve_families(torch, store, queries, exact, smi):
         del params
         _free(torch)
         log(f"[{tag}] took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_dense_family_models(torch, smi):
+    """deepseek-v2-lite at depth 2 (its dense first layer and one MLA +
+    MoE layer) and mamba2-370m at depth 1, at full width: card fp32
+    logits of one-shot prefill + dense decode (neither has a paged path)
+    against the port's CPU fp32 logits on the same weights, then card
+    bf16, fed the card fp32 run's tokens, against card fp32 (printed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    ctx, steps = 40, 6
+    for arch, depth in DENSE_MODEL_DEPTH.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        gpu, cpu = Model(cfg, device="cuda"), Model(cfg, device="cpu")
+        p_gpu = _family_init(torch, cfg, 5, torch.float32, "cuda")
+        p_cpu = _to_dev(p_gpu, "cpu")
+        g = torch.Generator().manual_seed(6)
+        prompts = torch.randint(2, cfg.vocab_size, (2, ctx), generator=g,
+                                dtype=torch.int32)
+        kw = dict(ctx=ctx, steps=steps)
+        runs = {dev: _dense_logits(torch, cfg, model, params, dev, prompts,
+                                   **kw)
+                for dev, model, params in (("cpu", cpu, p_cpu),
+                                           ("cuda", gpu, p_gpu))}
+        got, want = runs["cuda"][0], runs["cpu"][0]
+        err = check_close(f"[model] {arch} fp32 one-shot + dense", got, want,
+                          atol=FAMILY_LOGIT_TOL)
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            fail(f"[model] {arch}: greedy tokens differ between card and "
+                 "CPU")
+        p_bf = _cast_params(torch, p_gpu, torch.bfloat16)
+        bf, _ = _dense_logits(torch, cfg, gpu, p_bf, "cuda", prompts,
+                              dtype=torch.bfloat16,
+                              force=torch.stack(runs["cuda"][1]), **kw)
+        if not bool(bf.isfinite().all()):
+            fail(f"[model] {arch} bf16 on the card: logits not finite")
+        what = (f"MLA {cfg.num_heads} heads, q/k {cfg.mla.qk_head_dim} v "
+                f"{cfg.mla.v_head_dim}, latent {cfg.mla.kv_lora_rank}, MoE "
+                f"{cfg.moe.num_experts} top {cfg.moe.top_k} + "
+                f"{cfg.moe.num_shared_experts} shared" if cfg.mla else
+                f"SSD d_inner {cfg.ssm.d_inner(cfg.d_model)}, state "
+                f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}")
+        log(f"[model] {arch} at full width, {depth} layer(s) "
+            f"({cfg.layer_kinds()}; d_model {cfg.d_model}, {what}): card "
+            f"fp32 vs CPU fp32 max logit err one-shot+dense {err:.3e} (tol "
+            f"{FAMILY_LOGIT_TOL}), greedy tokens equal; card bf16 off card "
+            f"fp32 by {float((bf - got).abs().max()):.4f} (largest logit "
+            f"{float(got.abs().max()):.3f}; {smi})")
+        del cpu, gpu, p_cpu, p_gpu, p_bf, runs, bf
+        _free(torch)
+
+
+def _refuses_paged(torch, tag, cfg, params, g):
+    """The paged pool takes attention mixers only, as the reference's."""
+    from repro_torch.serving import ContinuousGenerator
+    try:
+        ContinuousGenerator(cfg, params, g, num_slots=2, paged=True,
+                            page_size=PAGE, device="cuda")
+    except NotImplementedError as e:
+        log(f"[{tag}] paged=True raises, as in the reference: {e}")
+        return
+    fail(f"[{tag}] paged=True did not raise")
+
+
+def _streamed_pass(torch, tag, cfg, params, prompts, max_new, kernels, smi):
+    """A streamed whole-batch ``Generator`` on ``prompts`` against the
+    resident one on the same weights (tokens equal exactly), then one
+    layer's pinned copy rate and a decode pass against its copy bound.
+    Fails unless each of ``kernels`` launched in the streamed run.
+    Returns the launch counts of the streamed run alone."""
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Generator, GeneratorConfig
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=max_new,
+                        dtype=torch.bfloat16)
+    want = Generator(cfg, params, g, device="cuda").generate(prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = Generator(cfg, params, g, streamed=True, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ex = gen.exec
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = gen.generate(prompts)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if got != want:
+        fail(f"[{tag}] streamed tokens differ from the resident Generator's "
+             "on the same weights")
+    missing = [n for n in kernels if counts[n] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on the streamed path: "
+             f"{missing}")
+    cache = ex.init_caches(len(prompts), CTX + max_new, torch.bfloat16)
+    cur = torch.zeros((len(prompts), 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((len(prompts),), CTX, dtype=torch.int32, device="cuda")
+    nbytes, copy_ms, rate, pass_s, bound_s = _copy_bound(
+        torch, ex, lambda: ex.decode(cur, cache, pos))
+    log(f"[{tag}] streamed: {ex.n_layers} layers, {ex.streamed_bytes} B in "
+        f"pinned host memory (built in {t_build:.1f} s), {ex.ring_slots} "
+        f"ring slots; {len(prompts)} prompts x {max_new} tokens in "
+        f"{t_gen:.2f} s, tokens equal to the resident run's; the largest "
+        f"layer ({nbytes} B) pinned host to device {copy_ms:.3f} ms, "
+        f"{rate / 1e9:.2f} GB/s; a decode pass of {len(prompts)} rows "
+        f"{pass_s * 1e3:.1f} ms (mean of 3) against a copy bound of "
+        f"{bound_s * 1e3:.1f} ms: the bound is {bound_s / pass_s:.1%} of it "
+        f"({smi})")
+    log(f"[{tag}] streamed launches: {json.dumps(counts)}")
+    del gen, ex, cache
+    gc.collect()
+    _free(torch)
+    return counts
+
+
+def _profile_dense_step(torch, tag, cfg, params, smi, rows=SLOTS):
+    """One decode step of ``rows`` rows at position ``CTX`` on a dense
+    cache, profiled (``profile_decode_step``)."""
+    from repro_torch.models.model import Model, init_cache
+    cache = init_cache(cfg, rows, CTX + FAMILY_NEW, torch.bfloat16, "cuda")
+    profile_decode_step(torch, tag, Model(cfg, device="cuda"), params, cache,
+                        None, None, smi)
+    del cache
+
+
+def phase_serve_deepseek(torch, store, queries, exact, smi):
+    """deepseek-v2-lite-16b at full width and depth (27 layers: a dense
+    first layer, 26 MLA + MoE layers; seeded bf16 weights) behind
+    ``RagdollEngine``, 8 requests of 16 tokens at ctx 1024 on the shared
+    store: (a) the whole-batch ``Generator`` (its prefill of 8 x 1024
+    tokens takes the capacity path: the drops are printed); (b) the dense
+    ``ContinuousGenerator`` (a join prefills 1 x 1024 tokens: the exact
+    path); (b)'s tokens held to the whole-batch ``Generator`` run a
+    request at a time (the exact path too: the same function) but at
+    fp32-witnessed near ties, the fp32 row cast a layer at a time, and
+    (a)'s compared, printed; one profiled decode step; one join's prefill
+    and one layer's exact grouped GEMM at its 6144 rows timed;
+    ``paged=True`` raises.  Then streamed at 9 layers.  Returns each
+    run's launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, init_cache
+    from repro_torch.serving import ContinuousGenerator, Generator
+    from repro_torch.serving import GeneratorConfig
+    t_phase = time.perf_counter()
+    tag = "serve-deepseek"
+    cfg = get_config(DEEPSEEK)
+    t0 = time.perf_counter()
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    m = cfg.moe
+    log(f"[{tag}] {cfg.num_layers} layers ({cfg.first_k_dense} dense of "
+        f"d_ff {cfg.first_dense_d_ff}, then MLA + MoE {m.num_experts} "
+        f"experts top {m.top_k} + {m.num_shared_experts} shared of "
+        f"{m.d_ff_expert}), d_model {cfg.d_model}; {nbytes} B of bf16 "
+        f"weights in {time.perf_counter() - t0:.1f} s; latent cache "
+        f"{cfg.kv_cache_bytes_per_token()} B a token")
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=FAMILY_NEW,
+                        dtype=torch.bfloat16)
+    rids = list(range(FAMILY_REQ))
+    counts = []
+    # (a) whole-batch, batches of 8: the capacity path's drops
+    drops = []
+    grouped = moe.grouped_ffn
+
+    def counting(p, xs, gs, kind, impl="auto"):
+        if impl == "auto" and xs.shape[0] >= moe.CAPACITY_THRESHOLD:
+            drops.append((int(moe.capacity_drops(gs, xs.shape[0])),
+                          xs.shape[0]))
+        return grouped(p, xs, gs, kind, impl)
+
+    moe.grouped_ffn = counting
+    try:
+        wb = _serve_few(torch, _family_engine(
+            store, queries, Generator(cfg, params, g, device="cuda")),
+            f"{tag} whole-batch", rids, FAMILY_NEW, DEEPSEEK_KERNELS, exact,
+            smi, cfg.vocab_size)
+    finally:
+        moe.grouped_ffn = grouped
+    counts.append(wb["counts"])
+    _free(torch)
+    first = drops[:cfg.num_layers - cfg.first_k_dense]
+    if not first:
+        fail(f"[{tag}] no whole-batch prefill took the capacity path")
+    log(f"[{tag}] the whole-batch path's first prefill ({first[0][1]} rows "
+        f"a MoE layer: capacity path) dropped {sum(d for d, _ in first)} "
+        f"rows over {len(first)} layers "
+        f"({', '.join(str(d) for d, _ in first)}) ({smi})")
+    # (b) the dense continuous path
+    run = _serve_few(torch, _family_engine(
+        store, queries, ContinuousGenerator(cfg, params, g, num_slots=SLOTS,
+                                            device="cuda")),
+        f"{tag} dense continuous", rids, FAMILY_NEW, DEEPSEEK_KERNELS, exact,
+        smi, cfg.vocab_size)
+    counts.append(run["counts"])
+    _free(torch)
+    same = sum(wb["outputs"][r] == run["outputs"][r] for r in rids)
+    log(f"[{tag}] information only: {same}/{len(rids)} requests got the same "
+        f"tokens from the whole-batch path (capacity path, drops) and the "
+        f"dense continuous path (exact path)")
+    t0 = time.perf_counter()
+    one = Generator(cfg, params, g, device="cuda")
+    alone = {r.rid: one.generate([r.prompt])[0] for r in run["reqs"]}
+    del one
+    log(f"[{tag}] the whole-batch Generator a request at a time: "
+        f"{time.perf_counter() - t0:.2f} s for {len(rids)}")
+    _hold_tokens(torch, tag, cfg, params, run["reqs"], alone, smi, ctx=CTX,
+                 what="the whole-batch Generator a request at a time",
+                 layerwise=True)
+    _free(torch)
+    _profile_dense_step(torch, tag, cfg, params, smi)
+    # one dense join: a 1024-token one-shot prefill at batch 1 (the exact
+    # grouped GEMM over a zero-padded (64, 6144, 2048) buffer a layer)
+    model = Model(cfg, device="cuda")
+    ids = torch.randint(2, cfg.vocab_size, (1, CTX), device="cuda",
+                        dtype=torch.int32)
+    join_s = []
+    for _ in range(3):
+        row = init_cache(cfg, 1, CTX + FAMILY_NEW, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, ids, row)
+        torch.cuda.synchronize()
+        join_s.append(time.perf_counter() - t0)
+        del row
+    tk = CTX * m.top_k
+    lp = params["blocks"][cfg.first_k_dense]["moe"]
+    xs = torch.randn((tk, cfg.d_model), device="cuda").to(torch.bfloat16)
+    gs = torch.bincount(torch.randint(0, m.num_experts, (tk,),
+                                      device="cuda"),
+                        minlength=m.num_experts)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gemm_ms = _events_ms(torch, lambda: moe.grouped_ffn(lp, xs, gs,
+                                                        cfg.mlp_kind), 3)
+    peak = torch.cuda.max_memory_allocated() - base
+    flops = 2 * 3 * tk * cfg.d_model * m.d_ff_expert
+    log(f"[{tag}] one dense join (1 x {CTX} tokens, one-shot prefill): "
+        f"{', '.join(f'{x:.3f}' for x in join_s)} s; one layer's exact "
+        f"grouped GEMM at {tk} rows: {gemm_ms:.2f} ms, {peak} B of "
+        f"intermediates at its peak, {m.num_experts}x the {flops / 1e9:.1f} "
+        f"GFLOP the rows need ({smi})")
+    del xs, gs, lp, model
+    _refuses_paged(torch, tag, cfg, params, g)
+    del params
+    _free(torch)
+    # streamed: the prefix and 8 MoE layers
+    cfg9 = dataclasses.replace(cfg, num_layers=DEEPSEEK_STREAMED_DEPTH)
+    params = _family_init(torch, cfg9, 0, torch.bfloat16, "cuda")
+    log(f"[{tag}] streamed at {cfg9.num_layers} layers: "
+        f"{cfg9.weight_bytes()} B of weights")
+    prompts = [r.prompt for r in run["reqs"][:STREAMED_REQ]]
+    counts.append(_streamed_pass(torch, f"{tag} streamed", cfg9, params,
+                                 prompts, STREAMED_NEW,
+                                 DEEPSEEK_STREAMED_KERNELS, smi))
+    del params
+    _free(torch)
+    log(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_serve_mamba2(torch, store, queries, exact, smi):
+    """mamba2-370m at full width and depth (48 SSD layers, seeded bf16
+    weights) behind ``RagdollEngine``: the whole-batch ``Generator`` and
+    the dense ``ContinuousGenerator`` serve 8 requests of 16 tokens at ctx
+    1024, the continuous tokens held to the whole-batch ones but at
+    fp32-witnessed near ties; one profiled decode step; ``paged=True``
+    raises; then streamed at full depth.  Returns each run's launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ContinuousGenerator, Generator
+    from repro_torch.serving import GeneratorConfig
+    t_phase = time.perf_counter()
+    tag = "serve-mamba2"
+    cfg = get_config(MAMBA2)
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{tag}] {cfg.num_layers} SSD layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.ssm.d_inner(cfg.d_model)}, state {cfg.ssm.d_state}, "
+        f"chunk {cfg.ssm.chunk_size}; {nbytes} B of weights; "
+        f"{cfg.ssm_state_bytes()} B of state a sequence")
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=FAMILY_NEW,
+                        dtype=torch.bfloat16)
+    rids = list(range(FAMILY_REQ))
+    counts = []
+    wb = _serve_few(torch, _family_engine(
+        store, queries, Generator(cfg, params, g, device="cuda")),
+        f"{tag} whole-batch", rids, FAMILY_NEW, MAMBA2_KERNELS, exact, smi,
+        cfg.vocab_size)
+    counts.append(wb["counts"])
+    run = _serve_few(torch, _family_engine(
+        store, queries, ContinuousGenerator(cfg, params, g, num_slots=SLOTS,
+                                            device="cuda")),
+        f"{tag} dense continuous", rids, FAMILY_NEW, MAMBA2_KERNELS, exact,
+        smi, cfg.vocab_size)
+    counts.append(run["counts"])
+    _hold_tokens(torch, tag, cfg, params, run["reqs"], wb["outputs"], smi,
+                 ctx=CTX, what="the whole-batch Generator")
+    _free(torch)
+    _profile_dense_step(torch, tag, cfg, params, smi)
+    _refuses_paged(torch, tag, cfg, params, g)
+    prompts = [r.prompt for r in run["reqs"][:STREAMED_REQ]]
+    counts.append(_streamed_pass(torch, f"{tag} streamed", cfg, params,
+                                 prompts, STREAMED_NEW,
+                                 MAMBA2_STREAMED_KERNELS, smi))
+    del params
+    _free(torch)
+    log(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2216,12 +2747,34 @@ def _prefix_generator(torch, cfg, params, **kw):
         device="cuda", **kw)
 
 
+def _prefill_cast(torch, cfg, params, ids, dtype):
+    """One-shot prefill of ``ids`` (1, n) through the port's layers, each
+    layer's weights cast to ``dtype`` only while it runs: the fp32
+    function of a model whose fp32 copy does not fit beside its bf16 one
+    (deepseek-v2-lite: 63 GB).  Returns the last position's logits."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import init_cache
+    top = _cast_params(torch, {k: v for k, v in params.items()
+                               if k != "blocks"}, dtype)
+    cache = init_cache(cfg, 1, ids.shape[1], dtype, "cuda")
+    x, delta = transformer._embed_inputs(top, cfg, ids), None
+    for lp, kind, c in zip(params["blocks"], cfg.layer_kinds(),
+                           cache["blocks"]):
+        x, delta = transformer.apply_layer(
+            _cast_params(torch, lp, dtype), x, delta, cfg, kind,
+            mode="prefill", cache=c, pos=None, block_tab=None, kv_span=None)
+    x = transformer._final_norm(top, cfg, x[:, -1:], delta[:, -1:])
+    return transformer.unembed(top, cfg, x)[0, 0].float()
+
+
 def _near_tie(torch, cfg, params, fp32, req, got: str, ctx=PREFIX_CTX):
     """Where ``got`` first leaves ``req``'s tokens (run 1's): the prompt
-    and run 1's tokens before that point go through one-shot prefill with
-    the bf16 weights and with ``fp32``, their cast.  Returns (position,
-    run 1's token, the other token, their fp32 logit gap, the largest
-    bf16-fp32 logit difference of that row)."""
+    goes through one-shot prefill and run 1's tokens before that point a
+    decode step each, as the serving paths take them, with the bf16
+    weights and with ``fp32``, their cast (None: the fp32 row by
+    ``_prefill_cast``, a layer at a time).  Returns (position, run 1's
+    token, the other token, their fp32 logit gap, the largest bf16-fp32
+    logit difference of that row)."""
     from repro_torch.models.model import Model, init_cache
     from repro_torch.serving.generator import HashTokenizer
     want = [int(t[3:]) for t in req.output.split()]
@@ -2234,9 +2787,18 @@ def _near_tie(torch, cfg, params, fp32, req, got: str, ctx=PREFIX_CTX):
     rows = {}
     with torch.no_grad():
         for name, p in (("bf16", params), ("fp32", fp32)):
+            if p is None:
+                rows[name] = _prefill_cast(torch, cfg, params, ids,
+                                           torch.float32)
+                continue
             cache = init_cache(cfg, 1, ids.shape[1], p["embed"].dtype,
                                "cuda")
-            rows[name] = model.prefill(p, ids, cache)[0].float()
+            lg = model.prefill(p, ids[:, :ctx], cache)
+            for i in range(t):
+                lg = model.decode(p, ids[:, ctx + i:ctx + i + 1], cache,
+                                  torch.full((1,), ctx + i, dtype=torch.int32,
+                                             device="cuda"))
+            rows[name] = lg[0].float()
             del cache
     gap = float(rows["fp32"][want[t]] - rows["fp32"][other[t]])
     err = float((rows["bf16"] - rows["fp32"]).abs().max())
@@ -2542,12 +3104,6 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
         f"tokens, but for {ties} that leave them at a near tie")
 
     # one layer's pinned copy, and decode passes against their copy bound
-    torch.cuda.synchronize()
-    host = ex._host[0]
-    slot = ex._ring[0, :host.numel()]
-    copy_ms = _events_ms(torch, lambda: slot.copy_(host, non_blocking=True),
-                         5)
-    rate = host.numel() / (copy_ms / 1e3)
     cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((SLOTS,), CTX, dtype=torch.int32, device="cuda")
     tab = gen.kv.device_tab()            # drained: every row all trash
@@ -2555,18 +3111,10 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
     def decode_pass():
         ex.decode(cur, gen.cache, pos, block_tab=tab, kv_span=gen._total)
 
-    decode_pass()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        decode_pass()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    pass_s = statistics.mean(times)
-    bound_s = ex.streamed_bytes / rate
+    nbytes, copy_ms, rate, pass_s, bound_s = _copy_bound(torch, ex,
+                                                         decode_pass)
     depth = policy.depth("decode", ex.free_bytes, ex.layer_bytes)
-    log(f"[serve-streamed] one {host.numel()} B layer pinned host to device: "
+    log(f"[serve-streamed] one {nbytes} B layer pinned host to device: "
         f"{copy_ms:.3f} ms, {rate / 1e9:.2f} GB/s; a decode pass of {SLOTS} "
         f"rows at depth {depth}: {pass_s * 1e3:.1f} ms (mean of 3) against "
         f"a copy bound of {bound_s * 1e3:.1f} ms ({ex.streamed_bytes} B at "
@@ -2588,9 +3136,32 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
         f" {share:.1%} of it while a kernel runs; queue depth {depth} decode, "
         f"{policy.depth('prefill', ex.free_bytes, ex.layer_bytes)} prefill "
         f"({smi})")
-    del gen, eng, ex, slot, host
+    del gen, eng, ex
     gc.collect()
     return out["counts"]
+
+
+def _copy_bound(torch, ex, decode_pass):
+    """The executor's largest layer copied pinned host to device (5 copies
+    timed with events) and ``decode_pass`` (the mean of 3 after one):
+    (that layer's bytes, its copy ms, the copy rate in B/s, the pass s,
+    the pass's copy bound: every streamed byte at that rate)."""
+    torch.cuda.synchronize()
+    host = max(ex._host, key=lambda t: t.numel())
+    slot = ex._ring[0, :host.numel()]
+    copy_ms = _events_ms(torch, lambda: slot.copy_(host, non_blocking=True),
+                         5)
+    rate = host.numel() / (copy_ms / 1e3)
+    decode_pass()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decode_pass()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (host.numel(), copy_ms, rate, statistics.mean(times),
+            ex.streamed_bytes / rate)
 
 
 def phase_store_recluster(torch, store_root: Path, smi: str) -> None:
@@ -3565,9 +4136,12 @@ def main() -> int:
         del timer
         t0 = time.perf_counter()
         phase_family_models(torch, smi)
+        phase_dense_family_models(torch, smi)
         log(f"[model] the families took {time.perf_counter() - t0:.1f} s")
         families = (phase_serve_gemma2(torch, store, queries, exact, smi)
-                    + phase_serve_families(torch, store, queries, exact, smi))
+                    + phase_serve_families(torch, store, queries, exact, smi)
+                    + phase_serve_deepseek(torch, store, queries, exact, smi)
+                    + phase_serve_mamba2(torch, store, queries, exact, smi))
         cfg, params = build_weights(torch)
         paged = phase_serve(torch, cfg, params, store, queries, exact, smi)
         batch = phase_serve_batch(torch, cfg, params, store, queries, exact,

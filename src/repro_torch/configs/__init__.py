@@ -3,8 +3,10 @@
 ``get_config(name)`` resolves the architectures the port serves: the
 attention families that the paged pool takes (dense llama, gemma2-2b's
 local/global layers, gemma-7b's MHA, chatglm3-6b's QKV bias and half
-RoPE, granite-moe-1b-a400m's MoE FFN), and the paper's llama3-70b, which
-the placement contracts price.
+RoPE, granite-moe-1b-a400m's MoE FFN), the two that only the dense cache
+takes (deepseek-v2-lite-16b's MLA over a dense first layer and MoE layers
+with shared experts; mamba2-370m's SSD mixers), and the paper's
+llama3-70b, which the placement contracts price.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ _MODULES = {
     "gemma-7b": "gemma_7b",
     "llama3-8b": "llama3_8b",
     "chatglm3-6b": "chatglm3_6b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "mamba2-370m": "mamba2_370m",
     "llama3-70b": "llama3_70b",
 }
 

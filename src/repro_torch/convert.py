@@ -2,15 +2,23 @@
 
 The caller turns the JAX tree into numpy first
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
-JAX stacks each position of ``layer_pattern`` on a leading repeats axis
-(``blocks[j]`` leaves are ``(R, ...)``); layer ``r * len(pattern) + j``
-is slice ``r`` of ``blocks[j]``.  Layouts are kept as they are:
+JAX keeps the first ``first_k_dense`` layers apart (``prefix``, a list
+of unstacked layers) and stacks each position of ``layer_pattern`` of the
+rest on a leading repeats axis (``blocks[j]`` leaves are ``(R, ...)``,
+``R = (num_layers - first_k_dense) / len(pattern)``); the port's flat
+``blocks`` list is the prefix, then slice ``r`` of ``blocks[j]`` as layer
+``first_k_dense + r * len(pattern) + j``.  Layouts are kept as they are:
 ``wq (D, H, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (H, hd, D)``,
 ``embed (V, D)``, ``lm_head (D, V)``, norms ``(D,)``; QKV biases
-``bq (H, hd)``, ``bk``/``bv (KV, hd)``; MoE leaves ``moe.router (D, E)``
-and ``moe.w_gate``/``w_up (E, D, F)``, ``moe.w_down (E, F, D)``.  Every
-leaf takes ``dtype`` but the router, which stays fp32 as the reference
-creates it.
+``bq (H, hd)``, ``bk``/``bv (KV, hd)``; MoE leaves ``moe.router (D, E)``,
+``moe.w_gate``/``w_up (E, D, F)``, ``moe.w_down (E, F, D)`` and the
+shared experts' MLP ``moe.shared.w_gate``/``w_up (D, F_sh)``,
+``w_down (F_sh, D)``; MLA leaves ``mla.w_dkv (D, r)``, ``mla.w_krope
+(D, rd)``, ``mla.norm_kv (r,)``, ``mla.w_uk (r, H, nope)``, ``mla.w_uv
+(r, H, vd)``, ``mla.wq (D, H, nope + rd)``, ``mla.wo (H, vd, D)``; Mamba
+leaves as ``models/ssm.py`` names them.  Every leaf takes ``dtype`` but
+the router and Mamba's ``A_log``, ``dt_bias`` and ``D``, which stay fp32
+as the reference creates them.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from repro_torch.models import transformer
 
 
 # leaves the reference keeps in fp32 whatever the model's dtype
-FP32_LEAVES = ("router",)
+FP32_LEAVES = ("router", "A_log", "dt_bias", "D")
 
 
 def _to_torch(tree, device, dtype):
@@ -49,14 +57,16 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     transformer._check_family(cfg)
     device = resolve_device(device)
     pattern = len(cfg.layer_pattern)
-    reps = cfg.num_layers // pattern
-    blocks = tree["blocks"]
-    if len(blocks) != pattern:
-        raise ValueError(f"{len(blocks)} stacked blocks for a pattern of "
-                         f"{pattern}")
-    layers = [_to_torch(_unstack(blocks[j], r), device, dtype)
-              for r in range(reps) for j in range(pattern)]
+    reps = (cfg.num_layers - cfg.first_k_dense) // pattern
+    blocks, prefix = tree["blocks"], tree.get("prefix", [])
+    if len(blocks) != pattern or len(prefix) != cfg.first_k_dense:
+        raise ValueError(f"{len(blocks)} stacked blocks and {len(prefix)} "
+                         f"prefix layers for a pattern of {pattern} and "
+                         f"first_k_dense={cfg.first_k_dense}")
+    layers = [_to_torch(lp, device, dtype) for lp in prefix]
+    layers += [_to_torch(_unstack(blocks[j], r), device, dtype)
+               for r in range(reps) for j in range(pattern)]
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
-           if k != "blocks"}
+           if k not in ("blocks", "prefix")}
     out["blocks"] = layers
     return out

@@ -1,7 +1,9 @@
 // Causal GQA flash attention (prefill), for Hopper (sm_90a).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas:
-// q (B, Sq, H, D) against k, v (B, Sk, KV, D), query row i of batch b at
+// q (B, Sq, H, D) against k (B, Sk, KV, D) and v (B, Sk, KV, DV), the
+// output (B, Sq, H, DV); DV = D but for MLA (deepseek-v2: q and k of 192
+// columns, 128 nope and 64 rope, v of 128).  Query row i of batch b at
 // position q_offset[b] + i, keys masked to k_pos < kv_len[b], and (causal)
 // k_pos <= q_pos and (window) k_pos > q_pos - window, scores tanh-capped
 // before the mask, online softmax with fp32 state.  Unlike the Pallas
@@ -61,7 +63,14 @@
 //   32-row q tile; the q tile (pre-scaled) and 32-key K and V tiles sit in
 //   dynamic shared memory (K rows padded by one float against bank
 //   conflicts).  Lane j scores key j of the tile; each lane accumulates
-//   D/32 columns of the output.
+//   DV/32 columns of the output.
+//
+// MLA's head dims (D = 192, DV = 128): S = QK^T reduces over 192 columns
+// (12 k16 steps, three 64-column TMA boxes), O and PV are the DV = 128
+// case's, so the S and O accumulators are as large as at D = 128.  A
+// 128-key stage is 48 KB of K and 32 KB of V beside 48 KB of two
+// warpgroups' q rows: two stages fit the 227 KB a block has (three would
+// need 288 KB).
 //
 // Masked scores are -1e30, as in the JAX tiers, so a row whose visited
 // keys are all masked averages V over them (exp(-1e30 - -1e30) = 1) and
@@ -74,6 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 #include <limits.h>
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -86,11 +96,11 @@ enum DType { kF32 = 0, kBF16 = 1 };
 struct Args {
   const void* q;           // (B, Sq, H, D)
   const void* k;           // (B, Sk, KV, D)
-  const void* v;
+  const void* v;           // (B, Sk, KV, DV)
   const int32_t* kv_len;   // (B,) or null: Sk
   const int32_t* q_off;    // (B,) or null: q_off0 for every row
-  void* out;               // (B, Sq, H, D), q's dtype
-  int Sq, Sk, H, KV, D;
+  void* out;               // (B, Sq, H, DV), q's dtype
+  int Sq, Sk, H, KV, D, DV;
   int q_off0;
   float scale;
   int causal;
@@ -134,23 +144,23 @@ constexpr int kSimtRows = 32;                       // q rows a block
 constexpr int kSimtKeys = 32;                       // keys a tile: one a lane
 constexpr int kSimtRowsPerWarp = kSimtRows / kSimtWarps;
 
-size_t simt_smem(int D) {
+size_t simt_smem(int D, int DV) {
   return sizeof(float) * (static_cast<size_t>(kSimtRows) * D
                           + static_cast<size_t>(kSimtKeys) * (D + 1)
-                          + static_cast<size_t>(kSimtKeys) * D);
+                          + static_cast<size_t>(kSimtKeys) * DV);
 }
 
-// EPL: output columns per lane (lane holds d = e * 32 + lane).
+// EPL: output columns per lane (lane holds d = e * 32 + lane, d < DV).
 template <int EPL>
 __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
   extern __shared__ float smem[];
-  const int D = a.D;
+  const int D = a.D, DV = a.DV;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (a.H / a.KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* qs = smem;                                 // kSimtRows x D
   float* ks = qs + kSimtRows * D;                   // kSimtKeys x (D + 1)
-  float* vs = ks + kSimtKeys * (D + 1);             // kSimtKeys x D
+  float* vs = ks + kSimtKeys * (D + 1);             // kSimtKeys x DV
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
@@ -178,15 +188,15 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
   for (int k0 = first; k0 < end; k0 += kSimtKeys) {
     __syncthreads();              // the last tile is consumed, q is staged
     for (int i = threadIdx.x; i < kSimtKeys * D; i += blockDim.x) {
-      const int j = i / D, d = i % D, t = k0 + j;
+      const int j = i / D, d = i % D, t = k0 + j;   // DV <= D: v rides along
       float kx = 0.f, vx = 0.f;
       if (t < a.Sk) {
-        const size_t src = ((static_cast<size_t>(b) * a.Sk + t) * a.KV + kh) * D + d;
-        kx = k[src];
-        vx = v[src];
+        const size_t row = (static_cast<size_t>(b) * a.Sk + t) * a.KV + kh;
+        kx = k[row * D + d];
+        if (d < DV) vx = v[row * DV + d];
       }
       ks[j * (D + 1) + d] = kx;
-      vs[j * D + d] = vx;
+      if (d < DV) vs[j * DV + d] = vx;
     }
     __syncthreads();
     const float* kr = ks + lane * (D + 1);
@@ -216,7 +226,7 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
           const int d = e * 32 + lane;
-          if (d < D) acc[r][e] += pj * vs[j * D + d];
+          if (d < DV) acc[r][e] += pj * vs[j * DV + d];
         }
       }
     }
@@ -226,11 +236,11 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
   for (int r = 0; r < kSimtRowsPerWarp; ++r) {
     const int row = warp * kSimtRowsPerWarp + r;
     if (row >= nrows) continue;
-    const size_t base = ((static_cast<size_t>(b) * a.Sq + row0 + row) * a.H + h) * D;
+    const size_t base = ((static_cast<size_t>(b) * a.Sq + row0 + row) * a.H + h) * DV;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = e * 32 + lane;
-      if (d < D) out[base + d] = acc[r][e] / fmaxf(l[r], 1e-30f);
+      if (d < DV) out[base + d] = acc[r][e] / fmaxf(l[r], 1e-30f);
     }
   }
 }
@@ -243,17 +253,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // cut into chunks of kChunk columns, one TMA box each; a chunk is a
 // (rows x kSw bytes) slab, swizzled over kSw bytes (128, or 32 at D = 16,
 // whose rows are 32 bytes), so 8 rows make one swizzle atom of 8 * kSw
-// bytes.  Slabs start 1024-byte aligned.  A kv tile holds kKeys keys (N
-// of S = QK^T, K of O += PV) and the ring kStages of them: 128 keys and 3
-// stages up to D = 128; at D = 256 a 128-key K or V tile is 64 KB and three
-// stages of both would need 384 KB of the 227 KB a block has, so 64 keys
-// and 2 stages (128 KB, beside 32 KB of q rows a consumer warpgroup).
-template <int D>
+// bytes.  Slabs start 1024-byte aligned.  A kv tile holds KEYS keys (N of
+// S = QK^T, K of O += PV); Tiles below picks KEYS and the ring's stages.
+constexpr int swizzle_bytes(int d) { return d >= 64 ? 128 : 32; }
+
+template <int D, int KEYS>
 struct Geo {
   static_assert(D % 16 == 0 && D <= 256, "head dim");
-  static constexpr int kKeys = D > 128 ? 64 : 128;
-  static constexpr int kStages = D > 128 ? 2 : 3;
-  static constexpr int kSw = D >= 64 ? 128 : 32;
+  static constexpr int kKeys = KEYS;
+  static constexpr int kSw = swizzle_bytes(D);
   static constexpr int kChunk = kSw / 2;
   static constexpr int kChunks = D / kChunk;
   static constexpr uint32_t kLayout = kSw == 128 ? 1 : 3;   // wgmma swizzle code
@@ -279,10 +287,38 @@ struct Geo {
   }
 };
 
+// dynamic shared bytes a block: alignment slack, q rows, the ring, barriers
+constexpr size_t ring_smem(int nwg, int stages, int q_bytes, int k_bytes, int v_bytes) {
+  return 1024 + static_cast<size_t>(nwg) * q_bytes
+         + static_cast<size_t>(stages) * (k_bytes + v_bytes) + 8 * (2 + 4 * stages);
+}
+
+// The tiles of a (DQK, DV) pair: Q and K tiles DQK wide, V tiles DV wide.
+// 128 keys a kv tile, and the ring as many stages (3 at most) as fit the
+// 227 KB of shared memory a block has beside two warpgroups' q rows: 3 up
+// to D = 128; 2 at (192, 128).  At D = 256 a 128-key K or V tile is 64 KB
+// and even two stages of both would leave no room for the q rows, so 64
+// keys and 2 stages (128 KB, beside 32 KB of q rows a consumer warpgroup).
+template <int DQK, int DV>
+struct Tiles {
+  static_assert(DV <= DQK, "value head dim");
+  static constexpr int kKeys = DQK + DV > 320 ? 64 : 128;
+  using QK = Geo<DQK, kKeys>;
+  using V = Geo<DV, kKeys>;
+  static constexpr int kQBytes = QK::kQBytes;           // a warpgroup's q rows
+  static constexpr int kKBytes = QK::kKvBytes;          // one K tile
+  static constexpr int kVBytes = V::kKvBytes;           // one V tile
+  static constexpr int kStages =
+      ring_smem(2, 3, kQBytes, kKBytes, kVBytes) <= 227 * 1024 ? 3 : 2;
+  static constexpr size_t smem(int nwg) {
+    return ring_smem(nwg, kStages, kQBytes, kKBytes, kVBytes);
+  }
+};
+
 // One block an SM: the launch takes every register (168 a thread with two
 // consumer warpgroups, 255 with one), and setmaxnreg moves the producer
 // warpgroup's share to the consumers.  The ring fills what shared memory
-// the q rows leave (3 x 64 KB beside 32 KB at D = 128; Geo<D>::kStages).
+// the q rows leave (3 x 64 KB beside 32 KB at D = 128; Tiles::kStages).
 // At D = 256 the 64 x 256 fp32 O accumulator is 128 registers a thread of
 // the 240.
 template <int NWG>
@@ -292,20 +328,18 @@ struct Pipe {
   static constexpr int kProducerRegs = 24;
 };
 
-template <int D, int NWG>
+template <int DQK, int DV, int NWG>
 constexpr size_t wgmma_smem() {
-  using Gm = Geo<D>;
-  return 1024 + static_cast<size_t>(NWG) * Gm::kQBytes
-         + 2 * static_cast<size_t>(Gm::kStages) * Gm::kKvBytes
-         + 8 * (2 + 4 * Gm::kStages);
+  static_assert(Tiles<DQK, DV>::smem(NWG) <= 227 * 1024, "shared memory");
+  return Tiles<DQK, DV>::smem(NWG);
 }
 
 // O += P V's k-step j over the V tile at `tile`; at D = 256 as two
 // m64n128k16 products, columns 0-127 into o[0..63] and 128-255 into
 // o[64..127] (the accumulator's layout continues across them).
-template <int D>
+template <int D, int KEYS>
 __device__ __forceinline__ void pv_mma(float* o, const uint32_t* p, uint32_t tile, int j) {
-  using Gm = Geo<D>;
+  using Gm = Geo<D, KEYS>;
   if constexpr (D == 256) {
     hopper::wgmma_rs_n128(o, p, Gm::mnmajor(tile, j, 0));
     hopper::wgmma_rs_n128(o + 64, p, Gm::mnmajor(tile, j, 2));
@@ -318,10 +352,10 @@ __device__ __forceinline__ void pv_mma(float* o, const uint32_t* p, uint32_t til
   }
 }
 
-// S = Q K^T's k-step kk, n = kKeys
-template <int D>
+// S = Q K^T's k-step kk, n = KEYS
+template <int KEYS>
 __device__ __forceinline__ void qk_mma(float* sc, uint64_t dq, uint64_t dk, int acc) {
-  if constexpr (Geo<D>::kKeys == 64) hopper::wgmma_ss_n64(sc, dq, dk, acc);
+  if constexpr (KEYS == 64) hopper::wgmma_ss_n64(sc, dq, dk, acc);
   else hopper::wgmma_ss_n128(sc, dq, dk, acc);
 }
 
@@ -346,9 +380,9 @@ struct Item {
 // Work items in descending cost: item i is q tile (nqt - 1 - i / (H * B))
 // of head i % H, batch (i / H) % B, so under the causal mask the heaviest
 // tiles start first and the light ones fill the tail.
-template <int D, int NWG>
+template <int KEYS, int NWG>
 __device__ __forceinline__ Item make_item(const Args& a, int i, int nqt, int B) {
-  constexpr int kKeys = Geo<D>::kKeys;
+  constexpr int kKeys = KEYS;
   Item w;
   const int per = a.H * B;
   const int qt = nqt - 1 - i / per;
@@ -378,19 +412,21 @@ __device__ __forceinline__ Item make_item(const Args& a, int i, int nqt, int B) 
 //                reg 3 = (row g + 8, same).
 // So the S accumulator of key chunks 2kk and 2kk + 1 is, once packed to
 // bf16, the A operand of PV's k-step kk: P never leaves registers.
-template <int D, int NWG>
+template <int DQK, int DV, int NWG>
 __global__ void __launch_bounds__(Pipe<NWG>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, Args a, int B, int nqt) {
-  using Gm = Geo<D>;
-  constexpr int ST = Gm::kStages;
-  constexpr int kKeys = Gm::kKeys;
+  using T = Tiles<DQK, DV>;
+  using Gq = typename T::QK;              // Q and K tiles
+  using Gv = typename T::V;               // V tiles
+  constexpr int ST = T::kStages;
+  constexpr int kKeys = T::kKeys;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sk = sq + NWG * Gm::kQBytes;
-  const uint32_t sv = sk + ST * Gm::kKvBytes;
-  const uint32_t bars = sv + ST * Gm::kKvBytes;
+  const uint32_t sk = sq + NWG * T::kQBytes;
+  const uint32_t sv = sk + ST * T::kKBytes;
+  const uint32_t bars = sv + ST * T::kVBytes;
   // barriers: q full, q empty, then per stage K full, V full, K empty, V
   // empty (K and V slots are released apart: a K slot once S is computed)
   const uint32_t q_full = bars, q_empty = bars + 8u;
@@ -424,26 +460,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       int gt = 0;                                   // kv tiles so far, all items
       int n = 0;                                    // items so far
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
-        const Item w = make_item<D, NWG>(a, i, nqt, B);
+        const Item w = make_item<kKeys, NWG>(a, i, nqt, B);
         if (n > 0) hopper::mbar_wait(q_empty, (n - 1) & 1);
-        hopper::mbar_expect_tx(q_full, NWG * Gm::kQBytes);
+        hopper::mbar_expect_tx(q_full, NWG * T::kQBytes);
         for (int r = 0; r < NWG; ++r)
-          for (int c = 0; c < Gm::kChunks; ++c)
-            hopper::tma_load_4d(sq + r * Gm::kQBytes + c * kWgRows * Gm::kSw, &qmap, q_full,
-                                c * Gm::kChunk, w.h, w.row0 + r * kWgRows, w.b);
+          for (int c = 0; c < Gq::kChunks; ++c)
+            hopper::tma_load_4d(sq + r * T::kQBytes + c * kWgRows * Gq::kSw, &qmap, q_full,
+                                c * Gq::kChunk, w.h, w.row0 + r * kWgRows, w.b);
         for (int it = 0; it < w.ntiles; ++it, ++gt) {
           const int s = gt % ST, round = gt / ST;
           const int k0 = w.first + it * kKeys;
           if (round > 0) hopper::mbar_wait(k_empty(s), (round - 1) & 1);
-          hopper::mbar_expect_tx(k_full(s), Gm::kKvBytes);
-          for (int c = 0; c < Gm::kChunks; ++c)
-            hopper::tma_load_4d(sk + s * Gm::kKvBytes + c * kKeys * Gm::kSw, &kmap,
-                                k_full(s), c * Gm::kChunk, w.kh, k0, w.b);
+          hopper::mbar_expect_tx(k_full(s), T::kKBytes);
+          for (int c = 0; c < Gq::kChunks; ++c)
+            hopper::tma_load_4d(sk + s * T::kKBytes + c * kKeys * Gq::kSw, &kmap,
+                                k_full(s), c * Gq::kChunk, w.kh, k0, w.b);
           if (round > 0) hopper::mbar_wait(v_empty(s), (round - 1) & 1);
-          hopper::mbar_expect_tx(v_full(s), Gm::kKvBytes);
-          for (int c = 0; c < Gm::kChunks; ++c)
-            hopper::tma_load_4d(sv + s * Gm::kKvBytes + c * kKeys * Gm::kSw, &vmap,
-                                v_full(s), c * Gm::kChunk, w.kh, k0, w.b);
+          hopper::mbar_expect_tx(v_full(s), T::kVBytes);
+          for (int c = 0; c < Gv::kChunks; ++c)
+            hopper::tma_load_4d(sv + s * T::kVBytes + c * kKeys * Gv::kSw, &vmap,
+                                v_full(s), c * Gv::kChunk, w.kh, k0, w.b);
         }
       }
     }
@@ -456,9 +492,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
-    const uint32_t q_tile = sq + wg * Gm::kQBytes;
+    const uint32_t q_tile = sq + wg * T::kQBytes;
     const float scale2 = a.scale * kLog2e;
-    float o[D / 2];
+    float o[DV / 2];
     float sc[kKeys / 2];
     uint32_t pa[kKeys / 16][4];          // P in bf16, the A operand of PV
 #pragma unroll
@@ -480,12 +516,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     int gt = 0;
     int n = 0;
     for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++n) {
-      const Item w = make_item<D, NWG>(a, i, nqt, B);
+      const Item w = make_item<kKeys, NWG>(a, i, nqt, B);
       const int r0 = w.row0 + wg * kWgRows + warp * 16 + g, r1 = r0 + 8;
       const int qp0 = w.off + r0, qp1 = w.off + r1;
       const int wq_lo = w.off + w.row0 + wg * kWgRows, wq_hi = wq_lo + kWgRows - 1;
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+      for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
       // running maxima of rows r0, r1 (log2 units) and this lane's share
       // of their sums
       float m0 = kNegInit, m1 = kNegInit, l0 = 0.f, l1 = 0.f;
@@ -497,9 +533,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         hopper::fence_regs<kKeys / 2>(sc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          qk_mma<D>(sc, Gm::kmajor(q_tile, kWgRows, kk),
-                    Gm::kmajor(sk + s * Gm::kKvBytes, kKeys, kk), kk > 0);
+        for (int kk = 0; kk < DQK / 16; ++kk)
+          qk_mma<kKeys>(sc, Gq::kmajor(q_tile, kWgRows, kk),
+                        Gq::kmajor(sk + s * T::kKBytes, kKeys, kk), kk > 0);
         hopper::wgmma_commit();
         hopper::fence_regs<kKeys / 2>(sc);
       };
@@ -507,14 +543,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       auto issue_pv = [&](int it) {
         const int s = (gt + it) % ST;
         hopper::mbar_wait(v_full(s), ((gt + it) / ST) & 1);
-        hopper::fence_regs<D / 2>(o);
+        hopper::fence_regs<DV / 2>(o);
         hopper::fence_regs<kKeys / 4>(&pa[0][0]);
         hopper::wgmma_fence();
 #pragma unroll
         for (int j = 0; j < kKeys / 16; ++j)
-          pv_mma<D>(o, pa[j], sv + s * Gm::kKvBytes, j);
+          pv_mma<DV, kKeys>(o, pa[j], sv + s * T::kVBytes, j);
         hopper::wgmma_commit();
-        hopper::fence_regs<D / 2>(o);
+        hopper::fence_regs<DV / 2>(o);
         hopper::fence_regs<kKeys / 4>(&pa[0][0]);
       };
       // Softmax of tile it's scores, in place: scale, softcap, mask (only
@@ -619,11 +655,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           hopper::mbar_arrive(k_empty((gt + it) % ST));
           softmax(it, &c0, &c1);
           hopper::wgmma_wait<0>();            // PV of tile it - 1 is in
-          hopper::fence_regs<D / 2>(o);
+          hopper::fence_regs<DV / 2>(o);
           hopper::fence_regs<kKeys / 4>(&pa[0][0]);   // live until here
           hopper::mbar_arrive(v_empty((gt + it - 1) % ST));
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
+          for (int j = 0; j < DV / 8; ++j) {
             o[4 * j + 0] *= c0;
             o[4 * j + 1] *= c0;
             o[4 * j + 2] *= c1;
@@ -636,7 +672,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         issue_pv(w.ntiles - 1);
         your_turn();
         hopper::wgmma_wait<0>();
-        hopper::fence_regs<D / 2>(o);
+        hopper::fence_regs<DV / 2>(o);
         hopper::fence_regs<kKeys / 4>(&pa[0][0]);
         hopper::mbar_arrive(v_empty((gt + w.ntiles - 1) % ST));
       } else {
@@ -652,11 +688,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
       __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
       uint32_t* o0 = reinterpret_cast<uint32_t*>(
-          out + ((static_cast<size_t>(w.b) * a.Sq + r0) * a.H + w.h) * D);
+          out + ((static_cast<size_t>(w.b) * a.Sq + r0) * a.H + w.h) * DV);
       uint32_t* o1 = reinterpret_cast<uint32_t*>(
-          out + ((static_cast<size_t>(w.b) * a.Sq + r1) * a.H + w.h) * D);
+          out + ((static_cast<size_t>(w.b) * a.Sq + r1) * a.H + w.h) * DV);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int c = (8 * j + 2 * t) / 2;
         if (r0 < a.Sq) o0[c] = pack_f32(o[4 * j + 0] * i0, o[4 * j + 1] * i0);
         if (r1 < a.Sq) o1[c] = pack_f32(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
@@ -709,7 +745,7 @@ EncodeTiled encode_tiled() {
 // never as the next index of dim 3.
 template <int D>
 bool make_map(CUtensorMap* map, const void* ptr, int d1, int d2, int d3, int rows) {
-  using Gm = Geo<D>;
+  constexpr int kSw = swizzle_bytes(D);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(d1),
@@ -717,12 +753,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int d1, int d2, int d3, int row
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(d1) * D * 2,
                                  static_cast<cuuint64_t>(d2) * d1 * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Gm::kChunk), 1u,
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kSw / 2), 1u,
                              static_cast<cuuint32_t>(rows), 1u};
   const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                Gm::kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -738,87 +774,119 @@ int sm_count() {
   return n;
 }
 
-template <int D, int NWG>
+template <int DQK, int DV, int NWG>
 cudaError_t launch_wgmma(const Args& a, int B, cudaStream_t s) {
+  constexpr int kKeys = Tiles<DQK, DV>::kKeys;
   CUtensorMap qm, km, vm;
-  if (!make_map<D>(&qm, a.q, a.H, a.Sq, B, kWgRows)
-      || !make_map<D>(&km, a.k, a.KV, a.Sk, B, Geo<D>::kKeys)
-      || !make_map<D>(&vm, a.v, a.KV, a.Sk, B, Geo<D>::kKeys))
+  if (!make_map<DQK>(&qm, a.q, a.H, a.Sq, B, kWgRows)
+      || !make_map<DQK>(&km, a.k, a.KV, a.Sk, B, kKeys)
+      || !make_map<DV>(&vm, a.v, a.KV, a.Sk, B, kKeys))
     return cudaErrorInvalidValue;
   const int rows = NWG * kWgRows;
   const int nqt = (a.Sq + rows - 1) / rows;
   const int items = nqt * a.H * B;
   const int grid = items < sm_count() ? items : sm_count();
-  return launch(flash_wgmma_kernel<D, NWG>, dim3(grid), Pipe<NWG>::kThreads,
-                wgmma_smem<D, NWG>(), s, qm, km, vm, a, B, nqt);
+  return launch(flash_wgmma_kernel<DQK, DV, NWG>, dim3(grid), Pipe<NWG>::kThreads,
+                wgmma_smem<DQK, DV, NWG>(), s, qm, km, vm, a, B, nqt);
 }
 
 // Two consumer warpgroups (128-row work items) when that still gives two
 // items for every SM, else one (64-row items), so a short prefill chunk
 // still spreads over the card.
-template <int D>
+int consumers(int B, int Sq, int H) {
+  const long tiles2 = static_cast<long>((Sq + 2 * kWgRows - 1) / (2 * kWgRows)) * H * B;
+  return tiles2 >= 2L * sm_count() ? 2 : 1;
+}
+
+template <int DQK, int DV>
 cudaError_t dispatch_wgmma(const Args& a, int B, cudaStream_t s) {
-  const long tiles2 = static_cast<long>((a.Sq + 2 * kWgRows - 1) / (2 * kWgRows)) * a.H * B;
-  if (tiles2 >= 2L * sm_count()) return launch_wgmma<D, 2>(a, B, s);
-  return launch_wgmma<D, 1>(a, B, s);
+  if (consumers(B, a.Sq, a.H) == 2) return launch_wgmma<DQK, DV, 2>(a, B, s);
+  return launch_wgmma<DQK, DV, 1>(a, B, s);
+}
+
+// The only head-dim pairs (D, DV) instantiated for bf16: those a port
+// config or a card test reaches.  D = DV = 16 (the reduced configs), 64
+// (granite), 128 (llama3-8b, chatglm3-6b) and 256 (gemma2-2b, gemma-7b),
+// and D = 192, DV = 128 (deepseek-v2-lite's MLA).
+constexpr int kBf16Pairs[][2] = {{16, 16}, {64, 64}, {128, 128}, {256, 256}, {192, 128}};
+constexpr int kNumBf16Pairs = sizeof(kBf16Pairs) / sizeof(kBf16Pairs[0]);
+
+// Calls f(integral_constant<D>, integral_constant<DV>) for the built pair
+// equal to (D, DV); false if none is.
+template <int I = 0, typename F>
+bool with_bf16_pair(int D, int DV, F&& f) {
+  if constexpr (I == kNumBf16Pairs) {
+    return false;
+  } else {
+    constexpr int kD = kBf16Pairs[I][0], kDV = kBf16Pairs[I][1];
+    if (D != kD || DV != kDV) return with_bf16_pair<I + 1>(D, DV, f);
+    f(std::integral_constant<int, kD>{}, std::integral_constant<int, kDV>{});
+    return true;
+  }
 }
 
 }  // namespace
 
-// Only the head dims a port config or a card test reaches are
-// instantiated for bf16: D = 16 (the reduced configs), 64 (granite), 128
-// (llama3-8b, chatglm3-6b) and 256 (gemma2-2b, gemma-7b).  fp32 takes any
-// D up to 256.  Others return cudaErrorInvalidValue.  The bf16 kernel
-// takes 16-byte aligned q, k, v (TMA).
+// bf16 takes the pairs of kBf16Pairs, fp32 any D up to 256 and any DV up
+// to D, multiples of 16.  Others return cudaErrorInvalidValue.  The bf16
+// kernel takes 16-byte aligned q, k, v (TMA).
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, const void* kv_len, const void* q_off,
-    void* out, int B, int Sq, int Sk, int H, int KV, int D, int q_off0, float scale,
+    void* out, int B, int Sq, int Sk, int H, int KV, int D, int DV, int q_off0, float scale,
     int causal, int window, float softcap, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int32_t*>(kv_len),
-               static_cast<const int32_t*>(q_off), out, Sq, Sk, H, KV, D, q_off0,
+               static_cast<const int32_t*>(q_off), out, Sq, Sk, H, KV, D, DV, q_off0,
                scale, causal, window, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
-    switch (D) {
-      case 16: return dispatch_wgmma<16>(a, B, s);
-      case 64: return dispatch_wgmma<64>(a, B, s);
-      case 128: return dispatch_wgmma<128>(a, B, s);
-      case 256: return dispatch_wgmma<256>(a, B, s);
-      default: return cudaErrorInvalidValue;
-    }
+    cudaError_t err = cudaErrorInvalidValue;
+    with_bf16_pair(D, DV, [&](auto d, auto dv) {
+      err = dispatch_wgmma<decltype(d)::value, decltype(dv)::value>(a, B, s);
+    });
+    return err;
   }
   if (dtype == kF32) {
+    if (D % 16 || DV % 16 || D > 256 || DV <= 0 || DV > D) return cudaErrorInvalidValue;
     const dim3 grid((Sq + kSimtRows - 1) / kSimtRows, H, B);
-    const size_t smem = simt_smem(D);
-    if (D <= 32) return launch(flash_fp32_kernel<1>, grid, kSimtWarps * 32, smem, s, a);
-    if (D <= 128) return launch(flash_fp32_kernel<4>, grid, kSimtWarps * 32, smem, s, a);
-    if (D <= 256) return launch(flash_fp32_kernel<8>, grid, kSimtWarps * 32, smem, s, a);
-    return cudaErrorInvalidValue;
+    const size_t smem = simt_smem(D, DV);
+    if (DV <= 32) return launch(flash_fp32_kernel<1>, grid, kSimtWarps * 32, smem, s, a);
+    if (DV <= 128) return launch(flash_fp32_kernel<4>, grid, kSimtWarps * 32, smem, s, a);
+    return launch(flash_fp32_kernel<8>, grid, kSimtWarps * 32, smem, s, a);
   }
   return cudaErrorInvalidValue;
 }
 
 // The launch shape the bf16 kernel takes for these sizes (for reports; no
 // launch): consumer warpgroups, q rows a work item, K/V ring stages,
-// threads and dynamic shared memory a block, work items, blocks.
-extern "C" void flash_attention_shape(int B, int Sq, int H, int D, int* info) {
-  const long tiles2 = static_cast<long>((Sq + 2 * kWgRows - 1) / (2 * kWgRows)) * H * B;
-  const int nwg = tiles2 >= 2L * sm_count() ? 2 : 1;
+// threads and dynamic shared memory a block, work items, blocks.  A pair
+// (D, DV) that is not built gives zero stages and shared bytes.
+extern "C" void flash_attention_shape(int B, int Sq, int H, int D, int DV, int* info) {
+  const int nwg = consumers(B, Sq, H);
   info[0] = nwg;
   info[1] = nwg * kWgRows;
-  info[2] = D > 128 ? Geo<256>::kStages : Geo<128>::kStages;
-  info[3] = nwg == 2 ? Pipe<2>::kThreads : Pipe<1>::kThreads;
+  int stages = 0;
   size_t smem = 0;
-  switch (D) {
-    case 16: smem = nwg == 2 ? wgmma_smem<16, 2>() : wgmma_smem<16, 1>(); break;
-    case 64: smem = nwg == 2 ? wgmma_smem<64, 2>() : wgmma_smem<64, 1>(); break;
-    case 256: smem = nwg == 2 ? wgmma_smem<256, 2>() : wgmma_smem<256, 1>(); break;
-    default: smem = nwg == 2 ? wgmma_smem<128, 2>() : wgmma_smem<128, 1>(); break;
-  }
+  with_bf16_pair(D, DV, [&](auto d, auto dv) {
+    constexpr int kD = decltype(d)::value, kDV = decltype(dv)::value;
+    stages = Tiles<kD, kDV>::kStages;
+    smem = nwg == 2 ? wgmma_smem<kD, kDV, 2>() : wgmma_smem<kD, kDV, 1>();
+  });
+  info[2] = stages;
+  info[3] = nwg == 2 ? Pipe<2>::kThreads : Pipe<1>::kThreads;
   info[4] = static_cast<int>(smem);
   info[5] = (Sq + info[1] - 1) / info[1] * H * B;
   info[6] = info[5] < sm_count() ? info[5] : sm_count();
+}
+
+// The bf16 pairs, (D, DV) after (D, DV), into `pairs` (room for 2 * n
+// ints); returns how many are built.
+extern "C" int flash_attention_bf16_pairs(int* pairs, int n) {
+  for (int i = 0; i < kNumBf16Pairs && i < n; ++i) {
+    pairs[2 * i] = kBf16Pairs[i][0];
+    pairs[2 * i + 1] = kBf16Pairs[i][1];
+  }
+  return kNumBf16Pairs;
 }
 
 extern "C" const char* kernel_error_string(int err) {

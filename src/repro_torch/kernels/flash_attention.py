@@ -2,12 +2,14 @@
 count and its plain version.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``:
-causal GQA attention of q ``(B, Sq, H, D)`` against k, v ``(B, Sk, KV, D)``
-with a per-batch ``kv_len``, a sliding window and a tanh softcap, in an
-fp32 online softmax.  ``q_offset`` places query row ``i`` of batch ``b``
-at ``q_offset + i``; it is an int (one-shot prefill: 0) or a ``(B,)``
-tensor (chunked prefill: each row's chunk start), which the Pallas kernel
-did not take.
+causal GQA attention of q ``(B, Sq, H, D)`` against k ``(B, Sk, KV, D)``
+and v ``(B, Sk, KV, DV)`` with a per-batch ``kv_len``, a sliding window
+and a tanh softcap, in an fp32 online softmax; the output is
+``(B, Sq, H, DV)``.  DV differs from D for MLA (deepseek-v2-lite: q and
+k of 192 columns, v of 128).  ``q_offset`` places query row ``i`` of
+batch ``b`` at ``q_offset + i``; it is an int (one-shot prefill: 0) or a
+``(B,)`` tensor (chunked prefill: each row's chunk start), which the
+Pallas kernel did not take.
 
 What bounds it on the H100: operations (about 400 flops a byte at the
 one-shot llama3-8b prefill), which only ``wgmma`` reaches at the tensor
@@ -20,8 +22,10 @@ tiles first): a producer thread issues TMA loads of the q rows and of
 head dim 256, whose tiles are twice as wide; mbarrier completion),
 and one or two consumer warpgroups of 64 q rows run S = QK^T and O += PV
 as ``wgmma`` (P from registers), the softmax of one tile under the PV of
-the one before and under the other warpgroup's products.  fp32 runs on the CUDA cores in the JAX order of
-operations.
+the one before and under the other warpgroup's products.  At (192, 128)
+S reduces over 192 columns and PV is the D = 128 case's; two 128-key
+stages fit beside the wider q rows.  fp32 runs on the CUDA cores in the
+JAX order of operations.
 """
 from __future__ import annotations
 
@@ -34,10 +38,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head dims each path is built for (csrc/flash_attention.cu); the fp32
-# path takes any multiple of 16 up to 256
-_HEAD_DIMS = {torch.float32: tuple(range(16, 257, 16)),
-              torch.bfloat16: (16, 64, 128, 256)}
+# (q/k, v) head dims the bf16 kernel is built for: csrc/flash_attention.cu's
+# kBf16Pairs, which ``_lib`` holds this list to when it loads the kernel;
+# the fp32 path takes any q/k dim up to 256 and any v dim up to it,
+# multiples of 16
+BF16_HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (192, 128))
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -47,20 +52,30 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
     fn = lib.flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I] * 7 + [_F, _I, _I, _F, _I, _P]
-        fn.restype = _I
-        lib.flash_attention_shape.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+        lib.flash_attention_bf16_pairs.argtypes = [ctypes.POINTER(_I), _I]
+        lib.flash_attention_bf16_pairs.restype = _I
+        buf = (_I * (2 * len(BF16_HEAD_DIMS)))()
+        n = lib.flash_attention_bf16_pairs(buf, len(BF16_HEAD_DIMS))
+        built = tuple(zip(buf[0:2 * n:2], buf[1:2 * n:2]))
+        if n != len(BF16_HEAD_DIMS) or set(built) != set(BF16_HEAD_DIMS):
+            raise RuntimeError(f"BF16_HEAD_DIMS {BF16_HEAD_DIMS} is not the "
+                               f"kernel's built pairs ({n} pairs: {built})")
+        lib.flash_attention_shape.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
         lib.flash_attention_shape.restype = None
+        fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
+        fn.restype = _I
     return lib
 
 
-def launch_shape(b: int, sq: int, h: int, d: int) -> Dict[str, int]:
-    """The bf16 kernel's launch for these sizes (no launch): consumer
-    warpgroups, q rows a work item, ring stages, threads and dynamic
-    shared bytes a block, work items (q tiles x heads x batch) and blocks
-    (one an SM at most: the kernel is persistent)."""
+def launch_shape(b: int, sq: int, h: int, d: int,
+                 dv: Optional[int] = None) -> Dict[str, int]:
+    """The bf16 kernel's launch for these sizes (no launch; ``dv``
+    defaults to ``d``): consumer warpgroups, q rows a work item, ring
+    stages, threads and dynamic shared bytes a block, work items (q tiles
+    x heads x batch) and blocks (one an SM at most: the kernel is
+    persistent)."""
     info = (_I * 7)()
-    _lib().flash_attention_shape(b, sq, h, d, info)
+    _lib().flash_attention_shape(b, sq, h, d, d if dv is None else dv, info)
     keys = ("consumers", "rows", "stages", "threads", "smem", "items",
             "blocks")
     return dict(zip(keys, info))
@@ -69,7 +84,7 @@ def launch_shape(b: int, sq: int, h: int, d: int) -> Dict[str, int]:
 def flash_attention_cuda(
     q: torch.Tensor,                # (B, Sq, H, D) fp32 or bf16
     k: torch.Tensor,                # (B, Sk, KV, D), q's dtype
-    v: torch.Tensor,
+    v: torch.Tensor,                # (B, Sk, KV, DV), q's dtype
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -81,19 +96,25 @@ def flash_attention_cuda(
     """Launch the kernel on CUDA tensors; raises on anything it cannot take."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
     per_row = torch.is_tensor(q_offset)
     tensors = [q, k, v] + [t for t in (kv_len, q_offset) if torch.is_tensor(t)]
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash_attention_cuda takes CUDA tensors")
-    if k.shape != (b, sk, kvh, d) or v.shape != k.shape or h % kvh:
+    if (k.shape != (b, sk, kvh, d) or v.shape != (b, sk, kvh, dv)
+            or h % kvh):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"the kernel takes fp32 or bf16 q, k, v of one "
                          f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS[q.dtype]:
-        raise ValueError(f"head_dim {d} is not built for {q.dtype} "
-                         f"(built: {_HEAD_DIMS[q.dtype]})")
+    if q.dtype == torch.bfloat16 and (d, dv) not in BF16_HEAD_DIMS:
+        raise ValueError(f"head dims (q/k {d}, v {dv}) are not built for "
+                         f"bf16 (built: {BF16_HEAD_DIMS})")
+    if q.dtype == torch.float32 and not (d % 16 == 0 and dv % 16 == 0
+                                         and 0 < dv <= d <= 256):
+        raise ValueError(f"head dims (q/k {d}, v {dv}): the fp32 path takes "
+                         "multiples of 16 with v <= q/k <= 256")
     if kv_len is not None and kv_len.shape != (b,):
         raise ValueError("kv_len must be (B,)")
     if per_row and q_offset.shape != (b,):
@@ -102,13 +123,14 @@ def flash_attention_cuda(
     q, k, v = (_build.aligned16(x) for x in (q, k, v))
     lens = None if kv_len is None else kv_len.to(torch.int32).contiguous()
     offs = q_offset.to(torch.int32).contiguous() if per_row else None
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, h, dv))
     scale = scale if scale is not None else d ** -0.5
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(),
         None if offs is None else offs.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kvh, d, 0 if per_row else int(q_offset), float(scale),
+        b, sq, sk, h, kvh, d, dv, 0 if per_row else int(q_offset),
+        float(scale),
         int(causal), 0 if window is None else int(window),
         0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype],
         _build.current_stream(q.device))

@@ -1,4 +1,4 @@
-"""GQA attention on a dense or a paged KV cache.
+"""GQA attention on a dense or a paged KV cache, and MLA on a dense one.
 
 The branches of ``repro.models.attention.attention_forward`` that the
 serving paths run (``mixer="attn"``/``"local"``):
@@ -24,6 +24,13 @@ JAX rebuilt the cache arrays on every call; here the tensors in ``cache``
 are updated in place (``_row_update``, ``_paged_scatter``).  Dense
 chunked prefill (a chunk offset without a block table) is not a branch:
 no generator reaches it, since chunked prefill requires the paged pool.
+
+MLA (``mla_forward``, deepseek-v2) caches the normed latent ``ckv (B, S,
+r)`` and the shared rope key ``krope (B, S, rd)``.  Prefill expands the
+latent to per-head keys and values and runs the flash kernel at q/k
+``nope + rd`` and v ``vd`` columns; decode takes the absorbed form (q_nope
+folded through ``w_uk``, scores against the latent) in fp32 torch ops,
+plain ``jnp`` in the reference too, over the whole ``S_cache``.
 """
 from __future__ import annotations
 
@@ -52,6 +59,28 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
         p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=device)
         p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=device)
     return p
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    """MLA weights in the reference's layouts: ``w_dkv (D, r)``, ``w_krope
+    (D, rd)``, ``norm_kv (r,)``, ``w_uk (r, H, nope)``, ``w_uv (r, H,
+    vd)``, ``wo (H, vd, D)``, ``wq (D, H, nope + rd)``."""
+    m = cfg.mla
+    d, h, r = cfg.d_model, cfg.num_heads, m.kv_lora_rank
+    return {
+        "w_dkv": layers.dense_init(gen, (d, r), dtype, device),
+        "w_krope": layers.dense_init(gen, (d, m.qk_rope_head_dim), dtype,
+                                     device),
+        "norm_kv": torch.ones((r,), dtype=dtype, device=device),
+        "w_uk": layers.dense_init(gen, (r, h, m.qk_nope_head_dim), dtype,
+                                  device, fan_in=r),
+        "w_uv": layers.dense_init(gen, (r, h, m.v_head_dim), dtype, device,
+                                  fan_in=r),
+        "wo": layers.dense_init(gen, (h, m.v_head_dim, d), dtype, device,
+                                fan_in=h * m.v_head_dim),
+        "wq": layers.dense_init(gen, (d, h, m.qk_head_dim), dtype, device,
+                                fan_in=d),
+    }
 
 
 def _project_qkv(p: dict, x: torch.Tensor):
@@ -161,6 +190,68 @@ def attention_forward(
     return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
 
 
+def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                cache: dict,        # {"ckv" (B, S_cache, r), "krope" (B,
+                                    #  S_cache, rd)}, dense
+                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MLA on a dense latent cache: one-shot prefill at positions
+    ``0..S-1`` or one decode token a row at ``pos`` (B,).  Returns the
+    output; ``cache`` is written in place."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r}")
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rd = m.qk_nope_head_dim, m.qk_rope_head_dim
+    scale = m.qk_head_dim ** -0.5
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])          # (B,S,H,nope+rd)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv = layers.rms_norm(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]),
+                          p["norm_kv"], cfg.norm_eps)      # (B,S,r)
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["w_krope"])  # one shared head
+
+    if mode == "prefill":
+        cos, sin = layers.rope_cos_sin(torch.arange(s, device=x.device), rd,
+                                       cfg.rope_theta)
+        cos, sin = cos[None, :, None], sin[None, :, None]
+        q_rope = layers.apply_rope(q_rope, cos, sin)
+        k_rope = layers.apply_rope(k_rope[:, :, None], cos, sin)[:, :, 0]
+        # the latent expanded to per-head keys and values
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+        v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, rd)],
+                      dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.flash_attention(qfull, k, v, causal=True, scale=scale)
+        cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    # decode in the absorbed form
+    cos, sin = layers.rope_cos_sin(pos, rd, cfg.rope_theta)   # (B, rd/2)
+    cos, sin = cos[:, None, None], sin[:, None, None]
+    q_rope = layers.apply_rope(q_rope, cos, sin)
+    k_rope = layers.apply_rope(k_rope[:, :, None], cos, sin)[:, :, 0]
+    _row_update(cache["ckv"], ckv, pos)
+    _row_update(cache["krope"], k_rope, pos)
+    ckv_c, kr_c = cache["ckv"].float(), cache["krope"].float()
+    s_cache = ckv_c.shape[1]
+    # q_nope folded through w_uk: scores straight against the latent
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv_c)
+              + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(), kr_c)
+              ) * scale
+    mask = (torch.arange(s_cache, device=x.device)[None, :]
+            < (pos + 1)[:, None])
+    scores = torch.where(mask[:, None], scores,
+                         torch.full_like(scores, ref.NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", probs, ckv_c)        # latent context
+    out = torch.einsum("bhr,rhk->bhk", ctx.to(x.dtype), p["w_uv"])
+    return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+
+
 def _row_update(cache: torch.Tensor, new: torch.Tensor,
                 pos: torch.Tensor) -> None:
     """cache (B, S, ...), new (B, 1, ...), pos (B,): row b's token lands at
@@ -183,6 +274,16 @@ def _paged_scatter(pool: torch.Tensor, new: torch.Tensor,
     page = pool.shape[1]
     pages = torch.gather(block_tab.long(), 1, (positions // page).long())
     pool[pages, (positions % page).long()] = new.to(pool.dtype)
+
+
+def make_mla_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
+                        dtype) -> dict:
+    """Per-layer shapes ``{"ckv": ((batch, cache_len, r), dtype),
+    "krope": ((batch, cache_len, rd), dtype)}``: the latent and the
+    shared rope key."""
+    m = cfg.mla
+    return {"ckv": ((batch, cache_len, m.kv_lora_rank), dtype),
+            "krope": ((batch, cache_len, m.qk_rope_head_dim), dtype)}
 
 
 def make_attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,

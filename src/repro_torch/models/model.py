@@ -7,21 +7,35 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, ssm, transformer
+
+
+def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int,
+                      cache_len: int, dtype, kv_format: Optional[str]):
+    if mixer == "mla":
+        return attention.make_mla_cache_spec(cfg, batch, cache_len, dtype)
+    if mixer == "mamba":
+        return ssm.make_mamba_cache_spec(cfg, batch, dtype)
+    return attention.make_attn_cache_spec(cfg, batch, cache_len, dtype,
+                                          kv_format)
 
 
 def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=torch.bfloat16, kv_format: Optional[str] = None
                      ) -> Dict[str, Any]:
-    """Per-layer cache shapes: ``{"blocks": [{"k": (shape, dtype), "v":
-    ...}] * num_layers}`` with shape ``(batch, cache_len, KV, hd)``.  The
-    layout serves both caches: a dense cache has a row of ``cache_len``
-    positions per sequence, the paged pool passes ``(pages, page_size)``
-    (``pages`` counting the trash page 0).  ``kv_format="int8"`` (paged
-    pools) adds the ``(pages, KV)`` fp32 scale leaves."""
-    return {"blocks": [attention.make_attn_cache_spec(cfg, batch, cache_len,
-                                                      dtype, kv_format)
-                       for _ in range(cfg.num_layers)]}
+    """Per-layer cache shapes by the layer's mixer: ``{"blocks": [{name:
+    (shape, dtype)}] * num_layers}``.  Attention layers: ``k``, ``v`` of
+    ``(batch, cache_len, KV, hd)``; the layout serves both caches: a
+    dense cache has a row of ``cache_len`` positions per sequence, the
+    paged pool passes ``(pages, page_size)`` (``pages`` counting the trash
+    page 0), and ``kv_format="int8"`` (paged pools) adds the ``(pages,
+    KV)`` fp32 scale leaves.  MLA layers: ``ckv (batch, cache_len, r)``
+    and ``krope (batch, cache_len, rd)``; Mamba layers: ``conv (batch,
+    d_conv - 1, di + 2GN)`` and the fp32 ``state (batch, H, P, N)``.
+    Every leaf keeps the row (sequence or page) axis first."""
+    return {"blocks": [_layer_cache_spec(cfg, mixer, batch, cache_len,
+                                         dtype, kv_format)
+                       for mixer, _ in cfg.layer_kinds()]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -36,13 +50,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 class Model:
-    """Transformer entry point of the attention families (dense llama,
+    """Transformer entry point of the served families (dense llama,
     gemma2's local/global layers, gemma's MHA, chatglm3's QKV bias and half
-    RoPE, granite's MoE FFN); parameters live outside, as in JAX.
+    RoPE, granite's MoE FFN, deepseek-v2-lite's MLA and shared experts,
+    mamba2's SSD); parameters live outside, as in JAX.
 
     ``device`` defaults to CUDA and raises when it is absent; ``init``
     draws random weights from a seeded ``torch.Generator`` on it (a MoE
-    router in fp32 whatever ``dtype``).
+    router and Mamba's ``A_log``, ``dt_bias`` and ``D`` in fp32 whatever
+    ``dtype``).
     """
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):

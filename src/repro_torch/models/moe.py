@@ -17,7 +17,10 @@ GEMMs, as in the reference:
   dropped, exactly the rows the reference drops.
 
 The products are plain matrix products outside any Pallas kernel in the
-reference, and stay ``torch.bmm`` here.  Expert parallelism
+reference, and stay ``torch.bmm`` here: the exact path's in fp32 from
+bf16 operands, as ``ragged_dot(..., preferred_element_type=f32)``
+(``_mm_f32``), the capacity path's in the operands' type, as the
+reference's ``blk @ w``.  Expert parallelism
 (``moe_forward_ep``) and the tensor-parallel ``shard_map`` need a mesh and
 wait for the training slice.
 """
@@ -89,25 +92,36 @@ def _group_index(gs: torch.Tensor, tk: int
     return expert, torch.arange(tk, device=gs.device) - starts[expert]
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``bmm`` of same-typed operands with an fp32 result.  On the card
+    ``out_dtype`` accumulates bf16 operands into fp32 output; the CPU build
+    has no kernel for it, so there the operands go to fp32 first (exact:
+    a product of two bf16 values fits in fp32)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _grouped_ffn(p: dict, xs: torch.Tensor, gs: torch.Tensor,
                  mlp_kind: str) -> torch.Tensor:
     """(T*K, D) rows sorted by expert, group sizes (E,) -> (T*K, D) fp32.
 
-    Exact: every row meets its expert's weights; the activation in fp32,
-    the hidden rows rounded to ``xs``'s type, as the reference.  One
-    rounding differs under bf16: the products come out of ``bmm`` in bf16,
-    where ``ragged_dot(..., preferred_element_type=f32)`` keeps them fp32
-    (fp32 products are the same)."""
+    Exact: every row meets its expert's weights; the products in fp32
+    (``_mm_f32``), the activation in fp32, the hidden rows rounded to
+    ``xs``'s type before ``w_down``, as the reference's ``ragged_dot``
+    with ``preferred_element_type=f32``."""
     tk, d = xs.shape
     e = gs.shape[0]
     expert, at = _group_index(gs, tk)
     buf = xs.new_zeros((e, tk, d))
     buf[expert, at] = xs
-    g = torch.bmm(buf, p["w_gate"]).float()
-    u = torch.bmm(buf, p["w_up"]).float()
+    g = _mm_f32(buf, p["w_gate"])
+    u = _mm_f32(buf, p["w_up"])
     h = (_act(g, mlp_kind) * u).to(xs.dtype)
-    y = torch.bmm(h, p["w_down"])
-    return y[expert, at].float()
+    y = _mm_f32(h, p["w_down"])
+    return y[expert, at]
 
 
 def capacity(tk: int, num_experts: int,

@@ -1,22 +1,30 @@
-"""Transformer of the attention families on a dense or a paged KV cache.
+"""Transformer of the served families on a dense or a paged cache.
 
-The layers the paged pool serves: ``attn`` (global) and ``local``
-(sliding-window) mixers, each with a ``dense`` MLP (SwiGLU, GeGLU or
-GELU) or a ``moe`` FFN; QKV bias, partial RoPE, attention and final
-logit softcaps, scaled and tied embeddings as the config says.  MLA,
-Mamba, encoder-decoder stacks and ``first_k_dense`` prefixes are refused
+The mixers: ``attn`` (global) and ``local`` (sliding-window) attention,
+on a dense or a paged KV cache; ``mla`` (deepseek-v2's latent attention)
+and ``mamba`` (Mamba2's SSD), on a dense cache only, one-shot prefilled,
+as the reference (``apply_layer`` refuses a block table or a chunk
+offset for them).  The FFNs: a ``dense`` MLP (SwiGLU, GeGLU or GELU), a
+``moe`` FFN (shared experts too), or ``none`` (Mamba2 blocks).  The first
+``first_k_dense`` layers take a dense MLP of ``first_dense_d_ff`` where
+the pattern says ``moe``, as ``cfg.layer_kinds()`` says.  QKV bias,
+partial RoPE, attention and final logit softcaps, scaled and tied
+embeddings as the config says.  Encoder-decoder stacks, non-token
+frontends and hybrid Mamba + attention stacks are refused
 (``_check_family``).
 
 Parameters are a plain dict of tensors in the JAX package's layouts, with
-``blocks`` a list of per-layer dicts (JAX stacked them on a leading
-repeats axis and scanned; PyTorch runs eagerly, so the stack is a Python
-loop).  Three entry points share them: ``prefill`` (whole prompts into a
-dense cache), ``decode_step`` (one token per slot at per-slot positions,
-dense or paged) and ``chunk_prefill_step`` (one prompt chunk at per-slot
-offsets, paged).  All write the caches in place.  Each residual add is
-fused into the norm that follows it (``layers.add_rms_norm``): a layer
-hands its MLP output on, pending, to the next layer's first norm or the
-final norm.
+``blocks`` a flat list of per-layer dicts, the ``first_k_dense`` prefix
+first, each paired with ``cfg.layer_kinds()[i]`` (JAX kept the prefix
+apart and stacked the rest on a leading repeats axis to scan; PyTorch
+runs eagerly, so the stack is a Python loop).  Three entry points share
+them: ``prefill`` (whole prompts into a dense cache), ``decode_step``
+(one token per slot at per-slot positions, dense or paged) and
+``chunk_prefill_step`` (one prompt chunk at per-slot offsets, paged).
+All write the caches in place.  Each residual add is fused into the norm
+that follows it (``layers.add_rms_norm``): a layer hands its FFN output
+(its mixer's, with no FFN) on, pending, to the next layer's first norm or
+the final norm.
 """
 from __future__ import annotations
 
@@ -25,53 +33,68 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import LayerKind, ModelConfig
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 
 Params = Dict[str, Any]
 
 
-MIXERS = ("attn", "local")
-FFNS = ("dense", "moe")
+ATTN_MIXERS = ("attn", "local")
+MIXERS = ATTN_MIXERS + ("mla", "mamba")
+FFNS = ("dense", "moe", "none")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """What the paged pool takes: attention mixers with dense or MoE FFNs."""
+    """The stacks the port serves: token frontends, no encoder, and no
+    hybrid of Mamba and attention mixers (jamba's, still to come)."""
     mixers = {k for k, _ in cfg.layer_kinds()}
     ffns = {f for _, f in cfg.layer_kinds()}
-    if (cfg.encdec or cfg.first_k_dense or cfg.frontend != "token"
+    if (cfg.encdec or cfg.frontend != "token"
             or mixers - set(MIXERS) or ffns - set(FFNS)
+            or ("mamba" in mixers and len(mixers) > 1)
             or ("moe" in ffns and cfg.moe is None)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attn/local mixers with dense or "
-            f"moe FFNs and a token frontend (got mixers {sorted(mixers)}, "
-            f"ffns {sorted(ffns)}, encdec={cfg.encdec}, "
-            f"first_k_dense={cfg.first_k_dense}, frontend={cfg.frontend!r})")
+            f"{cfg.name}: the port serves attn/local, mla or mamba mixers "
+            f"(mamba alone) with dense, moe or no FFNs and a token frontend "
+            f"(got mixers {sorted(mixers)}, ffns {sorted(ffns)}, "
+            f"encdec={cfg.encdec}, frontend={cfg.frontend!r})")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind,
-               dtype, device) -> Params:
+               dtype, device, dense_d_ff: Optional[int] = None) -> Params:
+    """One layer; a ``dense`` FFN is ``dense_d_ff`` wide (default
+    ``d_ff``)."""
+    mixer, ffn = kind
     d = cfg.d_model
-    p: Params = {
-        "norm1": torch.ones((d,), dtype=dtype, device=device),
-        "attn": attention.init_attention(gen, cfg, dtype, device),
-        "norm2": torch.ones((d,), dtype=dtype, device=device),
-    }
-    if kind[1] == "moe":
+    p: Params = {"norm1": torch.ones((d,), dtype=dtype, device=device)}
+    if mixer in ATTN_MIXERS:
+        p["attn"] = attention.init_attention(gen, cfg, dtype, device)
+    elif mixer == "mla":
+        p["mla"] = attention.init_mla(gen, cfg, dtype, device)
+    else:
+        p["mamba"] = ssm.init_mamba(gen, cfg, dtype, device)
+    if ffn == "none":
+        return p
+    p["norm2"] = torch.ones((d,), dtype=dtype, device=device)
+    if ffn == "moe":
         p["moe"] = moe.init_moe(gen, cfg, dtype, device)
     else:
-        p["ffn"] = layers.init_mlp(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
-                                   device)
+        p["ffn"] = layers.init_mlp(gen, d, dense_d_ff or cfg.d_ff,
+                                   cfg.mlp_kind, dtype, device)
     return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
                 device) -> Params:
+    """The layers before ``first_k_dense`` take a dense MLP of
+    ``first_dense_d_ff``, as the reference's ``prefix``."""
     _check_family(cfg)
+    prefix_d_ff = cfg.first_dense_d_ff or cfg.d_ff
     p: Params = {
         "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
                                    device),
-        "blocks": [init_layer(gen, cfg, kind, dtype, device)
-                   for kind in cfg.layer_kinds()],
+        "blocks": [init_layer(gen, cfg, kind, dtype, device,
+                              prefix_d_ff if i < cfg.first_k_dense else None)
+                   for i, kind in enumerate(cfg.layer_kinds())],
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
@@ -90,6 +113,22 @@ def ffn_forward(p: Params, h: torch.Tensor, cfg: ModelConfig,
     return layers.apply_mlp(p["ffn"], h, cfg.mlp_kind)
 
 
+def mixer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
+                  *, mode: str, cache: dict, pos: Optional[torch.Tensor],
+                  block_tab: Optional[torch.Tensor],
+                  kv_span: Optional[int]) -> torch.Tensor:
+    """The layer's mixer on its normed input; writes ``cache`` in place."""
+    if mixer in ATTN_MIXERS:
+        return attention.attention_forward(
+            p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
+            block_tab=block_tab, kv_span=kv_span)
+    if mixer == "mla":
+        return attention.mla_forward(p["mla"], h, cfg, mode=mode,
+                                     cache=cache, pos=pos)
+    return ssm.mamba_forward(p["mamba"], h, cfg, mode=mode, cache=cache,
+                             pos=pos)
+
+
 def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
                 cfg: ModelConfig, kind: LayerKind, *, mode: str, cache: dict,
                 pos: Optional[torch.Tensor],
@@ -98,15 +137,22 @@ def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
     """One layer on the residual stream ``x`` with the previous layer's
     output ``delta`` still to add (None before the first layer).  Each
     residual add rides in the norm after it (``add_rms_norm``), so the
-    layer returns its stream and its own MLP output, pending."""
+    layer returns its stream and its own FFN output (its mixer's, with no
+    FFN), pending."""
     mixer, ffn = kind
+    if mixer not in ATTN_MIXERS and (
+            block_tab is not None or (mode == "prefill" and pos is not None)):
+        raise NotImplementedError(
+            f"paged KV / chunked prefill support attn-family mixers only "
+            f"(got {mixer!r})")
     if delta is None:
         h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     else:
         x, h = layers.add_rms_norm(x, delta, p["norm1"], cfg.norm_eps)
-    a = attention.attention_forward(
-        p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
-        block_tab=block_tab, kv_span=kv_span)
+    a = mixer_forward(p, h, cfg, mixer, mode=mode, cache=cache, pos=pos,
+                      block_tab=block_tab, kv_span=kv_span)
+    if ffn == "none":
+        return x, a
     x, h2 = layers.add_rms_norm(x, a, p["norm2"], cfg.norm_eps)
     return x, ffn_forward(p, h2, cfg, ffn)
 
@@ -133,7 +179,10 @@ def _final_norm(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def _embed_inputs(p: Params, cfg: ModelConfig,
                   inputs: torch.Tensor) -> torch.Tensor:
-    x = p["embed"][inputs.long()]
+    """Token ids (an integer tensor) are looked up in the table; a
+    floating tensor is taken as embeddings ``(B, S, D)`` already (the
+    reference's stub frontend).  Both scale as the config says."""
+    x = inputs if inputs.is_floating_point() else p["embed"][inputs.long()]
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -151,8 +200,9 @@ def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
             cache: dict) -> torch.Tensor:
     """Causal pass over whole prompts ``inputs`` (B, S) at positions
     ``0..S-1``; their KV lands in ``cache[:, :S]`` of every layer's dense
-    ``(B, S_cache, KV, hd)`` cache, in place.  Returns the last-position
-    logits (B, V)."""
+    ``(B, S_cache, KV, hd)`` cache (MLA: its latent rows; Mamba: its conv
+    history and state), in place.  Returns the last-position logits
+    (B, V)."""
     x = _embed_inputs(p, cfg, inputs)
     x, delta = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
                           pos=None, block_tab=None, kv_span=None)

@@ -496,10 +496,12 @@ class ContinuousGenerator(_GeneratorBase):
         return min(self.table.free_slots, cap)
 
     def _scatter_row(self, row_cache, slot: int) -> None:
-        """Overwrite slot ``slot``'s dense KV row with a batch=1 cache."""
+        """Overwrite slot ``slot``'s dense cache row with a batch=1 cache:
+        every leaf of each layer (``k``/``v``, MLA's ``ckv``/``krope``,
+        Mamba's ``conv``/``state``)."""
         for tc, rc in zip(self.cache["blocks"], row_cache["blocks"]):
-            for name in ("k", "v"):
-                tc[name][slot] = rc[name][0]
+            for name, leaf in tc.items():
+                leaf[slot] = rc[name][0]
 
     def _emit(self, ref: SlotRef, token: int) -> None:
         """Append one token; finish + free the slot on EOS / budget end."""

@@ -468,6 +468,117 @@ def test_flash_attention_family_shapes_on_card(cuda_device, h, kvh, d, dtype,
         float(err.max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,per_row", [(2, 300, False), (8, 600, False),
+                                          (3, 70, True)])
+def test_flash_attention_mla_shape_on_card(cuda_device, dtype, b, sq,
+                                           per_row):
+    """deepseek-v2-lite's MLA prefill: 16/16 heads, q and k of 192 columns,
+    v of 128, scale 192**-0.5; the output is (B, Sq, H, 128).  bf16 with
+    one and two consumer warpgroups (b = 8, Sq = 600 takes two), fp32;
+    ragged Sq and Sk = Sq + 33, scalar and per-row offsets."""
+    rng = np.random.default_rng(37)
+    h, d, dv, sk = 16, 192, 128, sq + 33
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, dv)))
+    if per_row:
+        off = rng.integers(0, 34, size=b).astype(np.int32)
+        kw = dict(q_offset=_t(off).to(cuda_device),
+                  kv_len=_t(off + sq).to(cuda_device))
+    else:
+        kw = dict(q_offset=0, kv_len=_t(np.full(b, sk, np.int32)).to(
+            cuda_device))
+    kw.update(causal=True, scale=d ** -0.5)
+    if dtype == torch.bfloat16 and b == 8:
+        from repro_torch.kernels.flash_attention import launch_shape
+        shape = launch_shape(b, sq, h, d, dv)
+        assert shape["consumers"] == 2 and shape["stages"] == 2
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == want.shape == (b, sq, h, dv)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                impl="ref", **kw)
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_unbuilt_head_dims(cuda_device):
+    """bf16 pairs other than the built ones raise, naming them; fp32 takes
+    a value dim up to the query/key dim."""
+    q = torch.zeros((1, 8, 2, 192), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        ops.flash_attention(q, q, q[..., :64])
+    qf = q.float()
+    with pytest.raises(ValueError, match="v <= q/k"):
+        ops.flash_attention(qf[..., :64], qf[..., :64], qf[..., :128])
+
+
+# ------------------------------------------------- the MoE's exact products
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("tokens", [1, 8])
+def test_grouped_ffn_products_in_fp32_on_card(cuda_device, arch, tokens):
+    """The exact MoE path's three products (``moe._mm_f32``) take bf16
+    operands to an fp32 result on the card, as the reference's
+    ``ragged_dot``: each within 1e-5 of the largest |product| of the same
+    product on fp32 copies of the operands, where the product rounded to
+    bf16 is over 1e-4 off.  Operands as ``_grouped_ffn`` builds them at the
+    arch's full expert shapes, the upper half of the experts empty.  The
+    whole ``_grouped_ffn`` within 1e-5 of the down product of fp32 copies
+    of the hidden rows these products give (against fp32 products
+    throughout, the hidden rows, rounded to bf16, would differ by an ulp
+    wherever a product's last bits tip them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    m, d = cfg.moe, cfg.d_model
+    e, f, tk = m.num_experts, m.d_ff_expert, tokens * m.top_k
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=cuda_device)
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    p = {"w_gate": w(e, d, f), "w_up": w(e, d, f), "w_down": w(e, f, d)}
+    xs = torch.randn((tk, d), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    gs = torch.bincount(torch.randint(0, e // 2, (tk,), generator=gen,
+                                      device=cuda_device), minlength=e)
+    expert, at = moe._group_index(gs, tk)
+    buf = xs.new_zeros((e, tk, d))
+    buf[expert, at] = xs
+
+    def product(a, b):
+        got = moe._mm_f32(a, b)
+        want = torch.bmm(a.float(), b.float())
+        assert got.dtype == torch.float32
+        assert rel(got, want) <= 1e-5
+        assert rel(torch.bmm(a, b).float(), want) > 1e-4
+        return got
+
+    g = product(buf, p["w_gate"])
+    u = product(buf, p["w_up"])
+    h = (moe._act(g, cfg.mlp_kind) * u).to(torch.bfloat16)
+    product(h, p["w_down"])
+    y = moe._grouped_ffn(p, xs, gs, cfg.mlp_kind)
+    assert rel(y, torch.bmm(h.float(), p["w_down"].float())[expert, at]) \
+        <= 1e-5
+
+
 # ------------------------------------------------------ streaming top-k
 TOPK_SCORE_TOL = 1e-4       # fp32 dot products of unit vectors
 TIE_GAP = 1e-5              # ids must match where neighbours differ by more
@@ -608,6 +719,24 @@ def test_rmsnorm_forms_on_card(cuda_device, fused, dtype, wdtype, d):
     assert y.shape == x.shape
     _assert_norm_close(y.float(), ops.rmsnorm(s, w, 1e-6, impl="ref").float(),
                        torch.float32 if dtype == torch.float32 else dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("rows,d", [(8, 512), (8, 2048), (8192, 2048)])
+def test_rmsnorm_dense_family_widths_on_card(cuda_device, fused, rows, d):
+    """bf16 at MLA's latent width (deepseek's ``norm_kv``: 512) and at
+    2048 (mamba2's gate norm, decode and a whole-batch prefill's rows;
+    deepseek's d_model)."""
+    x, r, _ = _norm_inputs(cuda_device, torch.bfloat16, rows, d, seed=d)
+    w = _norm_inputs(cuda_device, torch.bfloat16, 1, d, seed=d + 1)[2]
+    if fused:
+        s, y = ops.add_rmsnorm(x, r, w, 1e-5)
+        assert torch.equal(s, x + r)
+    else:
+        s, y = x, ops.rmsnorm(x, w, 1e-5)
+    _assert_norm_close(y, ops.rmsnorm(s, w, 1e-5, impl="ref"),
+                       torch.bfloat16)
 
 
 # ------------------------------------------------------- top-k merge

@@ -155,6 +155,9 @@ def test_config_copies_match_reference(arch):
 
 def test_registry_serves_the_attention_families():
     assert set(FAMILIES) <= set(ASSIGNED_ARCHS)
+    # and the two dense-cache families (tests/test_torch_mla.py,
+    # tests/test_torch_ssm.py)
+    assert {"deepseek-v2-lite-16b", "mamba2-370m"} <= set(ASSIGNED_ARCHS)
     assert "llama3-70b" not in ASSIGNED_ARCHS
     assert set(all_configs()) <= set(jax_all_configs())
     assert set(all_configs()) == set(ASSIGNED_ARCHS) | {"llama3-70b"}
@@ -163,11 +166,15 @@ def test_registry_serves_the_attention_families():
 
 
 def test_family_check_refuses_the_other_mixers():
+    """The hybrid (jamba: Mamba beside attention) and the embed frontend
+    (seamless, chameleon) wait; MLA and Mamba alone are served."""
     from repro_torch.models.transformer import _check_family
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m", "jamba-1.5-large-398b",
-                 "seamless-m4t-medium", "chameleon-34b"):
+    for arch in ("jamba-1.5-large-398b", "seamless-m4t-medium",
+                 "chameleon-34b"):
         with pytest.raises(NotImplementedError):
             _check_family(jax_get_config(arch))
+    for arch in ("deepseek-v2-lite-16b", "mamba2-370m"):
+        _check_family(jax_get_config(arch))
 
 
 # ---------------------------------------------------------------- MLPs

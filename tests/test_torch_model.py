@@ -196,3 +196,39 @@ def test_fused_residual_norms_match_unfused_stack(models, path, dtype):
                                    last=False))
         cur = got.argmax(-1).to(torch.int32)[:, None]
     _caches_equal(fused, plain)
+
+
+# --------------------------------------- float inputs as embeddings
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-2b"])
+def test_float_inputs_are_embeddings_as_in_jax(arch):
+    """A floating ``inputs`` tensor is taken as embeddings ``(B, S, D)``,
+    not truncated to token ids, and scaled as the config says (gemma2
+    scales its embeddings): ``_embed_inputs`` and one-shot prefill
+    against the JAX package's on the same converted weights."""
+    from repro.models import transformer as jax_transformer
+    from repro_torch.models import transformer
+    jcfg = jax_get_config(arch).reduced(num_layers=2)
+    cfg = get_config(arch).reduced(num_layers=2)
+    assert cfg.scale_embeddings == (arch == "gemma2-2b")
+    jm = JaxModel(jcfg, remat=False)
+    jparams = jm.init(jax.random.PRNGKey(2), jnp.float32)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                               device="cpu", dtype=torch.float32)
+    emb = np.random.default_rng(8).normal(
+        0, 0.5, size=(2, 12, cfg.d_model)).astype(np.float32)
+    want = np.asarray(jax_transformer._embed_inputs(jparams, jcfg,
+                                                    jnp.asarray(emb)))
+    got = transformer._embed_inputs(params, cfg, torch.from_numpy(emb))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    jl, _ = jm.prefill(jparams, jnp.asarray(emb),
+                       jax_init_cache(jcfg, 2, 12, jnp.float32))
+    tl = Model(cfg, device="cpu").prefill(
+        params, torch.from_numpy(emb), init_cache(cfg, 2, 12, torch.float32,
+                                                  "cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    # integer ids still index the table
+    ids = torch.tensor([[3, 5]], dtype=torch.int32)
+    x = transformer._embed_inputs(params, cfg, ids)
+    scale = cfg.d_model ** 0.5 if cfg.scale_embeddings else 1.0
+    np.testing.assert_allclose(x.numpy(), params["embed"][[3, 5]][None]
+                               .numpy() * scale, rtol=1e-6)

@@ -225,3 +225,77 @@ def test_router_stays_fp32_under_bf16_weights():
             assert lp["moe"]["w_gate"].shape == (
                 cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
         assert tree["embed"].dtype == torch.bfloat16
+
+
+# ------------------------------------------------ bf16: fp32 products
+BF16_TOL = 1e-5        # fp32 rounding at |y| of about 3
+
+
+def _bf16(tree):
+    return jax.tree.map(lambda v: jnp.asarray(v).astype(jnp.bfloat16)
+                        if jnp.asarray(v).dtype == jnp.float32 else v, tree)
+
+
+def _experts_bf16(jcfg, seed):
+    """The expert weights in bf16 (the router stays fp32, as the
+    reference creates it), in both packages."""
+    jp = jmoe.init_moe(jax.random.PRNGKey(seed), jcfg, jnp.bfloat16)
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(
+        torch.float32 if k == "router" else torch.bfloat16)
+        for k, v in jp.items()}
+    return jp, tp
+
+
+@pytest.mark.parametrize("groups", [
+    "routed",                  # granite reduced: 12 tokens x top 2
+    "empty",                   # an expert with no rows
+    "wide",                    # 32 experts top 8: groups of 0-7 rows
+])
+def test_grouped_ffn_bf16_products_in_fp32_match_jax(groups):
+    """bf16 rows and experts: the gate, up and down products in fp32 from
+    bf16 operands, as ``ragged_dot(..., preferred_element_type=f32)``.
+    Products rounded to bf16 (the fault this repairs) were about 0.015
+    off at these shapes."""
+    jcfg, _ = _cfgs()
+    if groups == "wide":
+        jcfg = _wide_moe(jcfg)
+    jp, tp = _experts_bf16(jcfg, 13)
+    m = jcfg.moe
+    if groups == "empty":
+        gs = np.array([10, 0, 8, 6], np.int32)
+        xs = _tokens(int(gs.sum()), jcfg.d_model, 14)
+    else:
+        xs, gs = _sorted_rows(jp, _tokens(12, jcfg.d_model, 15), m)
+    assert (gs == 0).any() == (groups == "empty")
+    xb = jnp.asarray(xs).astype(jnp.bfloat16)
+    want = np.asarray(jmoe.grouped_ffn(jp, xb, jnp.asarray(gs), "swiglu",
+                                       impl="ragged"))
+    assert want.dtype == np.float32
+    got = moe.grouped_ffn(tp, torch.from_numpy(np.array(
+        xb.astype(jnp.float32))).to(torch.bfloat16), torch.from_numpy(gs),
+        "swiglu", impl="ragged")
+    assert got.dtype == torch.float32
+    assert np.abs(want).max() > 1.0
+    np.testing.assert_allclose(got.numpy(), want, atol=BF16_TOL)
+
+
+def test_moe_local_bf16_matches_jax():
+    """``_moe_local`` (the fp32 sum ``moe_forward`` rounds to bf16) and
+    ``moe_forward`` itself on bf16 tokens and experts: the fp32 output to
+    fp32 rounding, the bf16 output to one bf16 rounding of it."""
+    jcfg, cfg = _cfgs()
+    jp, tp = _experts_bf16(jcfg, 16)
+    x = _tokens(2 * 9, jcfg.d_model, 17)
+    _routed(jp, x, jcfg.moe)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(
+        torch.bfloat16)
+    want, _, _ = jmoe._moe_local(jp, xb, jcfg)
+    got, _, _ = moe._moe_local(tp, xt, cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=BF16_TOL)
+    jout, _ = jmoe.moe_forward(jp, xb.reshape(2, 9, -1), jcfg)
+    tout, _ = moe.moe_forward(tp, xt.reshape(2, 9, -1), cfg)
+    assert tout.dtype == torch.bfloat16
+    np.testing.assert_allclose(tout.float().numpy(),
+                               np.asarray(jout.astype(jnp.float32)),
+                               rtol=2.0 ** -8, atol=BF16_TOL)
