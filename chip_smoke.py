@@ -71,8 +71,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
               depth 1, card fp32 against CPU fp32.
 5f. serve-mamba2 -- mamba2-370m at full width and depth (48 SSD layers):
               the same two paths, held to each other at near ties, a
-              profiled step, the paged refusal, streamed at full depth
+              profiled step, the paged refusal, streamed at 8 layers
               (RMSNorm launched in the streamed run).
+5g. serve-jamba -- jamba-1.5-large-398b at full width and depth 4 (its
+              four layer kinds; 45.95 GB of bf16 weights): the whole-batch
+              and dense continuous paths behind ``RagdollEngine``, 8
+              requests of 16 tokens, the continuous tokens held to the
+              whole-batch ``Generator`` a request at a time at near ties
+              witnessed in fp32 (a MoE layer cast an expert at a time);
+              one 8-prompt prefill's capacity-path drops; the paged
+              refusal; a profiled step; a 1024-token join timed with its
+              peak memory; then streamed at depth 4 through a ring of 2
+              slots of the largest layer, the card's copy of the layers
+              dropped once the executor has pinned its own (flash, dense
+              decode and RMSNorm launched in the streamed run).  The
+              family-kernel phase holds both decode kernels at its 64/8
+              heads x 128 (G = 8), the flash kernel there and RMSNorm at
+              8192 and 16384 (bf16, fp32); the model phase holds jamba at
+              depth 4 with 2 experts (every width full), card fp32 against
+              CPU fp32.
+5h. serve-llama70b -- llama3-70b at full width and depth 4: the paged,
+              chunk-prefilled path (the G = 8 paged decode) and the
+              whole-batch path (the G = 8 dense decode), 8 requests of 16
+              tokens, held to each other at fp32-witnessed near ties; the
+              model phase holds it at depth 2, card fp32 against CPU
+              fp32.
 6. serve   -- llama3-8b at full width (bf16, seeded random weights) behind a
               threaded ``RagdollEngine`` with a paged, chunk-prefilled
               ``ContinuousGenerator``: 16 RAG requests, each checked for 32
@@ -185,6 +208,7 @@ every path); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -230,6 +254,9 @@ WHOLE_BATCH_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
 SWAP_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
                 "retrieval_topk_merge", "flash_attention")
 SWAP_PRIORITY_REQ = 4       # serve-swap: the last 4 requests are priority 1
+# serve-swap profiles a batch of 2 (8 took 17 s, and as long again to stop
+# the profiler: 4338 kernels a step over int8 pages)
+SWAP_PROFILE_REQ = 2
 # serve-prefix: a ragged context (a boundary-page copy at join, the
 # donor's tail page detached copy-on-write on its first decode step), and
 # 4 queries asked 4 times each, in three rounds, each served to its end:
@@ -283,11 +310,13 @@ BF16_MODEL_REL = 0.1
 # first layer and 26 MoE layers (64 experts top 6, 2 shared), mamba2-370m's
 # 48 SSD layers; neither has a paged path.  Card fp32 against CPU fp32 at
 # full width and a cut depth; serving at full depth; streamed at 9 layers
-# (deepseek: the prefix and 8 MoE layers) and 48 (mamba2), 2 requests x 4
-# tokens each
+# (deepseek: the prefix and 8 MoE layers) and 8 (mamba2, cut from 48 for
+# time), 2 requests x 4 tokens each
 DEEPSEEK, MAMBA2 = "deepseek-v2-lite-16b", "mamba2-370m"
-DENSE_MODEL_DEPTH = {DEEPSEEK: 2, MAMBA2: 1}
+LLAMA70B, JAMBA = "llama3-70b", "jamba-1.5-large-398b"
+DENSE_MODEL_DEPTH = {DEEPSEEK: 2, MAMBA2: 1, JAMBA: 4}
 DEEPSEEK_STREAMED_DEPTH = 9
+MAMBA2_STREAMED_DEPTH = 8
 STREAMED_REQ, STREAMED_NEW = 2, 4
 DEEPSEEK_KERNELS = ("rmsnorm", "flash_attention", "retrieval_topk",
                     "retrieval_topk_merge")
@@ -295,13 +324,33 @@ MAMBA2_KERNELS = ("rmsnorm", "retrieval_topk", "retrieval_topk_merge")
 # the streamed generators (no retrieval)
 DEEPSEEK_STREAMED_KERNELS = ("rmsnorm", "flash_attention")
 MAMBA2_STREAMED_KERNELS = ("rmsnorm",)
+# G = 8 (64/8 heads x 128): llama3-70b, the paper's 70B model, on the
+# paged path at depth 4 (11.05 GB of bf16 weights), and jamba-1.5-large's
+# hybrid on the dense paths at depth 4 (45.95 GB: its four layer kinds,
+# (mamba, dense), (mamba, moe), (mamba, dense), (attn, moe); one 8-layer
+# block is 90.26 GB, more than the card).  Card fp32 against CPU fp32:
+# llama3-70b at depth 2, jamba at depth 4 with its experts cut to 2 (top
+# 2; every width full: 16 experts in fp32 are 92 GB).  jamba streams its
+# 4 layers through a ring of 2 slots of its largest layer (max_depth 1)
+LLAMA70B_MODEL_DEPTH, LLAMA70B_DEPTH, JAMBA_DEPTH = 2, 4, 4
+LONG_DECODE = 32_000        # one row's kv_len: the dense kernel's splits
+# the fp32 witness casts a MoE layer an expert at a time where its experts
+# in fp32 pass this (jamba: 40.3 GB a layer; deepseek's 2.2 GB cast whole)
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+EXPERTWISE_BYTES = 4 << 30
+JAMBA_MODEL_EXPERTS = 2
+JAMBA_STREAMED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # the recluster check's store, apart from the shared one
 RECLUSTER_N, RECLUSTER_PARTS, RECLUSTER_SPILLED, RECLUSTER_HOT = (
     100_000, 16, 4, 2)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script began."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -310,10 +359,14 @@ def fail(msg: str) -> None:
 
 # ---------------------------------------------------------------- timing
 def _kernel_records(prof, torch):
-    """(name, start us, duration us) of every device record of a trace."""
+    """(name, start us, duration us) of every device record of a trace,
+    read from the profiler's raw records: its event tree, which
+    ``prof.events()`` builds on first use, took 8-21 s for a profiled
+    serving batch."""
     cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name, e.time_range.start, e.time_range.elapsed_us())
-            for e in prof.events() if e.device_type == cuda]
+    return [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
 
 
 class Timer:
@@ -529,10 +582,13 @@ def phase_device(torch):
 REDESIGNED = ("flash_wgmma_kernel<128,", "flash_wgmma_kernel<192,",
               "merge_kernel",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
+              "decode_kernel<__nv_bfloat16, __nv_bfloat16, 8, 4>",
+              "decode_kernel<float, float, 8, 4>",
               "decode_combine_kernel<__nv_bfloat16>",
               "topk_stream_kernel",
-              "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, true, 8>",
-              "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, false, 8>")
+              "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, true, 8, 2>",
+              "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, false, 8, 2>",
+              "rmsnorm_kernel<float, float, false, 4, 4>")
 
 
 def ptxas_entries(log_text: str):
@@ -1324,8 +1380,10 @@ def _moe_product_errors(torch, cfg, tokens, gen):
 def phase_family_kernels(torch, timer, smi):
     """The attention kernels at the shapes of gemma2-2b (8/4 heads x 256,
     window 4096, softcap 50), gemma-7b (16/16 x 256), chatglm3-6b (32/2 x
-    128) and granite-moe-1b-a400m (16/8 x 64), and the fused RMSNorm at
-    their widths, each against its plain version.  gemma2's cases sit where
+    128), granite-moe-1b-a400m (16/8 x 64) and llama3-70b and jamba (64/8
+    x 128: G = 8; paged over bf16, int8 and fp32 pages, dense in bf16 and
+    fp32 and one 32000-token row), and RMSNorm at their widths, each
+    against its plain version.  gemma2's cases sit where
     its window masks: paged and dense decode at kv_len 4100-6200, a prefill
     chunk at q_offset 5888.  Returns {kernel: [case rows]} for the
     ``kernels`` line."""
@@ -1338,7 +1396,8 @@ def phase_family_kernels(torch, timer, smi):
     shapes = {k: [] for k in ("paged_decode_attention", "decode_attention",
                               "flash_attention", "rmsnorm")}
     dims = {a: (c.num_heads, c.num_kv_heads, c.resolved_head_dim, c.d_model)
-            for a, c in ((a, get_config(a)) for a in FAMILY_ARCHS)}
+            for a, c in ((a, get_config(a))
+                         for a in FAMILY_ARCHS + (LLAMA70B, JAMBA))}
 
     def randn(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -1377,7 +1436,13 @@ def phase_family_kernels(torch, timer, smi):
             ("chatglm3 bf16 pages", "chatglm3-6b", torch.bfloat16, ctx_lens,
              none),
             ("granite bf16 pages", "granite-moe-1b-a400m", torch.bfloat16,
-             ctx_lens, none)):
+             ctx_lens, none),
+            ("llama3-70b bf16 pages", LLAMA70B, torch.bfloat16, ctx_lens,
+             none),
+            ("llama3-70b int8 pages + scales", LLAMA70B, torch.int8,
+             ctx_lens, none),
+            ("llama3-70b fp32 pages", LLAMA70B, torch.float32, ctx_lens,
+             none)):
         h, kvh, d, _ = dims[arch]
         nmax = -(-max(lens) // PAGE)
         pages = SLOTS * nmax + 1
@@ -1391,7 +1456,8 @@ def phase_family_kernels(torch, timer, smi):
         else:
             k, v = randn(shape, kvdt), randn(shape, kvdt)
             ks = vs = None
-        q = randn((SLOTS, h, d), torch.bfloat16)
+        q = randn((SLOTS, h, d), torch.float32 if kvdt == torch.float32
+                  else torch.bfloat16)
         perm = torch.randperm(pages - 1, generator=gen, device="cuda") + 1
         tab = perm[:SLOTS * nmax].reshape(SLOTS, nmax).to(torch.int32)
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -1426,17 +1492,24 @@ def phase_family_kernels(torch, timer, smi):
                lib_ms, bound_ms(nbytes, nops, PEAK_FP32), note)
         del q, k, v, got, want
 
-    # ---- dense decode: 8 rows against a dense cache
-    for case, arch, lens, kw in (
-            ("gemma2 bf16", "gemma2-2b", long_lens, win),
-            ("gemma-7b bf16", "gemma-7b", ctx_lens, none),
-            ("chatglm3 bf16", "chatglm3-6b", ctx_lens, none),
-            ("granite bf16", "granite-moe-1b-a400m", ctx_lens, none)):
+    # ---- dense decode: 8 rows against a dense cache (jamba's attention
+    # layer: 64/8 x 128 in bf16 and fp32, and one long row in many splits)
+    bf16 = torch.bfloat16
+    for case, arch, lens, kw, dt in (
+            ("gemma2 bf16", "gemma2-2b", long_lens, win, bf16),
+            ("gemma-7b bf16", "gemma-7b", ctx_lens, none, bf16),
+            ("chatglm3 bf16", "chatglm3-6b", ctx_lens, none, bf16),
+            ("granite bf16", "granite-moe-1b-a400m", ctx_lens, none, bf16),
+            ("jamba bf16", JAMBA, ctx_lens, none, bf16),
+            ("jamba fp32", JAMBA, ctx_lens, none, torch.float32),
+            ("jamba bf16, one long row", JAMBA, (LONG_DECODE,), none, bf16)):
         h, kvh, d, _ = dims[arch]
-        s_len = max(lens) + 200 if kw["window"] else CTX + MAX_NEW
-        q = randn((SLOTS, h, d), torch.bfloat16)
-        k = randn((SLOTS, s_len, kvh, d), torch.bfloat16)
-        v = randn((SLOTS, s_len, kvh, d), torch.bfloat16)
+        rows = len(lens)
+        s_len = (max(lens) + 200 if kw["window"] else
+                 max(CTX + MAX_NEW, max(lens)))
+        q = randn((rows, h, d), dt)
+        k = randn((rows, s_len, kvh, d), dt)
+        v = randn((rows, s_len, kvh, d), dt)
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
         got = ops.decode_attention(q, k, v, kv_len, **kw)
         want = ops.decode_attention(q, k, v, kv_len, impl="ref", **kw)
@@ -1453,8 +1526,8 @@ def phase_family_kernels(torch, timer, smi):
         lib_ms = timer(lambda: sdpa(q[:, :, None], kt, vt, attn_mask=mask,
                                     enable_gqa=True), cold=True)
         nbytes, nops = _decode_bytes_ops(torch, q, k, kv_len, kw["window"])
-        report("decode_attention", f"{case}: ({SLOTS}, {h}, {d}) against "
-               f"({SLOTS}, {s_len}, {kvh}, {d}), kv_len {lens[0]}-{lens[-1]}"
+        report("decode_attention", f"{case}: ({rows}, {h}, {d}) against "
+               f"({rows}, {s_len}, {kvh}, {d}), kv_len {lens[0]}-{lens[-1]}"
                + (f", window {kw['window']} softcap {kw['softcap']:g}"
                   if kw["window"] else ""), err,
                timer(lambda: ops.decode_attention(q, k, v, kv_len, **kw),
@@ -1483,7 +1556,11 @@ def phase_family_kernels(torch, timer, smi):
             ("granite one-shot bf16", "granite-moe-1b-a400m", torch.bfloat16,
              SLOTS, CTX, CTX, None, none),
             ("granite chunk fp32 (int8 pages)", "granite-moe-1b-a400m",
-             torch.float32, 1, CHUNK, CTX, CTX - CHUNK, none)):
+             torch.float32, 1, CHUNK, CTX, CTX - CHUNK, none),
+            ("llama3-70b / jamba one-shot bf16", LLAMA70B, torch.bfloat16,
+             SLOTS, CTX, CTX, None, none),
+            ("llama3-70b chunk bf16", LLAMA70B, torch.bfloat16, 1, CHUNK,
+             CTX, CTX - CHUNK, none)):
         h, kvh, d, _ = dims[arch]
         q = randn((b, sq, h, d), dt)
         k = randn((b, sk, kvh, d), dt)
@@ -1571,26 +1648,35 @@ def phase_family_kernels(torch, timer, smi):
     # ---- RMSNorm alone at MLA's latent (512: deepseek's norm_kv, a decode
     # step's 8 rows) and at 2048 (mamba2's gate norm: a decode step's 8
     # rows and a whole-batch prefill's 8192)
-    for t, dm, what in ((SLOTS, ds.mla.kv_lora_rank, "deepseek norm_kv"),
-                        (SLOTS, 2048, "mamba2 gate_norm"),
-                        (SLOTS * CTX, 2048, "mamba2 gate_norm, prefill")):
-        x = randn((t, dm), torch.bfloat16)
-        w = (1 + 0.1 * randn((dm,), torch.float32)).to(torch.bfloat16)
+    # and at jamba's Mamba gate norm over d_inner 16384 (bf16, and fp32,
+    # which holds 4 vectors a thread)
+    di = get_config(JAMBA).ssm.d_inner(get_config(JAMBA).d_model)
+    for t, dm, what, dt in (
+            (SLOTS, ds.mla.kv_lora_rank, "deepseek norm_kv", bf16),
+            (SLOTS, 2048, "mamba2 gate_norm", bf16),
+            (SLOTS * CTX, 2048, "mamba2 gate_norm, prefill", bf16),
+            (SLOTS, di, "jamba gate_norm", bf16),
+            (SLOTS, di, "jamba gate_norm", torch.float32)):
+        x = randn((t, dm), dt)
+        w = (1 + 0.1 * randn((dm,), torch.float32)).to(dt)
         got = ops.rmsnorm(x, w, 1e-6)
         err = check(f"rmsnorm ({t}, {dm})", got,
                     ops.rmsnorm(x, w, 1e-6, impl="ref"))
         cold = t > CHUNK
-        report("rmsnorm", f"rmsnorm ({t}, {dm}) bf16 ({what})"
+        esz = x.element_size()
+        report("rmsnorm", f"rmsnorm ({t}, {dm}) "
+               f"{'bf16' if dt == bf16 else 'fp32'} ({what})"
                + (", L2 flushed" if cold else ""), err,
                timer(lambda: ops.rmsnorm(x, w, 1e-6), cold=cold),
                timer(lambda: ops.rmsnorm(x, w, 1e-6, impl="ref"), cold=cold),
                timer(lambda: F.rms_norm(x, (dm,), w, 1e-6), cold=cold),
-               bound_ms(2 * x.numel() * 2 + dm * 2, 4 * x.numel(), PEAK_FP32))
+               bound_ms(2 * x.numel() * esz + dm * esz, 4 * x.numel(),
+                        PEAK_FP32))
         del x, w, got
 
     # ---- RMSNorm at the families' widths: fused with the residual add,
     # a decode step's 8 rows (warm) and a prefill chunk's 256 (cold)
-    for arch in ("gemma2-2b", "gemma-7b", "granite-moe-1b-a400m"):
+    for arch in ("gemma2-2b", "gemma-7b", "granite-moe-1b-a400m", JAMBA):
         dm = dims[arch][3]
         for t in (SLOTS, CHUNK):
             x, res = randn((t, dm), torch.bfloat16), randn((t, dm),
@@ -1638,17 +1724,23 @@ def phase_family_kernels(torch, timer, smi):
 
 def phase_family_models(torch, smi):
     """Each family at full width and the depth of one pattern repeat (two
-    layers for gemma2, one for the others): card fp32 logits against the
-    port's CPU fp32 logits (chunked prefill + paged decode, one-shot
-    prefill + dense decode), then card bf16 on both paths, fed the fp32
-    card run's tokens, against each other (and, printed, card fp32)."""
+    layers for gemma2, one for the others; llama3-70b at two, its G = 8
+    decode): card fp32 logits against the port's CPU fp32 logits (chunked
+    prefill + paged decode, one-shot prefill + dense decode), then card
+    bf16 on both paths, fed the fp32 card run's tokens, against each other
+    (and, printed, card fp32)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    ctx, chunk, page, steps = 40, 16, 8, 6
-    for arch in FAMILY_ARCHS:
+    page = 8
+    for arch in FAMILY_ARCHS + (LLAMA70B,):
         full = get_config(arch)
-        cfg = dataclasses.replace(full, num_layers=len(full.layer_pattern))
+        depth = (LLAMA70B_MODEL_DEPTH if arch == LLAMA70B
+                 else len(full.layer_pattern))
+        cfg = dataclasses.replace(full, num_layers=depth)
+        # llama3-70b's CPU run multiplies 15 GB of fp32 weights a pass:
+        # fewer tokens and steps (3 chunks and 2 decode steps still)
+        ctx, chunk, steps = (24, 8, 3) if arch == LLAMA70B else (40, 16, 6)
         cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
         p_cpu = _family_init(torch, cfg, 5, torch.float32, "cpu")
         p_gpu = _to_dev(p_cpu)
@@ -1802,6 +1894,71 @@ def _hold_tokens(torch, tag, cfg, params, reqs, other, smi, *, ctx,
     log(f"[{tag}] {len(reqs)} requests: {what}'s tokens, but for {ties} "
         "that leave them at an fp32-witnessed near tie")
     return ties
+
+
+def _teacher_forced(torch, tag, cfg, params, fp32, reqs, other, smi):
+    """Every step of every request, both served paths fed ``other``'s
+    tokens (the whole-batch run's): the paged path (chunked prefill into
+    pages, the paged decode) in bf16, the whole-batch path (one-shot
+    prefill into a dense cache, the dense decode) in bf16 and with
+    ``fp32``.  Fails at any step where the paged logits are further from
+    fp32 than twice the whole-batch bf16 logits are: a decode kernel a
+    little off shows at every step, where the token check stops at a
+    request's first near tie."""
+    from repro_torch.models.model import Model, init_cache
+    from repro_torch.serving.generator import HashTokenizer
+    model = Model(cfg, device="cuda")
+    worst, steps = (0.0, ""), 0
+    with torch.no_grad():
+        for r in reqs:
+            want = [int(t[3:]) for t in other[r.rid].split()]
+            toks = HashTokenizer(cfg.vocab_size).encode(r.prompt, CTX)
+            ids = torch.tensor([list(toks) + want[:-1]], dtype=torch.int32,
+                               device="cuda")
+            n = ids.shape[1]
+            nmax = -(-n // PAGE)
+            pages = init_cache(cfg, nmax + 1, PAGE, params["embed"].dtype,
+                               "cuda")
+            tab = torch.arange(1, nmax + 1, dtype=torch.int32,
+                               device="cuda")[None]
+            for off in range(0, CTX, CHUNK):
+                lg = model.chunk_prefill(
+                    params, ids[:, off:off + CHUNK], pages,
+                    torch.full((1,), off, dtype=torch.int32, device="cuda"),
+                    tab, kv_span=n)
+            rows = {"paged": [lg[0].float()]}
+            dense = {}
+            for name, p in (("bf16", params), ("fp32", fp32)):
+                dense[name] = init_cache(cfg, 1, n, p["embed"].dtype, "cuda")
+                rows[name] = [model.prefill(p, ids[:, :CTX],
+                                            dense[name])[0].float()]
+            for i in range(len(want) - 1):
+                cur = ids[:, CTX + i:CTX + i + 1]
+                pos = torch.full((1,), CTX + i, dtype=torch.int32,
+                                 device="cuda")
+                rows["paged"].append(model.decode(
+                    params, cur, pages, pos, tab, kv_span=n)[0].float())
+                for name, p in (("bf16", params), ("fp32", fp32)):
+                    rows[name].append(
+                        model.decode(p, cur, dense[name], pos)[0].float())
+            for i, (lp, ld, lf) in enumerate(zip(
+                    rows["paged"], rows["bf16"], rows["fp32"])):
+                e_p = float((lp - lf).abs().max())
+                e_d = float((ld - lf).abs().max())
+                where = (f"request {r.rid} step {i}: the paged path off fp32 "
+                         f"by up to {e_p:.6f}, the whole-batch path by "
+                         f"{e_d:.6f}, apart by "
+                         f"{float((lp - ld).abs().max()):.6f}")
+                if e_p > 2 * e_d:
+                    fail(f"[{tag}] {where}: past twice the whole-batch "
+                         "path's bf16 error")
+                worst = max(worst, (e_p / max(e_d, 1e-12), where))
+                steps += 1
+            del pages, dense, rows
+    log(f"[{tag}] teacher-forced on the whole-batch tokens, {steps} steps "
+        f"of {len(reqs)} requests: the paged logits within twice the "
+        f"whole-batch bf16 error of fp32 at every step; the closest, "
+        f"{worst[0]:.3f} of it, at {worst[1]} ({smi})")
 
 
 def profile_decode_step(torch, tag, model, params, cache, block_tab, span,
@@ -1958,22 +2115,11 @@ def phase_serve_families(torch, store, queries, exact, smi):
             cfg.vocab_size)
         counts.append(run["counts"])
         _free(torch)
-        drops = []
-        grouped = moe.grouped_ffn
-        if cfg.moe is not None:
-            def counting(p, xs, gs, kind, impl="auto"):
-                if impl == "auto" and xs.shape[0] >= moe.CAPACITY_THRESHOLD:
-                    drops.append((int(moe.capacity_drops(gs, xs.shape[0])),
-                                  xs.shape[0]))
-                return grouped(p, xs, gs, kind, impl)
-            moe.grouped_ffn = counting
-        try:
+        with _recording_drops() as drops:
             wb = _serve_few(torch, _family_engine(
                 store, queries, Generator(cfg, params, g, device="cuda")),
                 f"{tag} whole-batch", rids, FAMILY_NEW, WHOLE_BATCH_KERNELS,
                 exact, smi, cfg.vocab_size)
-        finally:
-            moe.grouped_ffn = grouped
         counts.append(wb["counts"])
         _free(torch)
         if cfg.moe is None:
@@ -2009,16 +2155,28 @@ def phase_serve_families(torch, store, queries, exact, smi):
 
 def phase_dense_family_models(torch, smi):
     """deepseek-v2-lite at depth 2 (its dense first layer and one MLA +
-    MoE layer) and mamba2-370m at depth 1, at full width: card fp32
-    logits of one-shot prefill + dense decode (neither has a paged path)
-    against the port's CPU fp32 logits on the same weights, then card
-    bf16, fed the card fp32 run's tokens, against card fp32 (printed)."""
+    MoE layer), mamba2-370m at depth 1 and jamba at depth 4 (its four
+    layer kinds; the experts cut to 2, top 2, so that fp32 fits: every
+    width stays full), at full width: card fp32 logits of one-shot
+    prefill + dense decode (none has a paged path) against the port's CPU
+    fp32 logits on the same weights, then card bf16, fed the card fp32
+    run's tokens, against card fp32 (printed)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    ctx, steps = 40, 6
     for arch, depth in DENSE_MODEL_DEPTH.items():
         cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        # jamba's CPU run multiplies 24 GB of fp32 weights a pass
+        ctx, steps = (16, 3) if arch == JAMBA else (40, 6)
+        if arch == JAMBA:
+            full = cfg.moe.num_experts
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, num_experts=JAMBA_MODEL_EXPERTS))
+            log(f"[model] {arch}: the experts cut from {full} to "
+                f"{cfg.moe.num_experts} (top {cfg.moe.top_k}) for the fp32 "
+                f"check: {cfg.weight_bytes(4)} B in fp32 at depth {depth}, "
+                f"where {full} experts would be "
+                f"{dataclasses.replace(get_config(arch), num_layers=depth).weight_bytes(4)} B")
         gpu, cpu = Model(cfg, device="cuda"), Model(cfg, device="cpu")
         p_gpu = _family_init(torch, cfg, 5, torch.float32, "cuda")
         p_cpu = _to_dev(p_gpu, "cpu")
@@ -2047,7 +2205,11 @@ def phase_dense_family_models(torch, smi):
                 f"{cfg.moe.num_experts} top {cfg.moe.top_k} + "
                 f"{cfg.moe.num_shared_experts} shared" if cfg.mla else
                 f"SSD d_inner {cfg.ssm.d_inner(cfg.d_model)}, state "
-                f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}")
+                f"{cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}"
+                + (f"; attention {cfg.num_heads}/{cfg.num_kv_heads} heads x "
+                   f"{cfg.resolved_head_dim}, MoE {cfg.moe.num_experts} "
+                   f"top {cfg.moe.top_k} of {cfg.moe.d_ff_expert}, dense "
+                   f"FFN {cfg.d_ff}" if cfg.moe else ""))
         log(f"[model] {arch} at full width, {depth} layer(s) "
             f"({cfg.layer_kinds()}; d_model {cfg.d_model}, {what}): card "
             f"fp32 vs CPU fp32 max logit err one-shot+dense {err:.3e} (tol "
@@ -2056,6 +2218,27 @@ def phase_dense_family_models(torch, smi):
             f"{float(got.abs().max()):.3f}; {smi})")
         del cpu, gpu, p_cpu, p_gpu, p_bf, runs, bf
         _free(torch)
+
+
+@contextlib.contextmanager
+def _recording_drops():
+    """Within the block, each call of the MoE's grouped GEMM that takes
+    the capacity path appends (rows dropped, rows) to the list given."""
+    from repro_torch.models import moe
+    drops = []
+    grouped = moe.grouped_ffn
+
+    def counting(p, xs, gs, kind, impl="auto"):
+        if impl == "auto" and xs.shape[0] >= moe.CAPACITY_THRESHOLD:
+            drops.append((int(moe.capacity_drops(gs, xs.shape[0])),
+                          xs.shape[0]))
+        return grouped(p, xs, gs, kind, impl)
+
+    moe.grouped_ffn = counting
+    try:
+        yield drops
+    finally:
+        moe.grouped_ffn = grouped
 
 
 def _refuses_paged(torch, tag, cfg, params, g):
@@ -2070,30 +2253,59 @@ def _refuses_paged(torch, tag, cfg, params, g):
     fail(f"[{tag}] paged=True did not raise")
 
 
-def _streamed_pass(torch, tag, cfg, params, prompts, max_new, kernels, smi):
+def _mem_available() -> int:
+    """The host's MemAvailable, in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def _streamed_pass(torch, tag, cfg, params, prompts, max_new, kernels, smi,
+                   policy=None, drop=False):
     """A streamed whole-batch ``Generator`` on ``prompts`` against the
     resident one on the same weights (tokens equal exactly), then one
     layer's pinned copy rate and a decode pass against its copy bound.
-    Fails unless each of ``kernels`` launched in the streamed run.
-    Returns the launch counts of the streamed run alone."""
+    ``drop``: once the executor has pinned its copy, the caller's layers
+    leave the card (``params["blocks"]`` is emptied) before the first pass
+    allocates the ring.  Fails unless each of ``kernels`` launched in the
+    streamed run, and unless the executor holds no more than ``top`` and
+    ``ring_slots`` slots of its largest layer (allocated memory grew by
+    the ring in the run).  Returns the launch counts of the streamed run
+    alone."""
     import gc
+    from repro_torch.core.prefetch import _pack_layout
     from repro_torch.kernels import ops
     from repro_torch.serving import Generator, GeneratorConfig
     g = GeneratorConfig(ctx_len=CTX, max_new_tokens=max_new,
                         dtype=torch.bfloat16)
     want = Generator(cfg, params, g, device="cuda").generate(prompts)
+    top = sum(t.numel() * t.element_size() for k, t in params.items()
+              if k != "blocks")
+    largest = max(_pack_layout(lp)[1] for lp in params["blocks"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gen = Generator(cfg, params, g, streamed=True, device="cuda")
+    gen = Generator(cfg, params, g, streamed=True, policy=policy,
+                    device="cuda")
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     ex = gen.exec
+    log(f"[{tag}] streamed: {ex.streamed_bytes} B pinned in {t_build:.1f} "
+        f"s; host MemAvailable after the pinning {_mem_available()} B")
+    if drop:
+        params["blocks"].clear()
+        gc.collect()
+        _free(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     got = gen.generate(prompts)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     counts = ops.launch_counts()
+    grown = torch.cuda.memory_allocated() - base
     if got != want:
         fail(f"[{tag}] streamed tokens differ from the resident Generator's "
              "on the same weights")
@@ -2101,6 +2313,13 @@ def _streamed_pass(torch, tag, cfg, params, prompts, max_new, kernels, smi):
     if missing:
         fail(f"[{tag}] kernels never launched on the streamed path: "
              f"{missing}")
+    bound = top + ex.ring_slots * largest
+    if ex.device_nbytes > bound or not ex.ring_nbytes <= grown \
+            <= ex.ring_nbytes + (64 << 20):
+        fail(f"[{tag}] the executor holds {ex.device_nbytes} B (bound: top "
+             f"{top} + {ex.ring_slots} x the largest layer {largest} = "
+             f"{bound} B); allocated memory grew by {grown} B in the run, "
+             f"its ring is {ex.ring_nbytes} B")
     cache = ex.init_caches(len(prompts), CTX + max_new, torch.bfloat16)
     cur = torch.zeros((len(prompts), 1), dtype=torch.int32, device="cuda")
     pos = torch.full((len(prompts),), CTX, dtype=torch.int32, device="cuda")
@@ -2108,7 +2327,11 @@ def _streamed_pass(torch, tag, cfg, params, prompts, max_new, kernels, smi):
         torch, ex, lambda: ex.decode(cur, cache, pos))
     log(f"[{tag}] streamed: {ex.n_layers} layers, {ex.streamed_bytes} B in "
         f"pinned host memory (built in {t_build:.1f} s), {ex.ring_slots} "
-        f"ring slots; {len(prompts)} prompts x {max_new} tokens in "
+        f"ring slots of {ex.slot_bytes} B (depth from the mean layer, "
+        f"{ex.layer_bytes:.0f} B); the executor holds {ex.device_nbytes} B "
+        f"on the device (bound: top + {ex.ring_slots} x the largest layer = "
+        f"{bound} B), allocated memory grew by {grown} B in its first run; "
+        f"{len(prompts)} prompts x {max_new} tokens in "
         f"{t_gen:.2f} s, tokens equal to the resident run's; the largest "
         f"layer ({nbytes} B) pinned host to device {copy_ms:.3f} ms, "
         f"{rate / 1e9:.2f} GB/s; a decode pass of {len(prompts)} rows "
@@ -2171,23 +2394,11 @@ def phase_serve_deepseek(torch, store, queries, exact, smi):
     rids = list(range(FAMILY_REQ))
     counts = []
     # (a) whole-batch, batches of 8: the capacity path's drops
-    drops = []
-    grouped = moe.grouped_ffn
-
-    def counting(p, xs, gs, kind, impl="auto"):
-        if impl == "auto" and xs.shape[0] >= moe.CAPACITY_THRESHOLD:
-            drops.append((int(moe.capacity_drops(gs, xs.shape[0])),
-                          xs.shape[0]))
-        return grouped(p, xs, gs, kind, impl)
-
-    moe.grouped_ffn = counting
-    try:
+    with _recording_drops() as drops:
         wb = _serve_few(torch, _family_engine(
             store, queries, Generator(cfg, params, g, device="cuda")),
             f"{tag} whole-batch", rids, FAMILY_NEW, DEEPSEEK_KERNELS, exact,
             smi, cfg.vocab_size)
-    finally:
-        moe.grouped_ffn = grouped
     counts.append(wb["counts"])
     _free(torch)
     first = drops[:cfg.num_layers - cfg.first_k_dense]
@@ -2276,8 +2487,9 @@ def phase_serve_mamba2(torch, store, queries, exact, smi):
     the dense ``ContinuousGenerator`` serve 8 requests of 16 tokens at ctx
     1024, the continuous tokens held to the whole-batch ones but at
     fp32-witnessed near ties; one profiled decode step; ``paged=True``
-    raises; then streamed at full depth.  Returns each run's launch
+    raises; then streamed at 8 layers.  Returns each run's launch
     counts."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.serving import ContinuousGenerator, Generator
     from repro_torch.serving import GeneratorConfig
@@ -2310,14 +2522,201 @@ def phase_serve_mamba2(torch, store, queries, exact, smi):
     _free(torch)
     _profile_dense_step(torch, tag, cfg, params, smi)
     _refuses_paged(torch, tag, cfg, params, g)
+    # streamed: the first layers, cut for time (the path is the same at
+    # any depth)
     prompts = [r.prompt for r in run["reqs"][:STREAMED_REQ]]
-    counts.append(_streamed_pass(torch, f"{tag} streamed", cfg, params,
-                                 prompts, STREAMED_NEW,
-                                 MAMBA2_STREAMED_KERNELS, smi))
+    cut = dataclasses.replace(cfg, num_layers=MAMBA2_STREAMED_DEPTH)
+    counts.append(_streamed_pass(
+        torch, f"{tag} streamed", cut,
+        dict(params, blocks=params["blocks"][:cut.num_layers]), prompts,
+        STREAMED_NEW, MAMBA2_STREAMED_KERNELS, smi))
     del params
     _free(torch)
     log(f"[{tag}] the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def phase_serve_jamba(torch, store, queries, exact, smi):
+    """jamba-1.5-large-398b at full width and depth 4 (its four layer
+    kinds: Mamba + dense, Mamba + MoE of 16 experts top 2 of 24576, Mamba +
+    dense, attention (64/8 heads x 128, RoPE) + MoE; 45.95 GB of seeded
+    bf16 weights built on the card; one 8-layer block, 90.26 GB, does not
+    fit) behind ``RagdollEngine``, 8 requests of 16 tokens at ctx 1024 on
+    the shared store: (a) the whole-batch ``Generator`` (its prefills of
+    4 or more requests take the capacity path: the drops are printed); (b)
+    the dense ``ContinuousGenerator`` (a join: 2048 rows, the exact path),
+    held to the whole-batch ``Generator`` run a request at a time but at
+    near ties witnessed in fp32 (``_fp32_row``: a layer at a time, a MoE
+    layer an expert at a time, since one MoE layer in fp32 is 40.3 GB);
+    ``paged=True`` raises; one profiled decode step; one 1024-token join
+    timed, with its peak memory.  Then streamed at depth 4 through a ring
+    of 2 slots of the largest layer (``max_depth=1``), the card's copy of
+    the layers dropped once the executor has pinned its own: 2 requests x
+    4 tokens equal to the resident run's.  Returns each run's launch
+    counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.prefetch import PrefetchPolicy
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, init_cache
+    from repro_torch.serving import ContinuousGenerator, Generator
+    from repro_torch.serving import GeneratorConfig
+    tag = "serve-jamba"
+    log(f"[{tag}] host MemAvailable at the start: {_mem_available()} B")
+    cfg = dataclasses.replace(get_config(JAMBA), num_layers=JAMBA_DEPTH)
+    t0 = time.perf_counter()
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    per_layer = [sum(t.numel() * t.element_size() for t in _leaves(lp))
+                 for lp in params["blocks"]]
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    m = cfg.moe
+    log(f"[{tag}] {cfg.num_layers} layers {list(cfg.layer_kinds())}, "
+        f"d_model {cfg.d_model}, attention {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, SSD d_inner "
+        f"{cfg.ssm.d_inner(cfg.d_model)} ({cfg.ssm.num_heads(cfg.d_model)} "
+        f"heads of {cfg.ssm.head_dim}), MoE {m.num_experts} experts top "
+        f"{m.top_k} of {m.d_ff_expert}; {nbytes} B of bf16 weights (layers "
+        f"{per_layer}) in {time.perf_counter() - t0:.1f} s")
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=FAMILY_NEW,
+                        dtype=torch.bfloat16)
+    rids = list(range(FAMILY_REQ))
+    counts = []
+    # (a) whole-batch: the capacity path's drops
+    with _recording_drops() as drops:
+        wb = _serve_few(torch, _family_engine(
+            store, queries, Generator(cfg, params, g, device="cuda")),
+            f"{tag} whole-batch", rids, FAMILY_NEW, WHOLE_BATCH_KERNELS,
+            exact, smi, cfg.vocab_size)
+    counts.append(wb["counts"])
+    _free(torch)
+    n_moe = sum(f == "moe" for _, f in cfg.layer_kinds())
+    log(f"[{tag}] the engine's whole-batch prefills on the capacity path: "
+        + (", ".join(f"{d} of {n} rows" for d, n in drops) or "none (its "
+           "batches held 3 requests or fewer: the exact path)")
+        + f" ({n_moe} MoE layers a prefill; {smi})")
+    # the 8 prompts in one whole-batch prefill: 16384 rows a MoE layer,
+    # the capacity path
+    prompts = [r.prompt for r in wb["reqs"]]
+    with _recording_drops() as drops:
+        t0 = time.perf_counter()
+        Generator(cfg, params, dataclasses.replace(g, max_new_tokens=1),
+                  device="cuda").generate(prompts)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+    if len(drops) != n_moe:
+        fail(f"[{tag}] a prefill of {len(prompts)} x {CTX} tokens took the "
+             f"capacity path in {len(drops)} of {n_moe} MoE layers")
+    log(f"[{tag}] one whole-batch prefill of {len(prompts)} x {CTX} tokens "
+        f"({drops[0][1]} rows a MoE layer, capacity "
+        f"{moe.capacity(drops[0][1], m.num_experts)} an expert) dropped "
+        f"{sum(d for d, _ in drops)} of {sum(n for _, n in drops)} rows "
+        f"({', '.join(str(d) for d, _ in drops)} by layer) in {t_pf:.3f} s "
+        f"({smi})")
+    _free(torch)
+    # (b) the dense continuous path
+    run = _serve_few(torch, _family_engine(
+        store, queries, ContinuousGenerator(cfg, params, g, num_slots=SLOTS,
+                                            device="cuda")),
+        f"{tag} dense continuous", rids, FAMILY_NEW, WHOLE_BATCH_KERNELS,
+        exact, smi, cfg.vocab_size)
+    counts.append(run["counts"])
+    _free(torch)
+    same = sum(wb["outputs"][r] == run["outputs"][r] for r in rids)
+    log(f"[{tag}] information only: {same}/{len(rids)} requests got the same "
+        f"tokens from the whole-batch path and the dense continuous path")
+    t0 = time.perf_counter()
+    one = Generator(cfg, params, g, device="cuda")
+    alone = {r.rid: one.generate([r.prompt])[0] for r in run["reqs"]}
+    del one
+    log(f"[{tag}] the whole-batch Generator a request at a time: "
+        f"{time.perf_counter() - t0:.2f} s for {len(rids)}")
+    _hold_tokens(torch, tag, cfg, params, run["reqs"], alone, smi, ctx=CTX,
+                 what="the whole-batch Generator a request at a time",
+                 layerwise=True)
+    _free(torch)
+    _refuses_paged(torch, tag, cfg, params, g)
+    _profile_dense_step(torch, tag, cfg, params, smi)
+    # one dense join: a 1024-token one-shot prefill at batch 1 (2048 rows
+    # a MoE layer on the exact path)
+    model = Model(cfg, device="cuda")
+    ids = torch.randint(2, cfg.vocab_size, (1, CTX), device="cuda",
+                        dtype=torch.int32)
+    join_s, peaks = [], []
+    for _ in range(3):
+        row = init_cache(cfg, 1, CTX + FAMILY_NEW, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model.prefill(params, ids, row)
+        torch.cuda.synchronize()
+        join_s.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del row
+    log(f"[{tag}] one dense join (1 x {CTX} tokens, one-shot prefill): "
+        f"{', '.join(f'{x:.3f}' for x in join_s)} s, {max(peaks)} B above "
+        f"the weights at its peak ({smi})")
+    del model
+    _free(torch)
+    prompts = [r.prompt for r in run["reqs"][:STREAMED_REQ]]
+    counts.append(_streamed_pass(torch, f"{tag} streamed", cfg, params,
+                                 prompts, STREAMED_NEW,
+                                 JAMBA_STREAMED_KERNELS, smi,
+                                 policy=PrefetchPolicy(max_depth=1),
+                                 drop=True))
+    del params
+    _free(torch)
+    return counts
+
+
+def phase_serve_llama70b(torch, store, queries, exact, smi):
+    """llama3-70b, the paper's 70B model, at full width and depth 4 (64/8
+    heads x 128: G = 8; 11.05 GB of seeded bf16 weights) behind
+    ``RagdollEngine``, 8 requests of 16 tokens at ctx 1024: the paged,
+    chunk-prefilled ``ContinuousGenerator`` (G = 8 paged decode, chunked
+    flash), then the whole-batch ``Generator`` (G = 8 dense decode); the
+    paged tokens held to the whole-batch ones but at fp32-witnessed near
+    ties, and both paths' logits, fed the whole-batch tokens, held to
+    fp32 at every step (``_teacher_forced``).  Returns each run's launch
+    counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ContinuousGenerator, Generator
+    from repro_torch.serving import GeneratorConfig
+    tag = "serve-llama70b"
+    cfg = dataclasses.replace(get_config(LLAMA70B), num_layers=LLAMA70B_DEPTH)
+    t0 = time.perf_counter()
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{tag}] {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{nbytes} B of bf16 weights in {time.perf_counter() - t0:.1f} s")
+    g = GeneratorConfig(ctx_len=CTX, max_new_tokens=FAMILY_NEW,
+                        dtype=torch.bfloat16)
+    rids = list(range(FAMILY_REQ))
+    run = _serve_few(torch, _family_engine(
+        store, queries, ContinuousGenerator(
+            cfg, params, g, num_slots=SLOTS, paged=True, page_size=PAGE,
+            prefill_chunk=CHUNK, device="cuda")),
+        tag, rids, FAMILY_NEW, CONTINUOUS_KERNELS, exact, smi,
+        cfg.vocab_size)
+    _free(torch)
+    wb = _serve_few(torch, _family_engine(
+        store, queries, Generator(cfg, params, g, device="cuda")),
+        f"{tag} whole-batch", rids, FAMILY_NEW, WHOLE_BATCH_KERNELS, exact,
+        smi, cfg.vocab_size)
+    _free(torch)
+    fp32 = _cast_params(torch, params, torch.float32)
+    _hold_tokens(torch, tag, cfg, params, run["reqs"], wb["outputs"], smi,
+                 ctx=CTX, what="the whole-batch Generator", fp32=fp32)
+    _teacher_forced(torch, tag, cfg, params, fp32, run["reqs"],
+                    wb["outputs"], smi)
+    del params, fp32
+    _free(torch)
+    return [run["counts"], wb["counts"]]
 
 
 def build_weights(torch):
@@ -2714,13 +3113,13 @@ def phase_serve_swap(torch, cfg, params, store, queries, exact, smi: str):
                 from torch.profiler import ProfilerActivity, profile
                 t0 = time.perf_counter()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    _pump(eng, list(range(N_REQ, N_REQ + PROFILE_REQ)))
+                    _pump(eng, list(range(N_REQ, N_REQ + SWAP_PROFILE_REQ)))
                     torch.cuda.synchronize()
                     window = time.perf_counter() - t0
                 log(f"[profile serve-swap] stopping the profiler took "
                     f"{time.perf_counter() - t0 - window:.2f} s more")
                 breakdown("serve-swap", _kernel_records(prof, torch),
-                          window, smi)
+                          window, smi, what=f"{SWAP_PROFILE_REQ} requests")
                 decode_step_kernels(torch, "serve-swap", gen.model, params,
                                     gen.cache, gen.kv.device_tab(),
                                     gen._total)
@@ -2747,24 +3146,84 @@ def _prefix_generator(torch, cfg, params, **kw):
         device="cuda", **kw)
 
 
-def _prefill_cast(torch, cfg, params, ids, dtype):
-    """One-shot prefill of ``ids`` (1, n) through the port's layers, each
-    layer's weights cast to ``dtype`` only while it runs: the fp32
-    function of a model whose fp32 copy does not fit beside its bf16 one
-    (deepseek-v2-lite: 63 GB).  Returns the last position's logits."""
-    from repro_torch.models import transformer
+def _expertwise_ffn(torch, grouped):
+    """``moe.grouped_ffn`` for fp32 rows against bf16 expert stacks: each
+    expert's three matrices cast to fp32 only while its rows run (2.4 GB
+    at jamba's 8192 x 24576, where a layer's 16 are 40.3 GB), every row
+    through its expert in fp32, as the exact path in fp32 computes it.
+    Other calls go to ``grouped``."""
+    from repro_torch.models import moe
+
+    def run(p, xs, gs, kind, impl="auto"):
+        if xs.dtype != torch.float32 or p["w_gate"].dtype == torch.float32:
+            return grouped(p, xs, gs, kind, impl)
+        out = torch.zeros(xs.shape, dtype=torch.float32, device=xs.device)
+        start = 0
+        for e, n in enumerate(gs.tolist()):
+            if n:
+                r = xs[start:start + n]
+                h = (moe._act(r @ p["w_gate"][e].float(), kind)
+                     * (r @ p["w_up"][e].float()))
+                out[start:start + n] = h @ p["w_down"][e].float()
+                start += n
+        return out
+    return run
+
+
+def _fp32_layer(torch, lp):
+    """A layer's weights in fp32 but expert stacks of more than
+    ``EXPERTWISE_BYTES`` in fp32, which stay as they are for
+    ``_expertwise_ffn``."""
+    out = {}
+    for k, v in lp.items():
+        if k == "moe" and 4 * sum(v[n].numel()
+                                  for n in EXPERT_STACKS) > EXPERTWISE_BYTES:
+            out[k] = {n: (t if n in EXPERT_STACKS
+                          else _cast_params(torch, t, torch.float32))
+                      for n, t in v.items()}
+        else:
+            out[k] = _cast_params(torch, v, torch.float32)
+    return out
+
+
+def _fp32_row(torch, cfg, params, ids, ctx):
+    """The fp32 function of a model whose fp32 copy does not fit beside
+    its bf16 one (deepseek-v2-lite: 63 GB; jamba at depth 4: 92 GB), each
+    layer's weights cast to fp32 only while it runs (``_fp32_layer``; a
+    large MoE layer an expert at a time): one-shot prefill of ``ids``, or,
+    where Mamba layers take only whole chunks, of ``ids[:, :ctx]`` and a
+    decode step for each later token, as the serving paths take them.
+    Returns the last position's logits."""
+    from repro_torch.models import moe, transformer
     from repro_torch.models.model import init_cache
+    f32 = torch.float32
     top = _cast_params(torch, {k: v for k, v in params.items()
-                               if k != "blocks"}, dtype)
-    cache = init_cache(cfg, 1, ids.shape[1], dtype, "cuda")
-    x, delta = transformer._embed_inputs(top, cfg, ids), None
-    for lp, kind, c in zip(params["blocks"], cfg.layer_kinds(),
-                           cache["blocks"]):
-        x, delta = transformer.apply_layer(
-            _cast_params(torch, lp, dtype), x, delta, cfg, kind,
-            mode="prefill", cache=c, pos=None, block_tab=None, kv_span=None)
-    x = transformer._final_norm(top, cfg, x[:, -1:], delta[:, -1:])
-    return transformer.unembed(top, cfg, x)[0, 0].float()
+                               if k != "blocks"}, f32)
+    cache = init_cache(cfg, 1, ids.shape[1], f32, "cuda")
+
+    def run(x_ids, mode, pos):
+        """The logits of the last of ``x_ids`` (1, n)."""
+        x, delta = transformer._embed_inputs(top, cfg, x_ids), None
+        for lp, kind, c in zip(params["blocks"], cfg.layer_kinds(),
+                               cache["blocks"]):
+            x, delta = transformer.apply_layer(
+                _fp32_layer(torch, lp), x, delta, cfg, kind, mode=mode,
+                cache=c, pos=pos, block_tab=None, kv_span=None)
+        x = transformer._final_norm(top, cfg, x[:, -1:], delta[:, -1:])
+        return transformer.unembed(top, cfg, x)[0, 0].float()
+
+    grouped = moe.grouped_ffn
+    moe.grouped_ffn = _expertwise_ffn(torch, grouped)
+    try:
+        if all(m != "mamba" for m, _ in cfg.layer_kinds()):
+            return run(ids, "prefill", None)    # one pass: the same function
+        row = run(ids[:, :ctx], "prefill", None)
+        for i in range(ctx, ids.shape[1]):
+            row = run(ids[:, i:i + 1], "decode",
+                      torch.full((1,), i, dtype=torch.int32, device="cuda"))
+    finally:
+        moe.grouped_ffn = grouped
+    return row
 
 
 def _near_tie(torch, cfg, params, fp32, req, got: str, ctx=PREFIX_CTX):
@@ -2772,7 +3231,7 @@ def _near_tie(torch, cfg, params, fp32, req, got: str, ctx=PREFIX_CTX):
     goes through one-shot prefill and run 1's tokens before that point a
     decode step each, as the serving paths take them, with the bf16
     weights and with ``fp32``, their cast (None: the fp32 row by
-    ``_prefill_cast``, a layer at a time).  Returns (position, run 1's
+    ``_fp32_row``, a layer at a time).  Returns (position, run 1's
     token, the other token, their fp32 logit gap, the largest bf16-fp32
     logit difference of that row)."""
     from repro_torch.models.model import Model, init_cache
@@ -2788,8 +3247,7 @@ def _near_tie(torch, cfg, params, fp32, req, got: str, ctx=PREFIX_CTX):
     with torch.no_grad():
         for name, p in (("bf16", params), ("fp32", fp32)):
             if p is None:
-                rows[name] = _prefill_cast(torch, cfg, params, ids,
-                                           torch.float32)
+                rows[name] = _fp32_row(torch, cfg, params, ids, ctx)
                 continue
             cache = init_cache(cfg, 1, ids.shape[1], p["embed"].dtype,
                                "cuda")
@@ -3023,6 +3481,7 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         gen = make()
+        gen.exec.reserve()            # the ring, which the first pass takes
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         ex = gen.exec
@@ -4117,61 +4576,80 @@ SOURCES = {
 def main() -> int:
     import torch
     t_start = time.perf_counter()
-    name, smi = phase_device(torch)
-    phase_build(torch)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name} took {phase_s[name]:.1f} s; host MemAvailable "
+            f"{_mem_available()} B")
+        return out
+
+    name, smi = timed("device", phase_device, torch)
+    timed("build", phase_build, torch)
     store_root = ROOT / "build" / "smoke_corpus"
     recluster_root = ROOT / "build" / "smoke_recluster"
     shutil.rmtree(store_root, ignore_errors=True)
     shutil.rmtree(recluster_root, ignore_errors=True)
     try:
-        store, queries, exact = phase_corpus(torch, store_root)
+        store, queries, exact = timed("corpus", phase_corpus, torch,
+                                      store_root)
         timer = Timer(torch)
-        rows = phase_kernels(torch, timer, store, queries)
-        phase_model(torch)
-        # the attention families, before the llama weights take the card
-        t0 = time.perf_counter()
-        family_rows = phase_family_kernels(torch, Timer(torch, iters=10),
-                                           smi)
-        log(f"[family-kernel] the phase took {time.perf_counter() - t0:.1f} s")
+        rows = timed("kernels", phase_kernels, torch, timer, store, queries)
+        timed("model", phase_model, torch)
+        # the other families, before the llama weights take the card
+        family_rows = timed("family-kernel", phase_family_kernels, torch,
+                            Timer(torch, iters=10), smi)
         del timer
-        t0 = time.perf_counter()
-        phase_family_models(torch, smi)
-        phase_dense_family_models(torch, smi)
-        log(f"[model] the families took {time.perf_counter() - t0:.1f} s")
-        families = (phase_serve_gemma2(torch, store, queries, exact, smi)
-                    + phase_serve_families(torch, store, queries, exact, smi)
-                    + phase_serve_deepseek(torch, store, queries, exact, smi)
-                    + phase_serve_mamba2(torch, store, queries, exact, smi))
-        cfg, params = build_weights(torch)
-        paged = phase_serve(torch, cfg, params, store, queries, exact, smi)
-        batch = phase_serve_batch(torch, cfg, params, store, queries, exact,
-                                  smi, paged["outputs"])
+        timed("family-models", phase_family_models, torch, smi)
+        timed("dense-family-models", phase_dense_family_models, torch, smi)
+        serve = (store, queries, exact, smi)
+        families = (timed("serve-gemma2", phase_serve_gemma2, torch, *serve)
+                    + timed("serve-families", phase_serve_families, torch,
+                            *serve)
+                    + timed("serve-deepseek", phase_serve_deepseek, torch,
+                            *serve)
+                    + timed("serve-mamba2", phase_serve_mamba2, torch,
+                            *serve))
+        g8 = (timed("serve-jamba", phase_serve_jamba, torch, *serve)
+              + timed("serve-llama70b", phase_serve_llama70b, torch, *serve))
+        cfg, params = timed("weights", build_weights, torch)
+        paged = timed("serve", phase_serve, torch, cfg, params, *serve)
+        batch = timed("serve-batch", phase_serve_batch, torch, cfg, params,
+                      *serve, paged["outputs"])
         sim_burst(cfg, store, batch, smi)
-        swap = phase_serve_swap(torch, cfg, params, store, queries, exact,
-                                smi)
-        prefix = phase_serve_prefix(torch, cfg, params, store, queries,
-                                    exact, smi)
-        streamed = phase_serve_streamed(torch, cfg, params, store, queries,
-                                        exact, smi, paged)
-        phase_store_recluster(torch, recluster_root, smi)
-        sharded = phase_serve_sharded(torch, cfg, params, store, queries,
-                                      exact, smi, paged)
+        swap = timed("serve-swap", phase_serve_swap, torch, cfg, params,
+                     *serve)
+        prefix = timed("serve-prefix", phase_serve_prefix, torch, cfg,
+                       params, *serve)
+        streamed = timed("serve-streamed", phase_serve_streamed, torch, cfg,
+                         params, *serve, paged)
+        timed("store", phase_store_recluster, torch, recluster_root, smi)
+        sharded = timed("serve-sharded", phase_serve_sharded, torch, cfg,
+                        params, *serve, paged)
         # last: its partition cache releases partitions to disk
-        placement = phase_serve_placement(torch, cfg, params, store, queries,
-                                          exact, smi, dict(batch, serve=paged))
+        placement = timed("serve-placement", phase_serve_placement, torch,
+                          cfg, params, *serve, dict(batch, serve=paged))
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
-            + prefix + [streamed, sharded] + placement + families)
+            + prefix + [streamed, sharded] + placement + families + g8)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         extra = ({"shapes": family_rows[kname]} if kname in family_rows
                  else {})
+        # the launches of the G = 8 models' runs, once a kernel: each is
+        # at 64/8 heads x 128 in bf16 (bf16 pages on the paged path)
+        if any(row["case"].startswith(("llama3-70b", "jamba"))
+               for row in extra.get("shapes", ())):
+            extra["launches_at_g8"] = sum(c[kname] for c in g8)
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
                             launches=sum(c[kname] for c in runs),
                             **rows[kname], **extra))
+    log(f"[time] phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

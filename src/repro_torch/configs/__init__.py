@@ -5,7 +5,8 @@ attention families that the paged pool takes (dense llama, gemma2-2b's
 local/global layers, gemma-7b's MHA, chatglm3-6b's QKV bias and half
 RoPE, granite-moe-1b-a400m's MoE FFN), the two that only the dense cache
 takes (deepseek-v2-lite-16b's MLA over a dense first layer and MoE layers
-with shared experts; mamba2-370m's SSD mixers), and the paper's
+with shared experts; mamba2-370m's SSD mixers; jamba-1.5-large-398b's
+hybrid of Mamba and attention mixers over dense and MoE FFNs), and the paper's
 llama3-70b, which the placement contracts price.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "mamba2-370m": "mamba2_370m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "llama3-70b": "llama3_70b",
 }
 

@@ -9,8 +9,14 @@ partition streamer sizes its lookahead with the same policy) and
 
 On the card each streamed layer lives in one pinned host buffer, its
 tensors at 256-byte-aligned offsets, so staging a layer is one
-host-to-device copy.  The copies run on a stream of their own into a
-ring of ``depth + 1`` layer-sized device slots allocated once: a
+host-to-device copy.  A buffer is allocated at its exact size and
+page-locked in place (``cudaHostRegister``): the caching host allocator
+behind ``pin_memory=True`` rounds a request up to a power of two (32 GiB
+for one of jamba's 20.1 GB layers) and keeps what it freed.  The copies
+run on a stream of their own into a ring of ``depth + 1`` device slots,
+each the size of the largest layer, allocated once, at the first pass
+(so a caller whose weights sit on the card can drop them once the
+executor has pinned its copy, before the ring takes their room): a
 ``ready`` event per slot orders each layer's compute after its copy, and
 a ``freed`` event per slot, recorded on the compute stream after the
 layer that read it, orders the next copy into that slot after the read.
@@ -20,6 +26,7 @@ logits bit for bit.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -65,6 +72,21 @@ def _leaves(tree, path=()):
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _pinned(nbytes: int) -> torch.Tensor:
+    """A host byte buffer of ``nbytes``, page-locked in place; unlocked
+    when the tensor is freed.  Its pages are touched first by a fill that
+    runs on every intra-op thread, so registering locks pages already
+    present rather than faulting each in on the one calling thread."""
+    buf = torch.zeros(nbytes, dtype=torch.uint8)
+    cudart = torch.cuda.cudart()
+    err = int(cudart.cudaHostRegister(buf.data_ptr(), nbytes, 0))
+    if err != 0:
+        raise RuntimeError(f"could not pin {nbytes} B of host memory for a "
+                           f"streamed layer (cudaHostRegister: {err})")
+    weakref.finalize(buf, cudart.cudaHostUnregister, buf.data_ptr())
+    return buf
 
 
 def _pack_layout(layer) -> Tuple[Layout, int]:
@@ -130,6 +152,7 @@ class StreamedExecutor:
         depth = max(policy.depth(p, free_bytes, self.layer_bytes)
                     for p in ("prefill", "decode"))
         self.ring_slots = min(depth + 1, len(streamed))
+        self.slot_bytes = 0           # the largest packed layer, on the card
         self._cuda = self.device.type == "cuda"
         if not self._cuda:
             self._host = [_to(lp, self.device) for lp in streamed]
@@ -137,34 +160,40 @@ class StreamedExecutor:
         # pinned host copies, one flat buffer a layer
         self._layouts: List[Layout] = []
         self._host = []
-        slot_bytes = 0
         for lp in streamed:
             layout, size = _pack_layout(lp)
-            buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
-            if not buf.is_pinned():
-                raise RuntimeError("could not pin a host buffer for a "
-                                   "streamed layer")
+            buf = _pinned(size)
             for (_, t), (_, shape, dtype, off) in zip(_leaves(lp), layout):
                 buf[off:off + _nbytes(t)].view(dtype).view(shape).copy_(t)
             self._layouts.append(layout)
             self._host.append(buf)
-            slot_bytes = max(slot_bytes, size)
-        self._ring = torch.empty((self.ring_slots, slot_bytes),
-                                 dtype=torch.uint8, device=self.device)
+            self.slot_bytes = max(self.slot_bytes, size)
+        self._ring: Optional[torch.Tensor] = None     # allocated by reserve
         self._copy = torch.cuda.Stream(device=self.device)
         self._ready = [torch.cuda.Event() for _ in range(self.ring_slots)]
         self._freed = [torch.cuda.Event() for _ in range(self.ring_slots)]
 
     @property
+    def ring_nbytes(self) -> int:
+        """Device bytes of the ring: ``ring_slots`` slots of the largest
+        streamed layer (0 on the CPU, where nothing is copied)."""
+        return self.ring_slots * self.slot_bytes if self._cuda else 0
+
+    @property
     def device_nbytes(self) -> int:
-        """Device bytes the executor holds: ``top``, the resident layers
-        and the ring (on the CPU: ``top`` and the resident layers)."""
+        """Device bytes the executor holds while it runs: ``top``, the
+        resident layers and the ring (on the CPU: ``top`` and the
+        resident layers)."""
         held = sum(_nbytes(t) for _, t in _leaves(self.top))
         held += sum(_nbytes(t) for lp in self._resident
                     for _, t in _leaves(lp))
-        if self._cuda:
-            held += _nbytes(self._ring)
-        return held
+        return held + self.ring_nbytes
+
+    def reserve(self) -> None:
+        """Allocate the ring now (the first pass does it otherwise)."""
+        if self._cuda and self._ring is None:
+            self._ring = torch.empty((self.ring_slots, self.slot_bytes),
+                                     dtype=torch.uint8, device=self.device)
 
     # ------------------------------------------------------------ helpers
     def _stage(self, i: int) -> Tuple[Dict[str, Any], int]:
@@ -194,6 +223,7 @@ class StreamedExecutor:
             raise RuntimeError(f"depth {depth} needs more than the "
                                f"{self.ring_slots} ring slots sized at "
                                "construction (policy or free_bytes changed)")
+        self.reserve()
         compute = (torch.cuda.current_stream(self.device) if self._cuda
                    else None)
         staged: Dict[int, Tuple[Dict[str, Any], Optional[int]]] = {}

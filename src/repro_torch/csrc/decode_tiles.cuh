@@ -41,9 +41,11 @@
 // query heads: all of them for G <= 4, else 4, and then the block's warps
 // split the heads into G / 4 groups that each read every staged row (G =
 // 16, chatglm3: 4 groups of 4, a warp a group, each over all 32 tokens of
-// a unit), so each K/V row still leaves device memory once for all G
-// heads.  A warp takes tiles of T tokens of a unit (T * Gw (token, head)
-// pairs, 32 for Gw = 4; T = 8 at most): a lane holds D/32 elements of each
+// a unit; G = 8, llama3-70b and jamba: 2 groups of 4, two warps a group,
+// each over two 8-token tiles of a unit), so each K/V row still leaves
+// device memory once for all G heads.  A warp takes tiles of T tokens of
+// a unit (T * Gw (token, head) pairs, 32 for Gw = 4; T = 8 at most): a
+// lane holds D/32 elements of each
 // of its query heads and of a tile's K and V rows in registers (a lane's
 // elements are 32 apart, d = e * 32 + lane, so a warp reads contiguous
 // spans of a row).  The warp reduces the tile's 32
@@ -539,12 +541,23 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 //   G = 1:  EPL 1, 8      (reduced, gemma-7b D = 256)
 //   G = 2:  EPL 1, 2, 4, 8 (reduced, granite D = 64, D = 128, gemma2 D = 256)
 //   G = 4:  EPL 1, 4      (reduced, llama3-8b D = 128)
+//   G = 8:  EPL 1, 4      (reduced, llama3-70b and jamba D = 128)
 //   G = 16: EPL 1, 4      (reduced, chatglm3-6b D = 128)
-// Others return cudaErrorInvalidValue; kernels/paged_attention.py's
-// BUILT_SHAPES mirrors this table.
-__host__ __device__ constexpr bool built(int G, int EPL) {
-  return (G == 1 && (EPL == 1 || EPL == 8)) || G == 2
-         || ((G == 4 || G == 16) && (EPL == 1 || EPL == 4));
+// Others return cudaErrorInvalidValue.  kBuilt is the one table:
+// built() and dispatch read it, and decode_built_shapes reports it, which
+// kernels/paged_attention.py holds its BUILT_SHAPES to when it loads a
+// decode library.
+struct Shape {
+  int g, epl;
+};
+constexpr Shape kBuilt[] = {{1, 1}, {1, 8}, {2, 1}, {2, 2}, {2, 4}, {2, 8}, {4, 1},
+                            {4, 4}, {8, 1}, {8, 4}, {16, 1}, {16, 4}};
+constexpr int kNumBuilt = sizeof(kBuilt) / sizeof(kBuilt[0]);
+
+constexpr bool built(int G, int EPL) {
+  for (int i = 0; i < kNumBuilt; ++i)
+    if (kBuilt[i].g == G && kBuilt[i].epl == EPL) return true;
+  return false;
 }
 
 template <typename QT, typename KT, int G, int EPL, bool kDense>
@@ -569,6 +582,7 @@ cudaError_t dispatch_group(const Args& a, int B, cudaStream_t stream) {
     case 1: return dispatch_dim<QT, KT, 1, kDense>(a, B, stream);
     case 2: return dispatch_dim<QT, KT, 2, kDense>(a, B, stream);
     case 4: return dispatch_dim<QT, KT, 4, kDense>(a, B, stream);
+    case 8: return dispatch_dim<QT, KT, 8, kDense>(a, B, stream);
     case 16: return dispatch_dim<QT, KT, 16, kDense>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -612,4 +626,14 @@ extern "C" void decode_launch_shape(int* info) {
   info[0] = kWarps;
   info[1] = kStages;
   info[2] = kUnit;
+}
+
+// The built (G, EPL) pairs, G then EPL, into out (room for cap pairs);
+// returns how many there are.
+extern "C" int decode_built_shapes(int* out, int cap) {
+  for (int i = 0; i < kNumBuilt && i < cap; ++i) {
+    out[2 * i] = kBuilt[i].g;
+    out[2 * i + 1] = kBuilt[i].epl;
+  }
+  return kNumBuilt;
 }

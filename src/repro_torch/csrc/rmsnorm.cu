@@ -14,7 +14,8 @@
 // saves that add's launch and its trip through memory (64 of a forward's
 // 65 norms follow an add).  Design: one block a row, every element held in
 // registers (16-byte vector loads, one a thread up to 1024 threads, at
-// most 2), so x, r and w are read once; the weight loads are issued first, s is
+// most 2, or 4 where a row needs them), so x, r and w are read once; the
+// weight loads are issued first, s is
 // stored as soon as it is formed (before the reduction), and the reduction
 // is fp32: a warp butterfly, one shared-memory step, a second butterfly.  s rounds to x's type before it
 // is squared, as the eager `x + r` then the norm does, so s is bit-equal
@@ -29,8 +30,10 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxVecs = 2;   // vectors a thread holds: few registers, so
-                              // two blocks of 512 fit an SM
+// vectors a thread holds: 2, few registers, so two blocks of 512 fit an
+// SM; 4 only for rows that 1024 threads of 2 do not hold (jamba's Mamba
+// gate norm over d_inner 16384 in fp32)
+constexpr int kMaxVecs = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -76,7 +79,7 @@ __device__ __forceinline__ void store(P* p, const P& v) {
 }
 
 // kVec elements of T a vector (16 bytes, or 1 where rows are not aligned)
-template <typename T, typename W, bool kResidual, int kVec>
+template <typename T, typename W, bool kResidual, int kVec, int kVecs>
 __global__ void __launch_bounds__(kMaxThreads)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
                const W* __restrict__ w, T* __restrict__ s_out, T* __restrict__ y,
@@ -88,16 +91,16 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
   const VT* xv = reinterpret_cast<const VT*>(x + row);
   const VW* wv = reinterpret_cast<const VW*>(w);
 
-  VW wr[kMaxVecs];
+  VW wr[kVecs];
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
+  for (int i = 0; i < kVecs; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
     if (v < nvec) wr[i] = load(wv + v);
   }
-  float sv[kMaxVecs][kVec];
+  float sv[kVecs][kVec];
   float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
+  for (int i = 0; i < kVecs; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
     if (v < nvec) {
       const VT a = load(xv + v);
@@ -132,7 +135,7 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
   const float inv = rsqrtf(total / d + eps);
 
 #pragma unroll
-  for (int i = 0; i < kMaxVecs; ++i) {
+  for (int i = 0; i < kVecs; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
     if (v < nvec) {
       VT out;
@@ -150,10 +153,17 @@ cudaError_t launch(const void* x, const void* r, const void* w, void* s, void* y
   // a vector a thread where a row allows it: the shortest chain of loads
   int threads = (nvec + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  if ((nvec + threads - 1) / threads > kMaxVecs) return cudaErrorInvalidValue;
-  rmsnorm_kernel<T, W, kResidual, kVec><<<rows, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const W*>(w),
-      static_cast<T*>(s), static_cast<T*>(y), d, eps);
+  const int vecs = (nvec + threads - 1) / threads;
+  if (vecs > kMaxVecs) return cudaErrorInvalidValue;
+  if (vecs <= 2) {
+    rmsnorm_kernel<T, W, kResidual, kVec, 2><<<rows, threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const W*>(w),
+        static_cast<T*>(s), static_cast<T*>(y), d, eps);
+  } else {
+    rmsnorm_kernel<T, W, kResidual, kVec, kMaxVecs><<<rows, threads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const W*>(w),
+        static_cast<T*>(s), static_cast<T*>(y), d, eps);
+  }
   return cudaGetLastError();
 }
 

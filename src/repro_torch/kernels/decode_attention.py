@@ -23,7 +23,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import check_decode_shape, split_plan
+from repro_torch.kernels.paged_attention import (_check_built,
+                                                 check_decode_shape,
+                                                 split_plan)
 from repro_torch.kernels.ref import NEG_INF, _softcap
 
 # a dense cache's splits are made of this many tokens (two per stage unit)
@@ -39,6 +41,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("decode_attention")
     fn = lib.decode_attention
     if fn.argtypes is None:
+        _check_built(lib)
         fn.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _F, _I, _I, _I, _I, _P]
         fn.restype = _I
     return lib

@@ -39,11 +39,27 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # (query heads a kv head) -> the head-dim buckets the decode kernels are
-# built for (csrc/decode_tiles.cuh, ``built``): a head dim takes the
-# smallest bucket that holds it
+# built for: a head dim takes the smallest bucket that holds it.  The
+# kernels' own table is ``kBuilt`` in csrc/decode_tiles.cuh, as (G, head
+# dim / 32) pairs; ``_check_built`` holds this one to it when a decode
+# library loads, so the two cannot part silently
 BUILT_SHAPES = {1: (32, 256), 2: (32, 64, 128, 256), 4: (32, 128),
-                16: (32, 128)}
+                8: (32, 128), 16: (32, 128)}
 _DIM_BUCKETS = (32, 64, 128, 256)
+
+
+def _check_built(lib: ctypes.CDLL) -> None:
+    """Raise unless the library's ``kBuilt`` pairs are ``BUILT_SHAPES``."""
+    lib.decode_built_shapes.argtypes = [ctypes.POINTER(_I), _I]
+    lib.decode_built_shapes.restype = _I
+    want = {(g, b // 32) for g, bs in BUILT_SHAPES.items() for b in bs}
+    buf = (_I * (2 * len(want)))()
+    n = lib.decode_built_shapes(buf, len(want))
+    got = set(zip(buf[0:2 * n:2], buf[1:2 * n:2]))
+    if n != len(want) or got != want:
+        raise RuntimeError(f"BUILT_SHAPES {BUILT_SHAPES} is not the decode "
+                           f"kernels' kBuilt ({n} (G, EPL) pairs: "
+                           f"{sorted(got)})")
 
 
 def check_decode_shape(h: int, kvh: int, d: int) -> None:
@@ -114,6 +130,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("paged_attention")
     fn = lib.paged_decode_attention
     if fn.argtypes is None:
+        _check_built(lib)
         fn.argtypes = [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _I, _P]
         fn.restype = _I
         lib.decode_launch_shape.argtypes = [ctypes.POINTER(ctypes.c_int)]

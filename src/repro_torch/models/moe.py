@@ -7,10 +7,14 @@ its rows, and add the weighted rows back to their tokens.  Two grouped
 GEMMs, as in the reference:
 
 * exact (``_grouped_ffn``, below ``CAPACITY_THRESHOLD`` rows): every row
-  goes through its expert.  ``lax.ragged_dot`` becomes one batched product
+  goes through its expert.  ``lax.ragged_dot`` becomes batched products
   over a zero-padded ``(E, T * K, D)`` buffer, so no group size is read
   back to the host: a decode step issues the same few launches whatever
-  the routing;
+  the routing.  The products go through in runs of experts, as few as
+  keep a run's fp32 intermediates under ``EXACT_RUN_BYTES`` (one run at a
+  decode step and at deepseek's 6144-row join; jamba's 16 experts of
+  24576 take two runs of 8 at a 1024-token join, where one would need
+  12 GiB);
 * capacity (``_grouped_ffn_capacity``, at or above it): each expert takes
   a window of ``cap`` rows from its group's start, clamped to ``tk - cap``
   and masked to its own group, so rows past an expert's capacity are
@@ -37,6 +41,9 @@ from repro_torch.models import layers
 # rows (tokens x top-k) at or above this switch to the capacity path
 CAPACITY_THRESHOLD = 8192
 CAPACITY_FACTOR = 1.25
+# the exact path's fp32 intermediates (gate, up, activation, product) a
+# run of experts may hold at once
+EXACT_RUN_BYTES = 10 << 30
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
@@ -92,16 +99,26 @@ def _group_index(gs: torch.Tensor, tk: int
     return expert, torch.arange(tk, device=gs.device) - starts[expert]
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm_f32(a: torch.Tensor, b: torch.Tensor,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``bmm`` of same-typed operands with an fp32 result.  On the card
     ``out_dtype`` accumulates bf16 operands into fp32 output; the CPU build
     has no kernel for it, so there the operands go to fp32 first (exact:
     a product of two bf16 values fits in fp32)."""
     if a.dtype == torch.float32:
-        return torch.bmm(a, b)
+        return torch.bmm(a, b, out=out)
     if a.device.type == "cuda":
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
+        return torch.bmm(a, b, out_dtype=torch.float32, out=out)
+    return torch.bmm(a.float(), b.float(), out=out)
+
+
+def exact_run(tk: int, num_experts: int, d_ff: int) -> int:
+    """Experts a run of the exact path takes at ``tk`` rows: the fewest
+    runs that keep four fp32 ``(tk, d_ff)`` intermediates an expert under
+    ``EXACT_RUN_BYTES``, the experts spread evenly over them."""
+    most = max(1, EXACT_RUN_BYTES // max(4 * tk * d_ff * 4, 1))
+    runs = -(-num_experts // most)
+    return -(-num_experts // runs)
 
 
 def _grouped_ffn(p: dict, xs: torch.Tensor, gs: torch.Tensor,
@@ -111,16 +128,26 @@ def _grouped_ffn(p: dict, xs: torch.Tensor, gs: torch.Tensor,
     Exact: every row meets its expert's weights; the products in fp32
     (``_mm_f32``), the activation in fp32, the hidden rows rounded to
     ``xs``'s type before ``w_down``, as the reference's ``ragged_dot``
-    with ``preferred_element_type=f32``."""
+    with ``preferred_element_type=f32``.  The experts go through
+    ``exact_run`` at a time (from shapes alone), each run's down product
+    written into its experts' slice of one output."""
     tk, d = xs.shape
     e = gs.shape[0]
     expert, at = _group_index(gs, tk)
     buf = xs.new_zeros((e, tk, d))
     buf[expert, at] = xs
-    g = _mm_f32(buf, p["w_gate"])
-    u = _mm_f32(buf, p["w_up"])
-    h = (_act(g, mlp_kind) * u).to(xs.dtype)
-    y = _mm_f32(h, p["w_down"])
+    y = None
+    run = exact_run(tk, e, p["w_gate"].shape[-1])
+    for e0 in range(0, e, run):
+        r = slice(e0, e0 + run)
+        g = _mm_f32(buf[r], p["w_gate"][r])
+        u = _mm_f32(buf[r], p["w_up"][r])
+        h = (_act(g, mlp_kind) * u).to(xs.dtype)
+        del g, u
+        if y is None:        # once the first run's intermediates are gone
+            y = torch.empty((e, tk, d), dtype=torch.float32,
+                            device=xs.device)
+        _mm_f32(h, p["w_down"][r], out=y[r])
     return y[expert, at]
 
 

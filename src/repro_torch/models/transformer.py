@@ -9,8 +9,9 @@ offset for them).  The FFNs: a ``dense`` MLP (SwiGLU, GeGLU or GELU), a
 ``first_k_dense`` layers take a dense MLP of ``first_dense_d_ff`` where
 the pattern says ``moe``, as ``cfg.layer_kinds()`` says.  QKV bias,
 partial RoPE, attention and final logit softcaps, scaled and tied
-embeddings as the config says.  Encoder-decoder stacks, non-token
-frontends and hybrid Mamba + attention stacks are refused
+embeddings as the config says.  Mixers may mix in one stack (jamba's
+Mamba layers beside attention layers, each with its own cache leaves).
+Encoder-decoder stacks and non-token frontends are refused
 (``_check_family``).
 
 Parameters are a plain dict of tensors in the JAX package's layouts, with
@@ -44,17 +45,16 @@ FFNS = ("dense", "moe", "none")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The stacks the port serves: token frontends, no encoder, and no
-    hybrid of Mamba and attention mixers (jamba's, still to come)."""
+    """The stacks the port serves: token frontends and no encoder (the
+    embed frontend and the encoder-decoder stack are still to come)."""
     mixers = {k for k, _ in cfg.layer_kinds()}
     ffns = {f for _, f in cfg.layer_kinds()}
     if (cfg.encdec or cfg.frontend != "token"
             or mixers - set(MIXERS) or ffns - set(FFNS)
-            or ("mamba" in mixers and len(mixers) > 1)
             or ("moe" in ffns and cfg.moe is None)):
         raise NotImplementedError(
             f"{cfg.name}: the port serves attn/local, mla or mamba mixers "
-            f"(mamba alone) with dense, moe or no FFNs and a token frontend "
+            f"with dense, moe or no FFNs and a token frontend "
             f"(got mixers {sorted(mixers)}, ffns {sorted(ffns)}, "
             f"encdec={cfg.encdec}, frontend={cfg.frontend!r})")
 

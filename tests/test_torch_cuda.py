@@ -54,9 +54,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("h,d", [(4, 16), (8, 16), (4, 128), (8, 128)])
+@pytest.mark.parametrize("h,d", [(4, 16), (8, 16), (16, 16), (4, 128),
+                                 (8, 128), (16, 128)])
 def test_paged_decode_kernel_on_card(cuda_device, quant, h, d):
-    """Every (query heads per kv head, head_dim) variant the kernel builds."""
+    """Every (query heads per kv head, head_dim) variant the kernel builds
+    at head dims 16 and 128: G = 2, 4 and 8 (two kv heads)."""
     q, k, v, tab, kv_len, ks, vs = _paged_inputs(quant, h, d)
     args = [_t(a).to(cuda_device) for a in (q, k, v, tab, kv_len)]
     kw = {} if ks is None else dict(k_scale=_t(ks).to(cuda_device),
@@ -155,12 +157,13 @@ def _decode_case(dev, dtype, h, d, seed=12):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,d", [(4, 16), (8, 16), (4, 128), (8, 128)])
+@pytest.mark.parametrize("h,d", [(4, 16), (8, 16), (16, 16), (4, 128),
+                                 (8, 128), (16, 128)])
 @pytest.mark.parametrize("window,softcap", [(None, None), (50, 5.0)])
 def test_dense_decode_kernel_on_card(cuda_device, dtype, h, d, window,
                                      softcap):
-    """Every compiled (query heads per kv head, head_dim) variant, fp32
-    (2e-5) and bf16 caches."""
+    """Every compiled (query heads per kv head, head_dim) variant at head
+    dims 16 and 128 (G = 2, 4 and 8), fp32 (2e-5) and bf16 caches."""
     q, k, v, kv_len = _decode_case(cuda_device, dtype, h, d)
     kw = dict(window=window, softcap=softcap)
     before = ops.launch_counts()["decode_attention"]
@@ -366,10 +369,11 @@ def test_flash_attention_prefix_suffix_on_card(cuda_device, dtype, sq,
 
 
 # ------------------------------------------ the attention families' shapes
-# (query heads, kv heads, head dim): gemma2-2b, gemma-7b, chatglm3-6b and
-# granite-moe-1b-a400m
-FAMILY_SHAPES = [(8, 4, 256), (16, 16, 256), (32, 2, 128), (16, 8, 64)]
-FAMILY_IDS = ["gemma2", "gemma7b", "chatglm3", "granite"]
+# (query heads, kv heads, head dim): gemma2-2b, gemma-7b, chatglm3-6b,
+# granite-moe-1b-a400m, and llama3-70b's and jamba's attention (G = 8)
+FAMILY_SHAPES = [(8, 4, 256), (16, 16, 256), (32, 2, 128), (16, 8, 64),
+                 (64, 8, 128)]
+FAMILY_IDS = ["gemma2", "gemma7b", "chatglm3", "granite", "llama70b"]
 
 
 @pytest.mark.cuda
@@ -379,7 +383,7 @@ FAMILY_IDS = ["gemma2", "gemma7b", "chatglm3", "granite"]
 @pytest.mark.parametrize("window,softcap", [(None, None), (100, 50.0)])
 def test_paged_decode_family_shapes_on_card(cuda_device, h, kvh, d,
                                             kv_dtype, window, softcap):
-    """Pages of 16 over 40 pages a slot, in splits: G = 1, 2 and 16 query
+    """Pages of 16 over 40 pages a slot, in splits: G = 1, 2, 8 and 16 query
     heads a kv head at head dims 64, 128 and 256, bf16, fp32 and int8
     pages, with and without window and softcap; a dead slot on page 0."""
     lengths = [1, 17, 300, 640, -1]
@@ -739,6 +743,24 @@ def test_rmsnorm_dense_family_widths_on_card(cuda_device, fused, rows, d):
                        torch.bfloat16)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(8, 8192), (8, 16384), (300, 16384)])
+def test_rmsnorm_hybrid_widths_on_card(cuda_device, fused, dtype, rows, d):
+    """jamba's widths: d_model 8192 and its Mamba gate norm over d_inner
+    16384, in bf16 and fp32 (fp32 at 16384 holds 4 vectors a thread, the
+    variant no narrower row takes)."""
+    x, r, _ = _norm_inputs(cuda_device, dtype, rows, d, seed=d)
+    w = _norm_inputs(cuda_device, dtype, 1, d, seed=d + 1)[2]
+    if fused:
+        s, y = ops.add_rmsnorm(x, r, w, 1e-5)
+        assert torch.equal(s, x + r)
+    else:
+        s, y = x, ops.rmsnorm(x, w, 1e-5)
+    _assert_norm_close(y, ops.rmsnorm(s, w, 1e-5, impl="ref"), dtype)
+
+
 # ------------------------------------------------------- top-k merge
 def _merge_inputs(q, p, k, seed):
     """(Q, P, k) sorted boards under a probe mask: row 0 all masked, row 1
@@ -1043,5 +1065,63 @@ def test_streamed_ring_orders_copies_and_reads(cuda_device, monkeypatch,
         pos = torch.full((b,), ctx + t, dtype=torch.int32, device=cuda_device)
         got.append(ex.decode(curs[t], cache, pos))
     assert ex.passes == steps + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_streamed_ring_over_uneven_layers(cuda_device):
+    """jamba reduced (Mamba + dense, Mamba + MoE and attention + MoE
+    layers, three sizes) at ``max_depth=1``: the depth comes from the mean
+    layer, each of the two ring slots is the largest layer's size, the
+    ring is allocated at the first pass, not before, so the caller can
+    drop its weights first: after that, the device holds ``top`` and the
+    ring and nothing else of the weights.  A prefill and three decode
+    passes give the resident ``Model``'s logits bit for bit."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.prefetch import (PrefetchPolicy, StreamedExecutor,
+                                           _pack_layout)
+    from repro_torch.models.model import Model, init_cache
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    model = Model(cfg, device=cuda_device)
+    params = model.init(seed=3, dtype=torch.float32)
+    sizes = [_pack_layout(lp)[1] for lp in params["blocks"]]
+    assert len(set(sizes)) == 3
+    b, ctx, steps = 2, 16, 3
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(2, cfg.vocab_size, (b, ctx), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    cache = init_cache(cfg, b, ctx + steps, torch.float32, cuda_device)
+    want, curs = [model.prefill(params, toks, cache)], []
+    for t in range(steps):
+        curs.append(want[-1].argmax(-1)[:, None].to(torch.int32))
+        pos = torch.full((b,), ctx + t, dtype=torch.int32, device=cuda_device)
+        want.append(model.decode(params, curs[-1], cache, pos))
+    ex = StreamedExecutor(cfg, params, PrefetchPolicy(max_depth=1),
+                          device=cuda_device)
+    assert ex.ring_slots == 2 and ex.slot_bytes == max(sizes)
+    assert ex.ring_nbytes == 2 * max(sizes)
+    top = sum(t.numel() * t.element_size()
+              for k, v in params.items() if k != "blocks"
+              for t in ([v] if torch.is_tensor(v) else v.values()))
+    assert ex.device_nbytes == top + ex.ring_nbytes
+    assert ex._ring is None
+    params["blocks"].clear()              # the caller drops its layers
+    del params
+    gc.collect()
+    cache = init_cache(cfg, b, ctx + steps, torch.float32, cuda_device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    got = [ex.prefill(toks, cache)]
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(cuda_device) - before
+    # the ring, and the logits the pass returned (allocations round to
+    # 512 bytes)
+    logits = got[0].numel() * got[0].element_size()
+    assert ex.ring_nbytes <= grown <= ex.ring_nbytes + logits + 4096
+    for t in range(steps):
+        pos = torch.full((b,), ctx + t, dtype=torch.int32, device=cuda_device)
+        got.append(ex.decode(curs[t], cache, pos))
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -5,9 +5,10 @@ layers, attention softcap 50, final softcap 30, GeGLU, tied and scaled
 embeddings), gemma-7b (MHA), chatglm3-6b (QKV bias, RoPE on half the head
 dims) and granite-moe-1b-a400m (the MoE FFN), at ``.reduced()`` size, in
 fp32 on the CPU, on the same converted weights and the same prompts.
-``reduced()`` keeps at most 2 kv heads, so two more variants set the head
-groupings: ``num_kv_heads=4`` (G = 1) and ``num_heads=32,
-num_kv_heads=2`` (G = 16).  Its sliding window is 16 tokens, and the
+``reduced()`` keeps at most 2 kv heads, so three more variants set the
+head groupings: ``num_kv_heads=4`` (G = 1), ``num_heads=32,
+num_kv_heads=2`` (G = 16) and llama3-70b's ``num_heads=16,
+num_kv_heads=2`` (G = 8, its full size's 64/8).  Its sliding window is 16 tokens, and the
 prompts here are 24, so the window masks in every mode.  chatglm3's
 biases are drawn at random here (the reference initialises them to
 zero, which would test nothing).
@@ -71,9 +72,10 @@ VARIANTS = [
     ("granite-moe-1b-a400m", {}, 0),
     ("gemma2-2b", {"num_kv_heads": 4}, 0),                  # G = 1
     ("chatglm3-6b", {"num_heads": 32, "num_kv_heads": 2}, 0),  # G = 16
+    ("llama3-70b", {"num_heads": 16, "num_kv_heads": 2}, 2),   # G = 8
 ]
 VARIANT_IDS = ["gemma2", "gemma7b", "chatglm3", "granite", "gemma2-g1",
-               "chatglm3-g16"]
+               "chatglm3-g16", "llama70b-g8"]
 CTX, MAX_NEW, PAGE, CHUNK, STEPS = 24, 5, 8, 8, 6
 MARGIN, INT8_MARGIN = 1e-3, 2e-3
 LOGIT_TOL, INT8_TOL = 3e-4, 2e-3
@@ -158,6 +160,8 @@ def test_registry_serves_the_attention_families():
     # and the two dense-cache families (tests/test_torch_mla.py,
     # tests/test_torch_ssm.py)
     assert {"deepseek-v2-lite-16b", "mamba2-370m"} <= set(ASSIGNED_ARCHS)
+    # and the hybrid (tests/test_torch_hybrid.py)
+    assert "jamba-1.5-large-398b" in ASSIGNED_ARCHS
     assert "llama3-70b" not in ASSIGNED_ARCHS
     assert set(all_configs()) <= set(jax_all_configs())
     assert set(all_configs()) == set(ASSIGNED_ARCHS) | {"llama3-70b"}
@@ -166,14 +170,14 @@ def test_registry_serves_the_attention_families():
 
 
 def test_family_check_refuses_the_other_mixers():
-    """The hybrid (jamba: Mamba beside attention) and the embed frontend
-    (seamless, chameleon) wait; MLA and Mamba alone are served."""
+    """The embed frontend (seamless, chameleon) waits; MLA, Mamba and the
+    hybrid of Mamba beside attention (jamba) are served."""
     from repro_torch.models.transformer import _check_family
-    for arch in ("jamba-1.5-large-398b", "seamless-m4t-medium",
-                 "chameleon-34b"):
+    for arch in ("seamless-m4t-medium", "chameleon-34b"):
         with pytest.raises(NotImplementedError):
             _check_family(jax_get_config(arch))
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m"):
+    for arch in ("deepseek-v2-lite-16b", "mamba2-370m",
+                 "jamba-1.5-large-398b"):
         _check_family(jax_get_config(arch))
 
 

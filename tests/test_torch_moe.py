@@ -134,6 +134,41 @@ def test_grouped_ffn_exact_matches_jax(mlp_kind, wide):
     np.testing.assert_allclose(got, want, atol=TOL)
 
 
+@pytest.mark.parametrize("run", [1, 3])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_grouped_ffn_exact_runs_of_experts_match_one_run(monkeypatch, run,
+                                                         dtype):
+    """The exact path in runs of ``run`` experts (``EXACT_RUN_BYTES``
+    lowered to fit that many; 32 experts top 8, an empty group) gives the
+    one-run result bit for bit and JAX's to its bar."""
+    jcfg, _ = _cfgs()
+    jcfg = _wide_moe(jcfg)
+    if dtype == "bf16":
+        jp, tp = _experts_bf16(jcfg, 21)
+    else:
+        jp, tp = _params(jcfg, 21)
+    xs, gs = _sorted_rows(jp, _tokens(5, jcfg.d_model, 22), jcfg.moe)
+    gs_np = np.asarray(gs)
+    assert (gs_np == 0).any()
+    xt = torch.from_numpy(np.array(xs, dtype=np.float32))
+    if dtype == "bf16":
+        xt = xt.to(torch.bfloat16)
+    one = moe.grouped_ffn(tp, xt, torch.from_numpy(gs_np), "swiglu",
+                          impl="ragged")
+    tk, f = xt.shape[0], tp["w_gate"].shape[-1]
+    monkeypatch.setattr(moe, "EXACT_RUN_BYTES", run * 4 * tk * f * 4)
+    assert moe.exact_run(tk, jcfg.moe.num_experts, f) == run
+    got = moe.grouped_ffn(tp, xt, torch.from_numpy(gs_np), "swiglu",
+                          impl="ragged")
+    assert torch.equal(got, one)
+    want = np.asarray(jmoe.grouped_ffn(
+        jp, jnp.asarray(xt.float().numpy()).astype(
+            jnp.bfloat16 if dtype == "bf16" else jnp.float32),
+        jnp.asarray(gs_np), "swiglu", impl="ragged"))
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=BF16_TOL if dtype == "bf16" else TOL)
+
+
 @pytest.mark.parametrize("skew", [0.0, 2.0, 6.0])
 @pytest.mark.parametrize("wide", [False, True])
 def test_grouped_ffn_capacity_drops_the_reference_rows(skew, wide):
