@@ -94,8 +94,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               chunk-prefilled path (the G = 8 paged decode) and the
               whole-batch path (the G = 8 dense decode), 8 requests of 16
               tokens, held to each other at fp32-witnessed near ties; the
-              model phase holds it at depth 2, card fp32 against CPU
+              model phase holds it at one layer, card fp32 against CPU
               fp32.
+5i. serve-seamless -- seamless-m4t-medium (the embed frontend's
+              encoder-decoder: 12 bidirectional encoder layers, 12 decoder
+              layers with cross attention, 16/16 heads x 64) at full width
+              and depth through ``Model``, the one path the reference
+              serves it on: 8 requests of 1024 seeded encoder frames and a
+              16-token prompt, 32 greedy tokens; each request's tokens equal
+              to its tokens run alone but at fp32-witnessed near ties;
+              ``Generator``, ``PagedKVCache`` and ``StreamedExecutor``
+              refuse it.  The family-kernel phase holds the flash kernel
+              never causal at 16/16 x 64 (the encoder's (8, 1024) and
+              (8, 1000), the cross (8, 128) against (8, 1024); bf16, fp32)
+              and both decode kernels at G = 1, D = 64 (the cross read at
+              1024 and 1000 frames, the self read at 17-160); the model
+              phase holds it at 2 + 2 layers, card fp32 against CPU fp32.
+5j. serve-chameleon -- chameleon-34b (embedding inputs, no token table)
+              at full width and depth (48 layers, 67.5 GB of bf16 weights
+              seeded on the card once every earlier family is freed): 8
+              prompts of 1024 embeddings, 16 decode steps over stub
+              embeddings, every step's logits on 2 rows within twice the
+              bf16 one-shot prefill's error of fp32 (both a layer at a
+              time); then its first 8 layers resident and streamed, the
+              logits equal.  The model phase holds it at 2 layers.
 6. serve   -- llama3-8b at full width (bf16, seeded random weights) behind a
               threaded ``RagdollEngine`` with a paged, chunk-prefilled
               ``ContinuousGenerator``: 16 RAG requests, each checked for 32
@@ -136,10 +158,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               streamed bytes, the device bytes it holds, which must stay
               within ``top`` plus ``max_depth + 1`` layers); (a) a streamed
               whole-batch ``Generator`` on 8 of serve's prompts must give
-              the resident one's tokens exactly; (b) the streamed paged,
+              the resident one's 8 tokens exactly; (b) the streamed paged,
               chunk-prefilled ``ContinuousGenerator`` behind a threaded
-              ``RagdollEngine`` serves the 16 requests (p50, p95, tokens/s,
-              passes, bytes staged) with serve's tokens, or leaves them
+              ``RagdollEngine`` serves 8 of the 16 requests, no warm-up
+              first (p50, p95, tokens/s, passes, bytes staged) with
+              serve's tokens, or leaves them
               first at a near tie witnessed in fp32 (joiners' chunks ride
               one padded call, other matmul shapes than serve's); then one
               layer's pinned copy rate, the mean decode pass against its
@@ -235,6 +258,10 @@ RAGGED_CHUNK = 200          # a prefill chunk shorter than the kernel's tiles
 MIXED_LENGTHS = (1, 17, 300, 1056, 1, 17, 300, 1056)
 SERIAL_BATCH = 4            # launch/serve.py --serial
 N_REQ, WARMUP_REQ, PROFILE_REQ, TOP_K = 16, 2, 8, 5
+# serve-streamed, cut for time: its whole-batch check takes 8 tokens a
+# prompt, and its engine run no warm-up (2 requests took 14-15 s at the
+# copy bound) and 8 of serve's requests (16 took 32-38 s)
+STREAMED_BATCH_NEW, STREAMED_REQS = 8, 8
 CORPUS_N, CORPUS_DIM, PARTITIONS, SPILLED = 1_000_000, 768, 64, 16
 
 FP32_ATTN_TOL = 2e-5        # fp32 pages: sum order only
@@ -329,10 +356,12 @@ MAMBA2_STREAMED_KERNELS = ("rmsnorm",)
 # hybrid on the dense paths at depth 4 (45.95 GB: its four layer kinds,
 # (mamba, dense), (mamba, moe), (mamba, dense), (attn, moe); one 8-layer
 # block is 90.26 GB, more than the card).  Card fp32 against CPU fp32:
-# llama3-70b at depth 2, jamba at depth 4 with its experts cut to 2 (top
-# 2; every width full: 16 experts in fp32 are 92 GB).  jamba streams its
-# 4 layers through a ring of 2 slots of its largest layer (max_depth 1)
-LLAMA70B_MODEL_DEPTH, LLAMA70B_DEPTH, JAMBA_DEPTH = 2, 4, 4
+# llama3-70b at one layer, as the other attention families (its second
+# layer took about 10 of the check's 45 s: cut for time), jamba at depth 4
+# with its experts cut to 2 (top 2; every width full: 16 experts in fp32
+# are 92 GB).  jamba streams its 4 layers through a ring of 2 slots of its
+# largest layer (max_depth 1)
+LLAMA70B_DEPTH, JAMBA_DEPTH = 4, 4
 LONG_DECODE = 32_000        # one row's kv_len: the dense kernel's splits
 # the fp32 witness casts a MoE layer an expert at a time where its experts
 # in fp32 pass this (jamba: 40.3 GB a layer; deepseek's 2.2 GB cast whole)
@@ -340,6 +369,26 @@ EXPERT_STACKS = ("w_gate", "w_up", "w_down")
 EXPERTWISE_BYTES = 4 << 30
 JAMBA_MODEL_EXPERTS = 2
 JAMBA_STREAMED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+# the embed frontend: seamless-m4t-medium's encoder-decoder (16/16 heads x
+# 64: G = 1; 12 + 12 layers) and chameleon-34b's embedding inputs (64/8 x
+# 128, 48 layers, 67.5 GB of bf16 weights: the most the card holds).
+# serve-seamless: 8 requests of 1024 seeded encoder frames, a 16-token
+# decoder prompt and 32 greedy tokens; the kernel rows hold the cross
+# attention at the served 16 rows and at the decoder's 1024 x 0.125 rows
+# against 1024 frames, the causal self-prefill at 16, and the self decode
+# at 17-160 tokens.  serve-chameleon: 8 prompts of 1024
+# embeddings and 16 decode steps over seeded stub embeddings, every step
+# held to fp32 on 2 rows; streamed at 8 layers (cut for host memory and
+# time), 2 rows x 4 steps.  The model checks take seamless at 2 + 2 layers
+# and chameleon at 2, card fp32 against CPU fp32
+SEAMLESS, CHAMELEON = "seamless-m4t-medium", "chameleon-34b"
+ENC_FRAMES, SEAMLESS_PROMPT, SEAMLESS_NEW = 1024, 16, 32
+SEAMLESS_CROSS_Q = 128
+SEAMLESS_SELF_LENS = (17, 37, 57, 77, 97, 117, 137, 160)
+CHAMELEON_STEPS, CHAMELEON_WITNESS = 16, (0, 5)
+CHAMELEON_STREAMED_DEPTH, CHAMELEON_STREAMED_STEPS = 8, 4
+ENCDEC_MODEL_LAYERS = 2
+EMBED_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # the recluster check's store, apart from the shared one
 RECLUSTER_N, RECLUSTER_PARTS, RECLUSTER_SPILLED, RECLUSTER_HOT = (
     100_000, 16, 4, 2)
@@ -584,6 +633,8 @@ REDESIGNED = ("flash_wgmma_kernel<128,", "flash_wgmma_kernel<192,",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 8, 4>",
               "decode_kernel<float, float, 8, 4>",
+              "decode_kernel<__nv_bfloat16, __nv_bfloat16, 1, 2>",
+              "decode_kernel<float, float, 1, 2>",
               "decode_combine_kernel<__nv_bfloat16>",
               "topk_stream_kernel",
               "rmsnorm_kernel<__nv_bfloat16, __nv_bfloat16, true, 8, 2>",
@@ -642,7 +693,12 @@ def phase_build(torch):
             ("one-shot", SLOTS, CTX, HEADS, HEAD_DIM, HEAD_DIM),
             ("chunk", 1, CHUNK, HEADS, HEAD_DIM, HEAD_DIM),
             ("deepseek one-shot, 16 heads, q/k 192, v 128", SLOTS, CTX, 16,
-             192, 128)):
+             192, 128),
+            ("seamless encoder, 16 heads x 64", SLOTS, ENC_FRAMES, 16, 64, 64),
+            ("seamless cross and self-prefill, served prompt", SLOTS,
+             SEAMLESS_PROMPT, 16, 64, 64),
+            ("seamless cross, 16 heads x 64", SLOTS, SEAMLESS_CROSS_Q, 16, 64,
+             64)):
         shp = fa.launch_shape(b, sq, h, d, dv)
         log(f"[build] flash_wgmma_kernel {case} ({b} x {sq}): "
             f"{shp['blocks']} persistent blocks x {shp['threads']} threads "
@@ -753,9 +809,10 @@ def _paged_bytes_ops(torch, q, k, tab, kv_len, window, scales):
     return nbytes, ops
 
 
-def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window, dv=None):
+def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window, dv=None,
+                     causal=True):
     """Bytes of q, k, v and o, each moved once, and 2 * (D + DV) flops per
-    unmasked (query, key) pair and head (causal); ``dv`` defaults to D."""
+    unmasked (query, key) pair and head; ``dv`` defaults to D."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dv = d if dv is None else dv
@@ -764,7 +821,8 @@ def _flash_bytes_ops(torch, q, k, kv_len, q_offset, window, dv=None):
     lens = (kv_len.long().cpu() if kv_len is not None
             else torch.full((b,), sk, dtype=torch.long))
     q_pos = offs[:, None] + torch.arange(sq)                   # (B, Sq)
-    hi = torch.minimum(lens[:, None], q_pos + 1)
+    hi = (torch.minimum(lens[:, None], q_pos + 1) if causal
+          else lens[:, None].expand(b, sq))
     lo = (q_pos - window + 1).clamp(min=0) if window else torch.zeros_like(hi)
     pairs = int((hi - lo).clamp(min=0).sum())
     nbytes = ((b * sq * h + b * sk * kvh) * (d + dv) * q.element_size()
@@ -1382,8 +1440,10 @@ def phase_family_kernels(torch, timer, smi):
     window 4096, softcap 50), gemma-7b (16/16 x 256), chatglm3-6b (32/2 x
     128), granite-moe-1b-a400m (16/8 x 64) and llama3-70b and jamba (64/8
     x 128: G = 8; paged over bf16, int8 and fp32 pages, dense in bf16 and
-    fp32 and one 32000-token row), and RMSNorm at their widths, each
-    against its plain version.  gemma2's cases sit where
+    fp32 and one 32000-token row), seamless-m4t-medium (16/16 x 64: G = 1;
+    the flash kernel never causal, Sq != Sk for its cross attention; the
+    dense decode at its cross and self lengths), and RMSNorm at their
+    widths, each against its plain version.  gemma2's cases sit where
     its window masks: paged and dense decode at kv_len 4100-6200, a prefill
     chunk at q_offset 5888.  Returns {kernel: [case rows]} for the
     ``kernels`` line."""
@@ -1397,7 +1457,8 @@ def phase_family_kernels(torch, timer, smi):
                               "flash_attention", "rmsnorm")}
     dims = {a: (c.num_heads, c.num_kv_heads, c.resolved_head_dim, c.d_model)
             for a, c in ((a, get_config(a))
-                         for a in FAMILY_ARCHS + (LLAMA70B, JAMBA))}
+                         for a in FAMILY_ARCHS + (LLAMA70B, JAMBA,
+                                                  SEAMLESS))}
 
     def randn(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -1442,6 +1503,8 @@ def phase_family_kernels(torch, timer, smi):
             ("llama3-70b int8 pages + scales", LLAMA70B, torch.int8,
              ctx_lens, none),
             ("llama3-70b fp32 pages", LLAMA70B, torch.float32, ctx_lens,
+             none),
+            ("seamless bf16 pages", SEAMLESS, torch.bfloat16, ctx_lens,
              none)):
         h, kvh, d, _ = dims[arch]
         nmax = -(-max(lens) // PAGE)
@@ -1495,18 +1558,13 @@ def phase_family_kernels(torch, timer, smi):
     # ---- dense decode: 8 rows against a dense cache (jamba's attention
     # layer: 64/8 x 128 in bf16 and fp32, and one long row in many splits)
     bf16 = torch.bfloat16
-    for case, arch, lens, kw, dt in (
-            ("gemma2 bf16", "gemma2-2b", long_lens, win, bf16),
-            ("gemma-7b bf16", "gemma-7b", ctx_lens, none, bf16),
-            ("chatglm3 bf16", "chatglm3-6b", ctx_lens, none, bf16),
-            ("granite bf16", "granite-moe-1b-a400m", ctx_lens, none, bf16),
-            ("jamba bf16", JAMBA, ctx_lens, none, bf16),
-            ("jamba fp32", JAMBA, ctx_lens, none, torch.float32),
-            ("jamba bf16, one long row", JAMBA, (LONG_DECODE,), none, bf16)):
+
+    def dense_case(case, arch, lens, kw, dt, s_len=None):
         h, kvh, d, _ = dims[arch]
         rows = len(lens)
-        s_len = (max(lens) + 200 if kw["window"] else
-                 max(CTX + MAX_NEW, max(lens)))
+        if s_len is None:
+            s_len = (max(lens) + 200 if kw["window"] else
+                     max(CTX + MAX_NEW, max(lens)))
         q = randn((rows, h, d), dt)
         k = randn((rows, s_len, kvh, d), dt)
         v = randn((rows, s_len, kvh, d), dt)
@@ -1538,11 +1596,80 @@ def phase_family_kernels(torch, timer, smi):
                lib_ms, bound_ms(nbytes, nops, PEAK_FP32), note)
         del q, k, v, got, want, wmean
 
+    for args in (
+            ("gemma2 bf16", "gemma2-2b", long_lens, win, bf16),
+            ("gemma-7b bf16", "gemma-7b", ctx_lens, none, bf16),
+            ("chatglm3 bf16", "chatglm3-6b", ctx_lens, none, bf16),
+            ("granite bf16", "granite-moe-1b-a400m", ctx_lens, none, bf16),
+            ("jamba bf16", JAMBA, ctx_lens, none, bf16),
+            ("jamba fp32", JAMBA, ctx_lens, none, torch.float32),
+            ("jamba bf16, one long row", JAMBA, (LONG_DECODE,), none, bf16)):
+        dense_case(*args)
+    # seamless-m4t-medium (16/16 x 64, G = 1): the cross decode over the
+    # encoder's frames (and a ragged 1000), the decoder's self decode at
+    # its short lengths
+    for dt, name in ((bf16, "bf16"), (torch.float32, "fp32")):
+        for what, lens in (("cross", (ENC_FRAMES,) * SLOTS),
+                           ("cross ragged", (1000,) * SLOTS),
+                           ("self", SEAMLESS_SELF_LENS)):
+            dense_case(f"seamless {what} {name}", SEAMLESS, lens, none, dt,
+                       max(lens))
+
     # ---- flash: one-shot (8, 1024) and gemma2's chunk deep in a long
     # prompt (q_offset 5888 of 6144: the window masks its first keys); the
     # fp32 chunk is the int8 pages' chunked prefill
     long_off = LONG_CTX - CHUNK
-    for case, arch, dt, b, sq, sk, off, kw in (
+
+    def flash_case(case, arch, dt, b, sq, sk, off, kw, causal=True):
+        h, kvh, d, _ = dims[arch]
+        q = randn((b, sq, h, d), dt)
+        k = randn((b, sk, kvh, d), dt)
+        v = randn((b, sk, kvh, d), dt)
+        kwf = dict(causal=causal, **kw)
+        if off is not None:
+            kwf.update(q_offset=torch.full((b,), off, dtype=torch.int32,
+                                           device="cuda"),
+                       kv_len=torch.full((b,), off + sq, dtype=torch.int32,
+                                         device="cuda"))
+        got = ops.flash_attention(q, k, v, **kwf)
+        want = ops.flash_attention(q, k, v, impl="ref", **kwf)
+        wmean = None
+        if dt == torch.bfloat16:
+            wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                        impl="ref", **kwf)
+        err = check(f"flash {case}", got, want, wmean)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        note = "" if kw["window"] is None else " (SDPA, no softcap)"
+        if off is None and kw["window"] is None:
+            lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                        enable_gqa=True))
+        else:
+            q_pos = (off or 0) + torch.arange(sq, device="cuda")
+            k_pos = torch.arange(sk, device="cuda")
+            live = ((k_pos[None, :] <= q_pos[:, None])
+                    & (k_pos[None, :] < (off or 0) + sq))
+            if kw["window"]:
+                live &= k_pos[None, :] > q_pos[:, None] - kw["window"]
+            mask = live[None, None]
+            lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=True))
+        nbytes, nops = _flash_bytes_ops(torch, q, k, kwf.get("kv_len"),
+                                        kwf.get("q_offset", 0), kw["window"],
+                                        causal=causal)
+        where = ("" if off is None else f" at q_offset {off} of {sk}")
+        if sk != sq and off is None:
+            where += f" against ({b}, {sk})"
+        report("flash_attention", f"{case} ({b}, {sq}) x {h}/{kvh} heads x "
+               f"{d}{where}" + ("" if causal else ", not causal")
+               + (f", window {kw['window']} softcap {kw['softcap']:g}"
+                  if kw["window"] else ""),
+               err, timer(lambda: ops.flash_attention(q, k, v, **kwf)),
+               timer(lambda: ops.flash_attention(q, k, v, impl="ref", **kwf)),
+               lib_ms, bound_ms(nbytes, nops, PEAK_BF16
+                                if dt == torch.bfloat16 else PEAK_FP32), note)
+        del q, k, v, got, want, wmean
+
+    for args in (
             ("gemma2 one-shot bf16", "gemma2-2b", torch.bfloat16, SLOTS, CTX,
              CTX, None, win),
             ("gemma2 chunk bf16", "gemma2-2b", torch.bfloat16, 1, CHUNK,
@@ -1561,49 +1688,23 @@ def phase_family_kernels(torch, timer, smi):
              SLOTS, CTX, CTX, None, none),
             ("llama3-70b chunk bf16", LLAMA70B, torch.bfloat16, 1, CHUNK,
              CTX, CTX - CHUNK, none)):
-        h, kvh, d, _ = dims[arch]
-        q = randn((b, sq, h, d), dt)
-        k = randn((b, sk, kvh, d), dt)
-        v = randn((b, sk, kvh, d), dt)
-        kwf = dict(causal=True, **kw)
-        if off is not None:
-            kwf.update(q_offset=torch.full((b,), off, dtype=torch.int32,
-                                           device="cuda"),
-                       kv_len=torch.full((b,), off + sq, dtype=torch.int32,
-                                         device="cuda"))
-        got = ops.flash_attention(q, k, v, **kwf)
-        want = ops.flash_attention(q, k, v, impl="ref", **kwf)
-        wmean = None
-        if dt == torch.bfloat16:
-            wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
-                                        impl="ref", **kwf)
-        err = check(f"flash {case}", got, want, wmean)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        note = "" if kw["window"] is None else " (SDPA, no softcap)"
-        if off is None and kw["window"] is None:
-            lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True))
-        else:
-            q_pos = (off or 0) + torch.arange(sq, device="cuda")
-            k_pos = torch.arange(sk, device="cuda")
-            live = ((k_pos[None, :] <= q_pos[:, None])
-                    & (k_pos[None, :] < (off or 0) + sq))
-            if kw["window"]:
-                live &= k_pos[None, :] > q_pos[:, None] - kw["window"]
-            mask = live[None, None]
-            lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                        enable_gqa=True))
-        nbytes, nops = _flash_bytes_ops(torch, q, k, kwf.get("kv_len"),
-                                        kwf.get("q_offset", 0), kw["window"])
-        where = ("" if off is None else f" at q_offset {off} of {sk}")
-        report("flash_attention", f"{case} ({b}, {sq}) x {h}/{kvh} heads x "
-               f"{d}{where}" + (f", window {kw['window']} softcap "
-                                f"{kw['softcap']:g}" if kw["window"] else ""),
-               err, timer(lambda: ops.flash_attention(q, k, v, **kwf)),
-               timer(lambda: ops.flash_attention(q, k, v, impl="ref", **kwf)),
-               lib_ms, bound_ms(nbytes, nops, PEAK_BF16
-                                if dt == torch.bfloat16 else PEAK_FP32), note)
-        del q, k, v, got, want, wmean
+        flash_case(*args)
+    # seamless: its encoder (bidirectional, Sq = Sk, and a ragged 1000);
+    # its cross attention, never causal, the decoder's rows against the
+    # encoder's frames: serve-seamless's 16-token prompts (one q tile,
+    # mostly empty) and 1024 x 0.125 = 128 rows (a full tile); and the
+    # decoder's causal self-prefill of the served prompts
+    for dt in (bf16, torch.float32):
+        name = "bf16" if dt == bf16 else "fp32"
+        for what, sq, sk, causal in (
+                ("encoder", ENC_FRAMES, ENC_FRAMES, False),
+                ("encoder ragged", 1000, 1000, False),
+                ("cross", SEAMLESS_PROMPT, ENC_FRAMES, False),
+                ("cross", SEAMLESS_CROSS_Q, ENC_FRAMES, False),
+                ("decoder self-prefill", SEAMLESS_PROMPT, SEAMLESS_PROMPT,
+                 True)):
+            flash_case(f"seamless {what} {name}", SEAMLESS, dt, SLOTS, sq,
+                       sk, None, none, causal=causal)
 
     # ---- MLA's flash (deepseek-v2-lite): 16/16 heads, q and k of 192
     # columns (128 nope + 64 rope), v of 128, causal, scale 192**-0.5;
@@ -1724,7 +1825,7 @@ def phase_family_kernels(torch, timer, smi):
 
 def phase_family_models(torch, smi):
     """Each family at full width and the depth of one pattern repeat (two
-    layers for gemma2, one for the others; llama3-70b at two, its G = 8
+    layers for gemma2, one for the others; llama3-70b for its G = 8
     decode): card fp32 logits against the port's CPU fp32 logits (chunked
     prefill + paged decode, one-shot prefill + dense decode), then card
     bf16 on both paths, fed the fp32 card run's tokens, against each other
@@ -1735,10 +1836,8 @@ def phase_family_models(torch, smi):
     page = 8
     for arch in FAMILY_ARCHS + (LLAMA70B,):
         full = get_config(arch)
-        depth = (LLAMA70B_MODEL_DEPTH if arch == LLAMA70B
-                 else len(full.layer_pattern))
-        cfg = dataclasses.replace(full, num_layers=depth)
-        # llama3-70b's CPU run multiplies 15 GB of fp32 weights a pass:
+        cfg = dataclasses.replace(full, num_layers=len(full.layer_pattern))
+        # llama3-70b's CPU run multiplies 11 GB of fp32 weights a pass:
         # fewer tokens and steps (3 chunks and 2 decode steps still)
         ctx, chunk, steps = (24, 8, 3) if arch == LLAMA70B else (40, 16, 6)
         cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
@@ -1962,12 +2061,14 @@ def _teacher_forced(torch, tag, cfg, params, fp32, reqs, other, smi):
 
 
 def profile_decode_step(torch, tag, model, params, cache, block_tab, span,
-                        smi) -> None:
-    """One decode step of ``SLOTS`` slots at position ``CTX`` under the
-    profiler: its device kernels, busy and idle share, time by kind."""
+                        smi, cur=None, at=CTX) -> None:
+    """One decode step of ``SLOTS`` slots at position ``at`` under the
+    profiler: its device kernels, busy and idle share, time by kind.
+    ``cur``: the step's inputs (default: token 0 in every slot)."""
     from torch.profiler import ProfilerActivity, profile
-    cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
-    pos = torch.full((SLOTS,), CTX, dtype=torch.int32, device="cuda")
+    if cur is None:
+        cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((SLOTS,), at, dtype=torch.int32, device="cuda")
     model.decode(params, cur, cache, pos, block_tab, kv_span=span)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2719,6 +2820,420 @@ def phase_serve_llama70b(torch, store, queries, exact, smi):
     return [run["counts"], wb["counts"]]
 
 
+def phase_embed_models(torch, smi):
+    """The embed frontend at full width, card fp32 logits against the
+    port's CPU fp32 logits on the same weights, at ``FAMILY_LOGIT_TOL``:
+    seamless-m4t-medium at 2 + 2 layers (the encoder's output over 64
+    frames, then the decoder's prefill of 8 tokens and 3 dense decode
+    steps fed the CPU run's greedy tokens) and chameleon-34b at 2 layers
+    (prefill over 16 embeddings, 3 decode steps over stub embeddings)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model, init_cache
+    n_enc, n_dec, steps, n_cham = 64, 8, 3, 16
+    f32 = torch.float32
+    for arch in (SEAMLESS, CHAMELEON):
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=ENCDEC_MODEL_LAYERS)
+        if cfg.encdec:
+            cfg = dataclasses.replace(
+                cfg, num_encoder_layers=ENCDEC_MODEL_LAYERS)
+        p_gpu = _family_init(torch, cfg, 5, f32, "cuda")
+        p_cpu = _to_dev(p_gpu, "cpu")
+        g = torch.Generator().manual_seed(6)
+        d = cfg.d_model
+        frames = torch.randn((2, n_enc, d), generator=g)
+        prompt = (torch.randint(2, cfg.vocab_size, (2, n_dec), generator=g,
+                                dtype=torch.int32) if cfg.encdec
+                  else torch.randn((2, n_cham, d), generator=g))
+        stubs = torch.randn((steps, 2, 1, d), generator=g)
+        n = prompt.shape[1]
+        runs, fed = {}, None
+        for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            model = Model(cfg, device=dev)
+            enc_len = n_enc if cfg.encdec else None
+            cache = init_cache(cfg, 2, n + steps, f32, dev, enc_len=enc_len)
+            out = []
+            if cfg.encdec:
+                out.append(transformer.encode(params, cfg,
+                                              frames.to(dev)).cpu())
+            lg = model.prefill(params, prompt.to(dev), cache,
+                               enc_embeds=frames.to(dev) if cfg.encdec
+                               else None)
+            rows, toks = [lg.cpu()], []
+            for t in range(steps):
+                if cfg.encdec:
+                    cur = (rows[-1].argmax(-1).to(torch.int32)[:, None]
+                           if fed is None else fed[t])
+                    toks.append(cur)
+                else:
+                    cur = stubs[t]
+                pos = torch.full((2,), n + t, dtype=torch.int32, device=dev)
+                rows.append(model.decode(params, cur.to(dev), cache,
+                                         pos).cpu())
+            fed = fed or toks
+            runs[dev] = out + [torch.stack(rows)]
+            del cache, model
+        errs = [check_close(f"[model] {arch} fp32 {name}", got, want,
+                            atol=FAMILY_LOGIT_TOL)
+                for name, got, want in zip(
+                    ("encoder output", "logits")[-len(runs["cpu"]):],
+                    runs["cuda"], runs["cpu"])]
+        if not torch.equal(runs["cuda"][-1].argmax(-1),
+                           runs["cpu"][-1].argmax(-1)):
+            fail(f"[model] {arch}: greedy tokens differ between card and "
+                 "CPU")
+        what = (f"{cfg.num_encoder_layers} encoder + {cfg.num_layers} "
+                f"decoder layers, encoder output over {n_enc} frames max "
+                f"err {errs[0]:.3e}, then prefill of {n} tokens" if cfg.encdec
+                else f"{cfg.num_layers} layers, no token table: prefill of "
+                f"{n} embeddings")
+        log(f"[model] {arch} at full width ({cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, d_model "
+            f"{d}), {what} "
+            f"+ {steps} dense decode steps: card fp32 vs CPU fp32 max logit "
+            f"err {errs[-1]:.3e} (tol {FAMILY_LOGIT_TOL}), greedy tokens "
+            f"equal ({smi})")
+        del p_gpu, p_cpu, runs
+        _free(torch)
+
+
+def _seamless_tokens(torch, cfg, model, params, frames, prompts, new):
+    """Greedy tokens of ``prompts`` (B, P) over ``frames`` (B, S_enc, D)
+    through ``Model.prefill(enc_embeds=...)`` and ``new - 1`` dense
+    decode steps.  Returns the tokens (B, new) on the host and the ms of
+    the prefill (the encoder's included) and of a decode step."""
+    from repro_torch.models.model import init_cache
+    b, n = prompts.shape
+    dt = params["final_norm"].dtype
+    cache = init_cache(cfg, b, n + new, dt, "cuda", enc_len=frames.shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur = model.prefill(params, prompts, cache,
+                        enc_embeds=frames.to(dt)).argmax(-1)
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    toks = [cur]
+    for t in range(new - 1):
+        pos = torch.full((b,), n + t, dtype=torch.int32, device="cuda")
+        cur = model.decode(params, cur.to(torch.int32)[:, None], cache,
+                           pos).argmax(-1)
+        toks.append(cur)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0 - t_pf
+    return (torch.stack(toks, 1).cpu(), t_pf * 1e3,
+            t_dec / max(new - 1, 1) * 1e3)
+
+
+def _seamless_row(torch, cfg, model, params, frames, prompt, toks):
+    """The logits after ``prompt`` (1, P) and ``toks`` fed a decode step
+    each, over ``frames`` (1, S_enc, D), in the weights' dtype."""
+    from repro_torch.models.model import init_cache
+    dt = params["final_norm"].dtype
+    n = prompt.shape[1]
+    cache = init_cache(cfg, 1, n + len(toks) + 1, dt, "cuda",
+                       enc_len=frames.shape[1])
+    lg = model.prefill(params, prompt, cache, enc_embeds=frames.to(dt))
+    for i, t in enumerate(toks):
+        lg = model.decode(params, torch.tensor([[t]], dtype=torch.int32,
+                                               device="cuda"), cache,
+                          torch.full((1,), n + i, dtype=torch.int32,
+                                     device="cuda"))
+    return lg[0].float()
+
+
+def phase_serve_seamless(torch, smi):
+    """seamless-m4t-medium at full width and depth (12 encoder + 12
+    decoder layers, 16/16 heads x 64, seeded bf16 weights) through
+    ``Model``, the only path the reference serves it on: 8 requests, each
+    1024 seeded encoder frames and a 16-token decoder prompt, 32 greedy
+    tokens by ``Model.prefill(enc_embeds=...)`` and ``Model.decode``, the
+    launch counts set to 0 before the batch and read after (flash, dense
+    decode and RMSNorm must launch).  Each request's tokens in the batch
+    must equal its tokens run alone, or leave them first at a near tie
+    witnessed in fp32 (the two choices' fp32 logits within twice the bf16
+    row's largest error).  ``Generator``, ``PagedKVCache`` and
+    ``StreamedExecutor`` must refuse it.  Returns the batch's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.prefetch import PrefetchPolicy, StreamedExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model, init_cache
+    from repro_torch.serving import Generator, GeneratorConfig
+    from repro_torch.serving.kvpool import PagedKVCache
+    tag = "serve-seamless"
+    cfg = get_config(SEAMLESS)
+    t0 = time.perf_counter()
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{tag}] {cfg.num_encoder_layers} encoder + {cfg.num_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads x {cfg.resolved_head_dim}, GELU MLP "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size} (tied); {nbytes} B of bf16 "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    for what, make in (
+            ("Generator", lambda: Generator(cfg, params, GeneratorConfig(
+                ctx_len=SEAMLESS_PROMPT), device="cuda")),
+            ("PagedKVCache", lambda: PagedKVCache(
+                cfg, 2, SEAMLESS_PROMPT + SEAMLESS_NEW, PAGE,
+                device="cuda")),
+            ("StreamedExecutor", lambda: StreamedExecutor(
+                cfg, params, PrefetchPolicy(), device="cuda"))):
+        try:
+            make()
+        except NotImplementedError as e:
+            log(f"[{tag}] {what} refuses it: {e}")
+            continue
+        fail(f"[{tag}] {what} took the encoder-decoder")
+    model = Model(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    frames = torch.randn((SLOTS, ENC_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    prompts = torch.randint(2, cfg.vocab_size, (SLOTS, SEAMLESS_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    # a warm-up at the batch's shapes (the libraries' first calls)
+    _seamless_tokens(torch, cfg, model, params, frames, prompts, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    transformer.encode(params, cfg, frames)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch, pf_ms, step_ms = _seamless_tokens(torch, cfg, model, params,
+                                             frames, prompts, SEAMLESS_NEW)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in EMBED_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on this path: {missing}")
+    cross = (cfg.num_layers * 2 * SLOTS * ENC_FRAMES * cfg.num_kv_heads
+             * cfg.resolved_head_dim * 2)
+    log(f"[{tag}] {SLOTS} requests x {ENC_FRAMES} frames, "
+        f"{SEAMLESS_PROMPT}-token prompts, {SEAMLESS_NEW} greedy tokens: "
+        f"encode {enc_ms:.2f} ms, prefill {pf_ms:.2f} ms (the encoder "
+        f"included), decode step {step_ms:.2f} ms, "
+        f"{SLOTS * SEAMLESS_NEW / wall:.1f} tokens/s; cross K/V cache "
+        f"{cross} B; peak device memory {peak / 2 ** 30:.2f} GiB ({smi})")
+    log(f"[{tag}] launches on this path: {json.dumps(counts)}")
+    if not bool((batch >= 0).all() and (batch < cfg.vocab_size).all()):
+        fail(f"[{tag}] tokens out of the vocabulary")
+    cache = init_cache(cfg, SLOTS, SEAMLESS_PROMPT + SEAMLESS_NEW,
+                       torch.bfloat16, "cuda", enc_len=ENC_FRAMES)
+    profile_decode_step(torch, tag, model, params, cache, None, None, smi,
+                        at=SEAMLESS_PROMPT)
+    del cache
+    fp32, ties = None, 0
+    for i in range(SLOTS):
+        alone = _seamless_tokens(torch, cfg, model, params,
+                                 frames[i:i + 1], prompts[i:i + 1],
+                                 SEAMLESS_NEW)[0][0].tolist()
+        got = batch[i].tolist()
+        if got == alone:
+            continue
+        if fp32 is None:
+            fp32 = _cast_params(torch, params, torch.float32)
+        t = next(j for j, (a, b) in enumerate(zip(alone, got)) if a != b)
+        rows = {name: _seamless_row(torch, cfg, model, p, frames[i:i + 1],
+                                    prompts[i:i + 1], alone[:t])
+                for name, p in (("bf16", params), ("fp32", fp32))}
+        gap = float(rows["fp32"][alone[t]] - rows["fp32"][got[t]])
+        err = float((rows["bf16"] - rows["fp32"]).abs().max())
+        msg = (f"[{tag}] request {i}: first other token at {t}, {got[t]} "
+               f"for {alone[t]} alone; fp32 logit gap {gap:.6f}, bf16 "
+               f"logits off fp32 by up to {err:.6f} in that row")
+        if abs(gap) > 2 * err:
+            fail(f"{msg}: not a near tie")
+        log(f"{msg}: a near tie ({smi})")
+        ties += 1
+    log(f"[{tag}] {SLOTS} requests: each one's tokens run alone, but for "
+        f"{ties} that leave them at an fp32-witnessed near tie")
+    del params, fp32, model, frames
+    _free(torch)
+    return [counts]
+
+
+def _sequence_logits(torch, cfg, params, x, first, dtype):
+    """Logits at positions ``first..S-1`` of the embeddings ``x`` (B, S,
+    D): one cacheless causal pass (``mode="encode"``, ``causal=True``: the
+    prefill's function without a cache), each layer's weights cast to
+    ``dtype`` only while it runs, as ``_fp32_row`` casts them.  Returns
+    (B, S - first, V) in fp32."""
+    from repro_torch.models import transformer
+    top = _cast_params(torch, {k: v for k, v in params.items()
+                               if k != "blocks"}, dtype)
+    x, delta = x.to(dtype), None
+    for lp, kind in zip(params["blocks"], cfg.layer_kinds()):
+        x, delta = transformer.apply_layer(
+            _cast_params(torch, lp, dtype), x, delta, cfg, kind,
+            mode="encode", cache=None, pos=None, block_tab=None,
+            kv_span=None, causal=True)
+    x = transformer._final_norm(top, cfg, x[:, first:], delta[:, first:])
+    return transformer.unembed(top, cfg, x).float()
+
+
+def phase_serve_chameleon(torch, smi):
+    """chameleon-34b at full width and depth (48 layers, 64/8 heads x 128,
+    SwiGLU 22016, vocab 65536; no token table: 33.76 B parameters, 67.5
+    GB of bf16 weights seeded on the card after every earlier family is
+    freed) through ``Model``: 8 prompts of 1024 seeded embeddings, then 16
+    decode steps over seeded stub embeddings, the launch counts set to 0
+    before and read after.  At every step the bf16 logits of 2 rows must
+    lie within twice the bf16 one-shot prefill's own error of an fp32
+    recomputation of the whole sequence (both a layer at a time) at the
+    same positions.  Then the first 8 layers alone, resident and streamed
+    (``StreamedExecutor``, the layers in pinned host memory; cut for host
+    memory and time): 2 rows x 4 steps, the streamed logits equal to the
+    resident ones, flash, dense decode and RMSNorm launched in the
+    streamed run.  Returns the counts of the resident and streamed
+    runs."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core.prefetch import PrefetchPolicy, StreamedExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, init_cache
+    tag = "serve-chameleon"
+    _free(torch)
+    log(f"[{tag}] before seeding: {torch.cuda.memory_allocated()} B "
+        f"allocated, {torch.cuda.memory_reserved()} B reserved on the card")
+    cfg = get_config(CHAMELEON)
+    t0 = time.perf_counter()
+    params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{tag}] {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, SwiGLU {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, no token table ({sorted(params)}); {nbytes} B "
+        f"of bf16 weights seeded in {time.perf_counter() - t0:.1f} s")
+    model = Model(cfg, device="cuda")
+    d, n = cfg.d_model, CTX
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    prompts = torch.randn((SLOTS, n, d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    stubs = torch.randn((CHAMELEON_STEPS, SLOTS, 1, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    cache = init_cache(cfg, SLOTS, n + CHAMELEON_STEPS, torch.bfloat16,
+                       "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = [model.prefill(params, prompts, cache)]
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    for t in range(CHAMELEON_STEPS):
+        pos = torch.full((SLOTS,), n + t, dtype=torch.int32, device="cuda")
+        rows.append(model.decode(params, stubs[t], cache, pos))
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0 - t_pf
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in EMBED_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"[{tag}] kernels never launched on this path: {missing}")
+    served = torch.stack(rows, 1).float()          # (B, 1 + steps, V)
+    if not bool(served.isfinite().all()):
+        fail(f"[{tag}] logits not finite")
+    step_ms = t_dec / CHAMELEON_STEPS * 1e3
+    kv = sum(t.numel() * t.element_size() for c in cache["blocks"]
+             for t in c.values())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] {SLOTS} prompts of {n} embeddings: prefill {t_pf:.3f} s "
+        f"({SLOTS * n / t_pf:.0f} tokens/s); {CHAMELEON_STEPS} decode steps "
+        f"over stub embeddings, {step_ms:.2f} ms a step "
+        f"({SLOTS / (step_ms / 1e3):.1f} tokens/s) against the weights' "
+        f"byte bound of {bound:.2f} ms ({nbytes} B at {HBM_BYTES_PER_S:.3g} "
+        f"B/s; the {kv} B KV cache besides); peak device memory {peak} B "
+        f"({smi})")
+    log(f"[{tag}] launches on this path: {json.dumps(counts)}")
+    profile_decode_step(torch, tag, model, params, cache, None, None, smi,
+                        cur=stubs[-1], at=n + CHAMELEON_STEPS - 1)
+    del cache, rows
+    _free(torch)
+    # every step of 2 rows held to fp32: the whole sequence (prompt, then
+    # the stub embeddings the steps fed) a layer at a time, in fp32 and in
+    # bf16 (one-shot), logits at the served positions n - 1 .. n + steps - 1
+    w = list(CHAMELEON_WITNESS)
+    seq = torch.cat([prompts[w], stubs[:, w, 0].transpose(0, 1)], 1)
+    with torch.no_grad():
+        f32 = _sequence_logits(torch, cfg, params, seq, n - 1,
+                               torch.float32)
+        one = _sequence_logits(torch, cfg, params, seq, n - 1,
+                               torch.bfloat16)
+    e_one = (one - f32).abs().amax(-1)              # (2, 1 + steps)
+    e_srv = (served[w] - f32).abs().amax(-1)
+    ratio = e_srv / e_one.clamp(min=1e-12)
+    worst = divmod(int(ratio.argmax()), ratio.shape[1])
+    if bool((e_srv > 2 * e_one).any()):
+        r, p = divmod(int((e_srv - 2 * e_one).argmax()), ratio.shape[1])
+        fail(f"[{tag}] row {w[r]} at position {n - 1 + p}: the served "
+             f"logits off fp32 by {float(e_srv[r, p]):.6f}, past twice the "
+             f"bf16 one-shot prefill's {float(e_one[r, p]):.6f}")
+    log(f"[{tag}] rows {w}, the prefill and all {CHAMELEON_STEPS} steps: "
+        f"the served bf16 logits within twice the bf16 one-shot prefill's "
+        f"error of fp32 (both a layer at a time) at every position; served "
+        f"off fp32 by {float(e_srv.min()):.4f}-{float(e_srv.max()):.4f}, "
+        f"one-shot by {float(e_one.min()):.4f}-{float(e_one.max()):.4f}; "
+        f"the closest, {float(ratio.max()):.3f} of it, at row "
+        f"{w[worst[0]]} position {n - 1 + worst[1]} ({smi})")
+    del f32, one, served
+    # the first 8 layers, resident then streamed, on 2 rows
+    depth = CHAMELEON_STREAMED_DEPTH
+    del params["blocks"][depth:]
+    gc.collect()
+    _free(torch)
+    cut = dataclasses.replace(cfg, num_layers=depth)
+    b, steps = 2, CHAMELEON_STREAMED_STEPS
+
+    def passes(prefill, decode, cache):
+        out = [prefill(prompts[:b], cache)]
+        for t in range(steps):
+            pos = torch.full((b,), n + t, dtype=torch.int32, device="cuda")
+            out.append(decode(stubs[t, :b], cache, pos))
+        torch.cuda.synchronize()
+        return out
+
+    short = Model(cut, device="cuda")
+    want = passes(lambda x, c: short.prefill(params, x, c),
+                  lambda x, c, p: short.decode(params, x, c, p),
+                  init_cache(cut, b, n + steps, torch.bfloat16, "cuda"))
+    t0 = time.perf_counter()
+    ex = StreamedExecutor(cut, params, PrefetchPolicy(), device="cuda")
+    t_pin = time.perf_counter() - t0
+    log(f"[{tag} streamed] {depth} layers, {ex.streamed_bytes} B pinned in "
+        f"{t_pin:.1f} s; host MemAvailable after the pinning "
+        f"{_mem_available()} B; {ex.ring_slots} ring slots of "
+        f"{ex.slot_bytes} B")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = passes(ex.prefill, ex.decode,
+                 ex.init_caches(b, n + steps, torch.bfloat16))
+    t_run = time.perf_counter() - t0
+    streamed = ops.launch_counts()
+    if not all(torch.equal(a, c) for a, c in zip(got, want)):
+        fail(f"[{tag} streamed] logits differ from the resident run's at "
+             f"depth {depth}")
+    missing = [k for k in EMBED_KERNELS if streamed[k] == 0]
+    if missing:
+        fail(f"[{tag} streamed] kernels never launched on the streamed "
+             f"path: {missing}")
+    log(f"[{tag} streamed] {b} prompts of {n} embeddings + {steps} steps "
+        f"in {t_run:.2f} s ({ex.passes} passes, {ex.staged_bytes} B "
+        f"staged): logits equal to the resident run's at depth {depth} "
+        f"({smi})")
+    log(f"[{tag} streamed] streamed launches: {json.dumps(streamed)}")
+    del ex, params, model, prompts, stubs, want, got
+    gc.collect()
+    _free(torch)
+    return [counts, streamed]
+
+
 def build_weights(torch):
     """Full-width llama3-8b, seeded random bf16 weights, built once on the
     card and shared by every serving phase."""
@@ -2794,9 +3309,10 @@ def _submit_and_drain(eng, rids, t_limit, tag, errors, query_of=None,
 
 def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
                stats=None, step_hist=None, layers=None, executor=None,
-               profile=True):
-    """Warm up, serve the 16 measured requests with the launch counts set to
-    0 just before and read just after, then (``profile``) a profiled batch.
+               profile=True, warmup=True, n_req=N_REQ):
+    """Warm up (``warmup``), serve the ``n_req`` measured requests (rids
+    ``WARMUP_REQ`` on) with the launch counts set to 0 just before and read
+    just after, then (``profile``) a profiled batch.
     Fails unless every request has ``MAX_NEW`` tokens and the exact top-5
     and every kernel in ``kernels`` launched.  ``layers``: a whole-batch
     path, whose prefill batches are its flash launches over the layers.
@@ -2805,16 +3321,21 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
     from repro_torch.kernels import ops
     from repro_torch.serving import percentile
     errors = _watch_threads()
+    submitted = 0
 
     def serve(rids, t_limit):
-        return _submit_and_drain(eng, rids, t_limit, tag, errors)
+        nonlocal submitted
+        submitted += len(rids)
+        return _submit_and_drain(eng, rids, t_limit, tag, errors,
+                                 total=submitted)
 
     eng.start()
     try:
-        t0 = time.perf_counter()
-        serve(list(range(WARMUP_REQ)), 300)
-        log(f"[{tag}] warm-up: {WARMUP_REQ} requests in "
-            f"{time.perf_counter() - t0:.1f} s")
+        if warmup:
+            t0 = time.perf_counter()
+            serve(list(range(WARMUP_REQ)), 300)
+            log(f"[{tag}] warm-up: {WARMUP_REQ} requests in "
+                f"{time.perf_counter() - t0:.1f} s")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if step_hist is not None:
@@ -2825,7 +3346,7 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
             passes0, staged0 = executor.passes, executor.staged_bytes
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        done = serve(list(range(WARMUP_REQ, WARMUP_REQ + N_REQ)), 600)
+        done = serve(list(range(WARMUP_REQ, WARMUP_REQ + n_req)), 600)
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
@@ -2833,7 +3354,7 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
         if executor is not None:
             passes = executor.passes - passes0
             staged = executor.staged_bytes - staged0
-        first = WARMUP_REQ + N_REQ
+        first = WARMUP_REQ + n_req
         if profile:
             # a further batch under the profiler: where the device time goes
             from torch.profiler import ProfilerActivity, profile as trace
@@ -2851,14 +3372,14 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
 
     reqs = sorted((r for r in done if WARMUP_REQ <= r.rid < first),
                   key=lambda r: r.rid)
-    check_requests(torch, tag, reqs, exact, vocab)
+    check_requests(torch, tag, reqs, exact, vocab, n=n_req)
     missing = [n for n in kernels if counts[n] == 0]
     if missing:
         fail(f"[{tag}] kernels never launched on this path: {missing}")
     lat = [r.latency for r in reqs]
     p50, p95 = percentile(lat, 50), percentile(lat, 95)
-    toks = N_REQ * MAX_NEW
-    log(f"[{tag}] {N_REQ}/{N_REQ} requests served, {MAX_NEW} tokens and "
+    toks = n_req * MAX_NEW
+    log(f"[{tag}] {n_req}/{n_req} requests served, {MAX_NEW} tokens and "
         f"{TOP_K} exact chunks each, in {wall:.3f} s on {smi}")
     extra = ""
     if step_hist is not None:
@@ -2871,7 +3392,7 @@ def serve_path(torch, eng, tag, kernels, exact, smi, vocab, *,
         f"{toks / wall:.1f} output tokens/s{extra}; peak device memory "
         f"{peak / 2 ** 30:.2f} GiB ({smi})")
     if retrieval is not None:
-        log(f"[{tag}] retrieval of the {N_REQ} requests: {retrieval}")
+        log(f"[{tag}] retrieval of the {n_req} requests: {retrieval}")
     if executor is not None:
         log(f"[{tag}] {passes} streamed passes, {staged} B staged host to "
             f"device ({staged / max(passes, 1) / 1e9:.3f} GB a pass)")
@@ -2888,41 +3409,92 @@ def decode_step_kernels(torch, tag, model, params, cache, block_tab=None,
     prints its device kernels (copies and memsets left out), then the same
     step with every residual add a launch of its own; fails unless fusing
     the adds into the norms saved at least one launch per fused norm."""
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import layers
     cur = torch.zeros((SLOTS, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((SLOTS,), CTX, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    device = torch.autograd.DeviceType.CUDA
+    pad = 256           # empty launches before and after a profiled step
+
+    def step():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode(params, cur, cache, pos, block_tab, kv_span=span)
+        torch.cuda.synchronize()
 
     def count() -> int:
-        """The median kernel count of three profiled steps: one trace can
-        read a few kernels off."""
-        model.decode(params, cur, cache, pos, block_tab, kv_span=span)
-        torch.cuda.synchronize()
-        counts = []
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                model.decode(params, cur, cache, pos, block_tab, kv_span=span)
-                torch.cuda.synchronize()
-            names = [name for name, _, _ in _kernel_records(prof, torch)]
-            counts.append(sum(1 for name in names
-                              if not name.startswith(("Memcpy", "Memset"))))
-        return sorted(counts)[1]
+        """The kernel count of a step: the most that any of five profiled
+        steps reads.  The step runs on a stream of its own and a trace
+        records every thread's work, so only the stream that holds most of
+        a trace's kernels counts; the kernels on other streams, and those
+        that differ between traces, are logged by name.  A trace loses
+        records but gains none: after the serving runs, most traces of a
+        step lacked the same 25-32 of its kernels, its last ones, and some
+        its first 3, while every trace of a fresh process read all of
+        them, each with its own correlation id and host launch.  So
+        ``pad`` empty launches on the default stream come before and after
+        the step in each trace, to be its first and last records; a trace
+        short of them is logged."""
 
-    fused = count()
+        def empty():
+            for _ in range(pad):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+
+        step()
+        counts, named, held = [], [], []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                empty()
+                step()
+                empty()
+            streams = {}
+            for e in prof.profiler.kineto_results.events():
+                if (e.device_type() == device
+                        and not e.name().startswith(("Memcpy", "Memset"))):
+                    streams.setdefault(e.device_resource_id(), []).append(
+                        e.name()[:80])
+            own = max(streams, key=lambda sid: len(streams[sid]))
+            other = Counter(n for sid, names in streams.items()
+                            if sid != own for n in names)
+            held.append(sum(v for n, v in other.items()
+                            if "spin_kernel" in n))
+            other = Counter({n: v for n, v in other.items()
+                             if "spin_kernel" not in n})
+            if other:
+                log(f"[{tag}] left out of a step's count: "
+                    f"{sum(other.values())} kernels on other streams than "
+                    f"the step's {own}: {dict(other.most_common(5))}")
+            counts.append(len(streams[own]))
+            named.append(Counter(streams[own]))
+        if any(h != 2 * pad for h in held):
+            log(f"[{tag}] the traces hold {held} of the {2 * pad} empty "
+                f"launches around the step")
+        hi, lo = counts.index(max(counts)), counts.index(min(counts))
+        if counts[hi] != counts[lo]:
+            log(f"[{tag}] a step's kernel counts differ between traces "
+                f"{counts}: the largest has "
+                f"{dict((named[hi] - named[lo]).most_common(5))} more and "
+                f"{dict((named[lo] - named[hi]).most_common(5))} fewer")
+        return max(counts)
+
     add_rms_norm = layers.add_rms_norm
 
     def unfused(x, r, w, eps):
         s = x + r
         return s, layers.rms_norm(s, w, eps)
 
+    saved = 2 * model.cfg.num_layers      # every norm but layer 0's norm1
+    fused = count()
     layers.add_rms_norm = unfused
     try:
         apart = count()
     finally:
         layers.add_rms_norm = add_rms_norm
-    saved = 2 * model.cfg.num_layers      # every norm but layer 0's norm1
-    log(f"[{tag}] one decode step ({SLOTS} slots): {fused} device kernels; "
-        f"{apart} with each residual add a launch of its own: "
+    log(f"[{tag}] one decode step ({SLOTS} slots): {fused} device "
+        f"kernels; {apart} with each residual add a launch of its own: "
         f"{apart - fused} fewer")
     if apart - fused < saved:
         fail(f"[{tag}] fusing the residual adds saved {apart - fused} "
@@ -3457,9 +4029,11 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
     """The paper's layer-streamed offloading on the serve weights: the 32
     layers in pinned host memory, ``top`` on the card, a ring of
     ``max_depth + 1`` layer slots.  (a) a streamed whole-batch
-    ``Generator`` on 8 of serve's prompts gives the resident one's tokens
-    exactly; (b) the streamed paged, chunk-prefilled continuous generator
-    behind a threaded ``RagdollEngine`` serves the 16 requests with
+    ``Generator`` on 8 of serve's prompts gives the resident one's
+    ``STREAMED_BATCH_NEW`` tokens exactly; (b) the streamed paged,
+    chunk-prefilled continuous generator behind a threaded
+    ``RagdollEngine`` serves ``STREAMED_REQS`` of serve's requests, with
+    no warm-up, with
     serve's tokens, or leaves them first at an fp32-witnessed near tie
     (joiners' chunks ride one padded call: other matmul shapes than
     serve's batch=1 chunks); then one layer's pinned copy rate, the mean
@@ -3506,18 +4080,21 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
 
     # (a) whole-batch
     prompts = [r.prompt for r in serve_run["reqs"][:SLOTS]]
-    gen = build(lambda: Generator(cfg, params, g, streamed=True,
+    g_a = GeneratorConfig(ctx_len=CTX, max_new_tokens=STREAMED_BATCH_NEW,
+                          dtype=torch.bfloat16)
+    gen = build(lambda: Generator(cfg, params, g_a, streamed=True,
                                   policy=policy, device="cuda"))
     t0 = time.perf_counter()
     got = gen.generate(prompts)
     torch.cuda.synchronize()
     t_streamed = time.perf_counter() - t0
     t0 = time.perf_counter()
-    want = Generator(cfg, params, g, device="cuda").generate(prompts)
+    want = Generator(cfg, params, g_a, device="cuda").generate(prompts)
     torch.cuda.synchronize()
     t_resident = time.perf_counter() - t0
     same = sum(a == b for a, b in zip(got, want))
-    log(f"[serve-streamed batch] {len(prompts)} prompts, {MAX_NEW} tokens "
+    log(f"[serve-streamed batch] {len(prompts)} prompts, "
+        f"{STREAMED_BATCH_NEW} tokens "
         f"each: streamed {t_streamed:.2f} s ({gen.exec.passes} passes), "
         f"resident {t_resident:.2f} s; {same}/{len(prompts)} token rows "
         f"equal ({smi})")
@@ -3540,7 +4117,8 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
     out = serve_path(torch, eng, "serve-streamed", CONTINUOUS_KERNELS, exact,
                      smi, cfg.vocab_size, stats=eng.retrieval_stats,
                      step_hist=eng.registry.histogram("decode.step_seconds"),
-                     executor=ex, profile=False)
+                     executor=ex, profile=False, warmup=False,
+                     n_req=STREAMED_REQS)
     want = {r.rid: r for r in serve_run["reqs"]}
     fp32, ties = None, 0
     for rid, got_out in out["outputs"].items():
@@ -3559,7 +4137,8 @@ def phase_serve_streamed(torch, cfg, params, store, queries, exact, smi: str,
         log(f"{msg}: a near tie ({smi})")
         ties += 1
     del fp32
-    log(f"[serve-streamed] {N_REQ}/{N_REQ} requests: serve's {MAX_NEW} "
+    n = len(out["outputs"])
+    log(f"[serve-streamed] {n}/{n} requests: serve's {MAX_NEW} "
         f"tokens, but for {ties} that leave them at a near tie")
 
     # one layer's pinned copy, and decode passes against their copy bound
@@ -4604,6 +5183,7 @@ def main() -> int:
         del timer
         timed("family-models", phase_family_models, torch, smi)
         timed("dense-family-models", phase_dense_family_models, torch, smi)
+        timed("embed-models", phase_embed_models, torch, smi)
         serve = (store, queries, exact, smi)
         families = (timed("serve-gemma2", phase_serve_gemma2, torch, *serve)
                     + timed("serve-families", phase_serve_families, torch,
@@ -4614,6 +5194,10 @@ def main() -> int:
                             *serve))
         g8 = (timed("serve-jamba", phase_serve_jamba, torch, *serve)
               + timed("serve-llama70b", phase_serve_llama70b, torch, *serve))
+        embed = {"seamless": timed("serve-seamless", phase_serve_seamless,
+                                   torch, smi),
+                 "chameleon": timed("serve-chameleon", phase_serve_chameleon,
+                                    torch, smi)}
         cfg, params = timed("weights", build_weights, torch)
         paged = timed("serve", phase_serve, torch, cfg, params, *serve)
         batch = timed("serve-batch", phase_serve_batch, torch, cfg, params,
@@ -4635,7 +5219,8 @@ def main() -> int:
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
-            + prefix + [streamed, sharded] + placement + families + g8)
+            + prefix + [streamed, sharded] + placement + families + g8
+            + embed["seamless"] + embed["chameleon"])
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         extra = ({"shapes": family_rows[kname]} if kname in family_rows
@@ -4645,6 +5230,13 @@ def main() -> int:
         if any(row["case"].startswith(("llama3-70b", "jamba"))
                for row in extra.get("shapes", ())):
             extra["launches_at_g8"] = sum(c[kname] for c in g8)
+        # the embed frontend's launches, once a kernel: serve-seamless's
+        # at 16/16 x 64 (its rows; RMSNorm at 1024, granite's) and
+        # serve-chameleon's at 64/8 x 128 (jamba's rows; RMSNorm at 8192).
+        # The paged kernel's seamless row is held, but no path runs it
+        if kname in EMBED_KERNELS:
+            for model, counts in embed.items():
+                extra[f"launches_at_{model}"] = sum(c[kname] for c in counts)
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
                             launches=sum(c[kname] for c in runs),

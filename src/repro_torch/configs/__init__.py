@@ -6,8 +6,11 @@ local/global layers, gemma-7b's MHA, chatglm3-6b's QKV bias and half
 RoPE, granite-moe-1b-a400m's MoE FFN), the two that only the dense cache
 takes (deepseek-v2-lite-16b's MLA over a dense first layer and MoE layers
 with shared experts; mamba2-370m's SSD mixers; jamba-1.5-large-398b's
-hybrid of Mamba and attention mixers over dense and MoE FFNs), and the paper's
-llama3-70b, which the placement contracts price.
+hybrid of Mamba and attention mixers over dense and MoE FFNs), the two
+that only ``Model`` serves (chameleon-34b's embedding inputs, which the
+``StreamedExecutor`` takes too; seamless-m4t-medium's encoder-decoder with
+cross attention), and the paper's llama3-70b, which the placement
+contracts price.
 """
 from __future__ import annotations
 
@@ -18,15 +21,18 @@ from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfi
 from repro_torch.configs.shapes import (SHAPE_ORDER, SHAPES, InputShape,
                                         shape_applicable)
 
+# the reference's order: its ten assigned archs, then the paper's 70B
 _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "gemma2-2b": "gemma2_2b",
     "gemma-7b": "gemma_7b",
     "llama3-8b": "llama3_8b",
     "chatglm3-6b": "chatglm3_6b",
-    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "mamba2-370m": "mamba2_370m",
+    "chameleon-34b": "chameleon_34b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "llama3-70b": "llama3_70b",
 }
 

@@ -16,7 +16,11 @@ shared experts' MLP ``moe.shared.w_gate``/``w_up (D, F_sh)``,
 ``w_down (F_sh, D)``; MLA leaves ``mla.w_dkv (D, r)``, ``mla.w_krope
 (D, rd)``, ``mla.norm_kv (r,)``, ``mla.w_uk (r, H, nope)``, ``mla.w_uv
 (r, H, vd)``, ``mla.wq (D, H, nope + rd)``, ``mla.wo (H, vd, D)``; Mamba
-leaves as ``models/ssm.py`` names them.  Every leaf takes ``dtype`` but
+leaves as ``models/ssm.py`` names them.  An encoder-decoder's decoder
+layers carry ``norm_cross`` and ``cross`` (``wq``/``wk``/``wv``/``wo`` as
+above), and its ``encoder`` holds ``blocks`` stacked the same way (no
+prefix) and ``final_norm``; the ``embed`` frontend's tree has no
+``embed``.  Every leaf takes ``dtype`` but
 the router and Mamba's ``A_log``, ``dt_bias`` and ``D``, which stay fp32
 as the reference creates them.
 """
@@ -51,6 +55,13 @@ def _unstack(tree, r: int):
     return np.asarray(tree)[r]
 
 
+def _unstack_layers(blocks, reps: int, device, dtype):
+    """Slice ``r`` of each stacked ``blocks[j]`` as layer ``r * len(blocks)
+    + j``."""
+    return [_to_torch(_unstack(blocks[j], r), device, dtype)
+            for r in range(reps) for j in range(len(blocks))]
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device: DeviceLike = None,
                       dtype=torch.float32) -> Dict[str, Any]:
@@ -64,9 +75,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                          f"prefix layers for a pattern of {pattern} and "
                          f"first_k_dense={cfg.first_k_dense}")
     layers = [_to_torch(lp, device, dtype) for lp in prefix]
-    layers += [_to_torch(_unstack(blocks[j], r), device, dtype)
-               for r in range(reps) for j in range(pattern)]
+    layers += _unstack_layers(blocks, reps, device, dtype)
     out = {k: _to_torch(v, device, dtype) for k, v in tree.items()
-           if k not in ("blocks", "prefix")}
+           if k not in ("blocks", "prefix", "encoder")}
     out["blocks"] = layers
+    if cfg.encdec:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "blocks": _unstack_layers(enc["blocks"],
+                                      cfg.num_encoder_layers // pattern,
+                                      device, dtype),
+            "final_norm": _to_torch(enc["final_norm"], device, dtype)}
     return out

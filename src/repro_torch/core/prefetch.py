@@ -115,7 +115,8 @@ class StreamedExecutor:
     """Layer-streamed prefill/decode with a host->device prefetch queue.
 
     The offloading mode of the generators (``streamed=True``): ``top``
-    (embedding, final norm, ``lm_head``) and layers ``< resident_layers``
+    (the token table where the frontend has one, the final norm,
+    ``lm_head``) and layers ``< resident_layers``
     live on the device; every other layer stays in host memory and
     streams through the device once a pass, ``policy.depth(phase, ...)``
     layers ahead of the compute.  ``device`` defaults to CUDA and raises
@@ -129,6 +130,9 @@ class StreamedExecutor:
                  device: DeviceLike = None, resident_layers: int = 0,
                  free_bytes: float = float("inf")):
         transformer._check_family(cfg)
+        transformer.refuse_encdec(
+            cfg, "the streamed executor (the reference's streamed prefill "
+            "drops enc_embeds)")
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)
@@ -254,8 +258,9 @@ class StreamedExecutor:
 
     # ------------------------------------------------------------- public
     def prefill(self, inputs: torch.Tensor, caches) -> torch.Tensor:
-        """Whole prompts ``inputs`` (B, S) into dense ``caches``; returns
-        the last-position logits (B, V)."""
+        """Whole prompts ``inputs`` (B, S) of token ids, or (B, S, D) of
+        embeddings for the ``embed`` frontend, into dense ``caches``;
+        returns the last-position logits (B, V)."""
         cfg = self.cfg
         x = transformer._embed_inputs(self.top, cfg, inputs)
         x, delta = self._stream(x, caches, None, "prefill")
@@ -278,7 +283,7 @@ class StreamedExecutor:
         if slot_mask is not None and not bool(
                 torch.as_tensor(slot_mask).any()):
             return torch.zeros((inputs.shape[0], cfg.vocab_size),
-                               dtype=self.top["embed"].dtype,
+                               dtype=self.top["final_norm"].dtype,
                                device=self.device)
         x = transformer._embed_inputs(self.top, cfg, inputs)
         x, delta = self._stream(x, caches, pos, "decode",

@@ -538,7 +538,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 
 // Only the shapes a port config or a card test reaches are instantiated
 // (G query heads a kv head, EPL = head dim / 32 rounded up to 1, 2, 4, 8):
-//   G = 1:  EPL 1, 8      (reduced, gemma-7b D = 256)
+//   G = 1:  EPL 1, 2, 8   (reduced, seamless-m4t D = 64, gemma-7b D = 256)
 //   G = 2:  EPL 1, 2, 4, 8 (reduced, granite D = 64, D = 128, gemma2 D = 256)
 //   G = 4:  EPL 1, 4      (reduced, llama3-8b D = 128)
 //   G = 8:  EPL 1, 4      (reduced, llama3-70b and jamba D = 128)
@@ -550,8 +550,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 struct Shape {
   int g, epl;
 };
-constexpr Shape kBuilt[] = {{1, 1}, {1, 8}, {2, 1}, {2, 2}, {2, 4}, {2, 8}, {4, 1},
-                            {4, 4}, {8, 1}, {8, 4}, {16, 1}, {16, 4}};
+constexpr Shape kBuilt[] = {{1, 1}, {1, 2}, {1, 8}, {2, 1}, {2, 2}, {2, 4}, {2, 8},
+                            {4, 1}, {4, 4}, {8, 1}, {8, 4}, {16, 1}, {16, 4}};
 constexpr int kNumBuilt = sizeof(kBuilt) / sizeof(kBuilt[0]);
 
 constexpr bool built(int G, int EPL) {

@@ -43,7 +43,7 @@ _F = ctypes.c_float
 # kernels' own table is ``kBuilt`` in csrc/decode_tiles.cuh, as (G, head
 # dim / 32) pairs; ``_check_built`` holds this one to it when a decode
 # library loads, so the two cannot part silently
-BUILT_SHAPES = {1: (32, 256), 2: (32, 64, 128, 256), 4: (32, 128),
+BUILT_SHAPES = {1: (32, 64, 256), 2: (32, 64, 128, 256), 4: (32, 128),
                 8: (32, 128), 16: (32, 128)}
 _DIM_BUCKETS = (32, 64, 128, 256)
 

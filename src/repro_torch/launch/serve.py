@@ -21,11 +21,18 @@ from repro_torch import resolve_device
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.core.scheduler import BacklogScheduler
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import serves_tokens
 from repro_torch.retrieval.embedding import HashEmbedder
 from repro_torch.retrieval.vectorstore import VectorStore
 from repro_torch.serving.engine import RagdollEngine, SerialRAGEngine
 from repro_torch.serving.generator import Generator, GeneratorConfig
 from repro_torch.serving.request import Request, latency_table
+
+
+# the archs its generators serve (not seamless-m4t-medium nor
+# chameleon-34b, which only ``Model`` serves)
+SERVED_ARCHS = sorted(a for a in ASSIGNED_ARCHS
+                      if serves_tokens(get_config(a)))
 
 
 def build_corpus(n: int):
@@ -40,7 +47,7 @@ def build_corpus(n: int):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b",
-                    choices=sorted(ASSIGNED_ARCHS),
+                    choices=SERVED_ARCHS,
                     help="the model family (run at its reduced size)")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--rate", type=float, default=120.0,

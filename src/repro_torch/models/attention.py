@@ -12,7 +12,18 @@ serving paths run (``mixer="attn"``/``"local"``):
   ``kv_span`` tokens;
 * ``mode="decode"``: one token per row writes its KV at ``pos`` and
   attends over the dense cache (``ops.decode_attention``) or, with a
-  block table, through the pool (``ops.paged_decode_attention``).
+  block table, through the pool (``ops.paged_decode_attention``);
+* ``mode="encode"``: the reference's cacheless ``mode="train"`` branch as
+  its ``encode`` runs it: the whole sequence at positions ``0..S-1``,
+  ``causal`` as given (the encoder's is bidirectional), no cache.
+  ``mode="train"`` itself waits for training.
+
+``cross_attention_forward`` is the encoder-decoder's cross attention
+(seamless-m4t): no RoPE, never causal; prefill projects the encoder's
+output to K and V, writes them into the layer's ``ck``/``cv`` leaves and
+attends over them with the flash kernel at ``Sq`` (the decoder's length)
+against ``Sk`` (the encoder's); decode attends over ``ck``/``cv`` at
+the encoder's length, which the decode step builds once for every layer.
 
 An int8 pool (``cache`` has ``k_scale``/``v_scale`` leaves of ``(P, KV)``
 fp32) quantizes on append (``kernels/quant.py``); chunked prefill then
@@ -97,18 +108,20 @@ def _project_qkv(p: dict, x: torch.Tensor):
 def attention_forward(
     p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     mixer: str,                      # "attn" | "local"
-    mode: str,                       # "prefill" | "decode"
-    cache: dict,                     # {"k","v"}: dense (B, S_cache, KV, hd)
-                                     #   or pooled (P, page, KV, hd)
+    mode: str,                       # "prefill" | "decode" | "encode"
+    cache: Optional[dict],           # {"k","v"}: dense (B, S_cache, KV, hd)
+                                     #   or pooled (P, page, KV, hd);
+                                     #   None with mode="encode"
     pos: Optional[torch.Tensor] = None,     # (B,) chunk offsets or decode
                                             # positions; None: one-shot
+    causal: bool = True,
     block_tab: Optional[torch.Tensor] = None,   # (B, nmax) page ids (paged)
     kv_span: Optional[int] = None,   # dense length of the gathered view
 ) -> torch.Tensor:
     """Returns the attention output; ``cache`` is written in place."""
     if mixer not in ("attn", "local"):
         raise NotImplementedError(f"mixer {mixer!r}")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "encode"):
         raise NotImplementedError(f"mode {mode!r}")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -117,27 +130,32 @@ def attention_forward(
     rot = int(hd * cfg.rope_fraction)
     q, k, v = _project_qkv(p, x)
 
-    if mode == "prefill" and pos is None:
-        cos, sin = layers.rope_cos_sin(torch.arange(s, device=x.device), rot,
-                                       cfg.rope_theta)
-        cos, sin = cos[None, :, None], sin[None, :, None]
-        q = layers.apply_rope(q, cos, sin, rot)
-        k = layers.apply_rope(k, cos, sin, rot)
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
+    def rope(positions, at):
+        """q and k rotated at ``positions``, the angles broadcast by
+        ``at``."""
+        cos, sin = layers.rope_cos_sin(positions, rot, cfg.rope_theta)
+        cos, sin = at(cos), at(sin)
+        return (layers.apply_rope(q, cos, sin, rot),
+                layers.apply_rope(k, cos, sin, rot))
+
+    if pos is None and mode in ("prefill", "encode"):
+        q, k = rope(torch.arange(s, device=x.device),
+                    lambda c: c[None, :, None])
+        if mode == "prefill":
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=softcap)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
+    if mode == "encode":
+        raise NotImplementedError("mode='encode' runs whole sequences only")
     if mode == "prefill":
         if block_tab is None:
             raise NotImplementedError(
                 "chunked prefill into a dense cache: no generator reaches it")
         positions = pos[:, None] + torch.arange(s, device=x.device)  # (B,S)
-        cos, sin = layers.rope_cos_sin(positions, rot, cfg.rope_theta)
-        cos, sin = cos[:, :, None], sin[:, :, None]
-        q = layers.apply_rope(q, cos, sin, rot)
-        k = layers.apply_rope(k, cos, sin, rot)
+        q, k = rope(positions, lambda c: c[:, :, None])
         if "k_scale" in cache:
             # int8 pool: quantize the chunk on append, then attend over
             # the fp32 dequantized view, as the reference does: q goes to
@@ -159,14 +177,11 @@ def attention_forward(
             vd = ref.gather_paged_kv(cache["v"], block_tab, kv_span)
             qa = q
         out = ops.flash_attention(
-            qa, kd, vd, causal=True, window=window, softcap=softcap,
+            qa, kd, vd, causal=causal, window=window, softcap=softcap,
             kv_len=pos + s, q_offset=pos).to(q.dtype)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
-    cos, sin = layers.rope_cos_sin(pos, rot, cfg.rope_theta)   # (B, rot/2)
-    cos, sin = cos[:, None, None], sin[:, None, None]
-    q = layers.apply_rope(q, cos, sin, rot)
-    k = layers.apply_rope(k, cos, sin, rot)
+    q, k = rope(pos, lambda c: c[:, None, None])      # angles (B, rot/2)
     if block_tab is None:
         _row_update(cache["k"], k, pos)
         _row_update(cache["v"], v, pos)
@@ -187,6 +202,44 @@ def attention_forward(
             q[:, 0], cache["k"], cache["v"], block_tab, pos + 1,
             kv_span=kv_span, window=window, softcap=softcap,
             k_scale=ks, v_scale=vs)
+    return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+
+
+def cross_attention_forward(
+    p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+    cache: dict,                     # the layer's: "ck","cv" (B, S_enc,
+                                     #   KV, hd) among its leaves
+    enc_out: Optional[torch.Tensor] = None,   # (B, S_enc, D); prefill
+    enc_len: Optional[torch.Tensor] = None,   # (B,) int32 S_enc; decode
+) -> torch.Tensor:
+    """Encoder-decoder cross attention: no RoPE, never causal.
+
+    ``mode="prefill"`` projects ``enc_out`` to K and V, writes them into
+    ``cache["ck"]``/``cache["cv"]`` in place (cast to ``x``'s dtype on the
+    way, as the reference's cache takes them; the leaf keeps its own) and
+    attends over them; ``mode="decode"`` attends over the cached K and V,
+    every row at ``kv_len = enc_len``.  Returns the output."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if mode == "prefill":
+        if enc_out is None:
+            raise ValueError("cross attention's prefill takes the encoder's "
+                             "output")
+        k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]).to(x.dtype)
+        v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]).to(x.dtype)
+        if cache["ck"].shape != k.shape:
+            raise ValueError(f"cross cache {tuple(cache['ck'].shape)} for "
+                             f"encoder K/V {tuple(k.shape)}: make the cache "
+                             "with enc_len = the encoder's length")
+        cache["ck"].copy_(k)
+        cache["cv"].copy_(v)
+        out = ops.flash_attention(q, k, v, causal=False)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if mode != "decode":
+        raise NotImplementedError(f"cross attention mode {mode!r}")
+    if enc_len is None:
+        raise ValueError("cross attention's decode takes the encoder's "
+                         "length, enc_len (B,)")
+    out = ops.decode_attention(q[:, 0], cache["ck"], cache["cv"], enc_len)
     return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
 
 
@@ -284,6 +337,14 @@ def make_mla_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
     m = cfg.mla
     return {"ckv": ((batch, cache_len, m.kv_lora_rank), dtype),
             "krope": ((batch, cache_len, m.qk_rope_head_dim), dtype)}
+
+
+def make_cross_cache_spec(cfg: ModelConfig, batch: int, enc_len: int,
+                          dtype) -> dict:
+    """A decoder layer's cross K and V: ``{"ck","cv": ((batch, enc_len,
+    KV, hd), dtype)}``."""
+    shape = (batch, enc_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"ck": (shape, dtype), "cv": (shape, dtype)}
 
 
 def make_attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,

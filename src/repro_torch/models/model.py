@@ -11,18 +11,24 @@ from repro_torch.models import attention, ssm, transformer
 
 
 def _layer_cache_spec(cfg: ModelConfig, mixer: str, batch: int,
-                      cache_len: int, dtype, kv_format: Optional[str]):
+                      cache_len: int, dtype, kv_format: Optional[str],
+                      enc_len: Optional[int]):
     if mixer == "mla":
-        return attention.make_mla_cache_spec(cfg, batch, cache_len, dtype)
-    if mixer == "mamba":
-        return ssm.make_mamba_cache_spec(cfg, batch, dtype)
-    return attention.make_attn_cache_spec(cfg, batch, cache_len, dtype,
-                                          kv_format)
+        spec = attention.make_mla_cache_spec(cfg, batch, cache_len, dtype)
+    elif mixer == "mamba":
+        spec = ssm.make_mamba_cache_spec(cfg, batch, dtype)
+    else:
+        spec = attention.make_attn_cache_spec(cfg, batch, cache_len, dtype,
+                                              kv_format)
+    if cfg.encdec and enc_len is not None:
+        spec.update(attention.make_cross_cache_spec(cfg, batch, enc_len,
+                                                    dtype))
+    return spec
 
 
 def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
-                     dtype=torch.bfloat16, kv_format: Optional[str] = None
-                     ) -> Dict[str, Any]:
+                     dtype=torch.bfloat16, kv_format: Optional[str] = None,
+                     enc_len: Optional[int] = None) -> Dict[str, Any]:
     """Per-layer cache shapes by the layer's mixer: ``{"blocks": [{name:
     (shape, dtype)}] * num_layers}``.  Attention layers: ``k``, ``v`` of
     ``(batch, cache_len, KV, hd)``; the layout serves both caches: a
@@ -31,19 +37,23 @@ def make_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
     page 0), and ``kv_format="int8"`` (paged pools) adds the ``(pages,
     KV)`` fp32 scale leaves.  MLA layers: ``ckv (batch, cache_len, r)``
     and ``krope (batch, cache_len, rd)``; Mamba layers: ``conv (batch,
-    d_conv - 1, di + 2GN)`` and the fp32 ``state (batch, H, P, N)``.
+    d_conv - 1, di + 2GN)`` and the fp32 ``state (batch, H, P, N)``.  An
+    encoder-decoder's decoder layers take ``ck``, ``cv`` of ``(batch,
+    enc_len, KV, hd)`` too, given ``enc_len`` (the encoder's length).
     Every leaf keeps the row (sequence or page) axis first."""
     return {"blocks": [_layer_cache_spec(cfg, mixer, batch, cache_len,
-                                         dtype, kv_format)
+                                         dtype, kv_format, enc_len)
                        for mixer, _ in cfg.layer_kinds()]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device: DeviceLike = None,
-               kv_format: Optional[str] = None) -> Dict[str, Any]:
+               kv_format: Optional[str] = None,
+               enc_len: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed caches of :func:`make_cache_specs` on ``device``."""
     device = resolve_device(device)
-    specs = make_cache_specs(cfg, batch, cache_len, dtype, kv_format)
+    specs = make_cache_specs(cfg, batch, cache_len, dtype, kv_format,
+                             enc_len)
     return {"blocks": [{name: torch.zeros(shape, dtype=dt, device=device)
                         for name, (shape, dt) in layer.items()}
                        for layer in specs["blocks"]]}
@@ -53,7 +63,8 @@ class Model:
     """Transformer entry point of the served families (dense llama,
     gemma2's local/global layers, gemma's MHA, chatglm3's QKV bias and half
     RoPE, granite's MoE FFN, deepseek-v2-lite's MLA and shared experts,
-    mamba2's SSD); parameters live outside, as in JAX.
+    mamba2's SSD, jamba's hybrid, chameleon's embedding inputs,
+    seamless-m4t's encoder-decoder); parameters live outside, as in JAX.
 
     ``device`` defaults to CUDA and raises when it is absent; ``init``
     draws random weights from a seeded ``torch.Generator`` on it (a MoE
@@ -71,8 +82,10 @@ class Model:
         gen.manual_seed(seed)
         return transformer.init_params(self.cfg, gen, dtype, self.device)
 
-    def prefill(self, params, inputs, cache) -> torch.Tensor:
-        return transformer.prefill(params, self.cfg, inputs, cache)
+    def prefill(self, params, inputs, cache,
+                enc_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return transformer.prefill(params, self.cfg, inputs, cache,
+                                   enc_embeds=enc_embeds)
 
     def decode(self, params, inputs, cache, pos, block_tab=None,
                kv_span: Optional[int] = None) -> torch.Tensor:

@@ -11,14 +11,22 @@ the pattern says ``moe``, as ``cfg.layer_kinds()`` says.  QKV bias,
 partial RoPE, attention and final logit softcaps, scaled and tied
 embeddings as the config says.  Mixers may mix in one stack (jamba's
 Mamba layers beside attention layers, each with its own cache leaves).
-Encoder-decoder stacks and non-token frontends are refused
-(``_check_family``).
+The ``embed`` frontend (chameleon-34b) takes float embeddings ``(B, S,
+D)`` for inputs and has no token table; the encoder-decoder stack
+(seamless-m4t-medium) runs a bidirectional, cacheless encoder over float
+frame embeddings (``encode``), and each decoder layer attends over its
+output between its mixer and its FFN (``norm_cross``, ``cross``; the
+cross K and V cached in its ``ck``/``cv`` leaves at prefill).  Its
+decoder takes one-shot prefill and dense decode only, as the reference
+serves it.
 
 Parameters are a plain dict of tensors in the JAX package's layouts, with
 ``blocks`` a flat list of per-layer dicts, the ``first_k_dense`` prefix
 first, each paired with ``cfg.layer_kinds()[i]`` (JAX kept the prefix
 apart and stacked the rest on a leading repeats axis to scan; PyTorch
-runs eagerly, so the stack is a Python loop).  Three entry points share
+runs eagerly, so the stack is a Python loop); an encoder-decoder's
+encoder is ``encoder = {"blocks": [...], "final_norm"}``, its layers
+paired with the pattern repeated.  Three entry points share
 them: ``prefill`` (whole prompts into a dense cache), ``decode_step``
 (one token per slot at per-slot positions, dense or paged) and
 ``chunk_prefill_step`` (one prompt chunk at per-slot offsets, paged).
@@ -45,24 +53,47 @@ FFNS = ("dense", "moe", "none")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """The stacks the port serves: token frontends and no encoder (the
-    embed frontend and the encoder-decoder stack are still to come)."""
+    """Raise on a stack the port does not know: a mixer or FFN kind of
+    none of ``MIXERS`` and ``FFNS``, a MoE FFN without its config, or a
+    frontend other than token ids and stub embeddings."""
     mixers = {k for k, _ in cfg.layer_kinds()}
     ffns = {f for _, f in cfg.layer_kinds()}
-    if (cfg.encdec or cfg.frontend != "token"
-            or mixers - set(MIXERS) or ffns - set(FFNS)
-            or ("moe" in ffns and cfg.moe is None)):
+    if (mixers - set(MIXERS) or ffns - set(FFNS)
+            or ("moe" in ffns and cfg.moe is None)
+            or cfg.frontend not in ("token", "embed")):
         raise NotImplementedError(
             f"{cfg.name}: the port serves attn/local, mla or mamba mixers "
-            f"with dense, moe or no FFNs and a token frontend "
+            f"with dense, moe or no FFNs and a token or embed frontend "
             f"(got mixers {sorted(mixers)}, ffns {sorted(ffns)}, "
-            f"encdec={cfg.encdec}, frontend={cfg.frontend!r})")
+            f"frontend={cfg.frontend!r})")
+
+
+def serves_tokens(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` is a decoder fed token ids, which the generators
+    and the paged pool take.  The reference serves an encoder-decoder
+    through ``Model``'s one-shot prefill and dense decode alone (its
+    prefill needs the encoder's frames; its generators crash, its pool
+    refuses it), and the ``embed`` frontend through those and the
+    streamed executor (no token table to feed a greedy token back
+    through: its generators crash)."""
+    return cfg.frontend == "token" and not cfg.encdec
+
+
+def refuse_encdec(cfg: ModelConfig, path: str) -> None:
+    """Raise on an encoder-decoder: ``path``, which says why, cannot give
+    its cross attention the encoder's output."""
+    if cfg.encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder takes one-shot prefill and "
+            f"decode over a dense cache only, not {path}")
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind,
-               dtype, device, dense_d_ff: Optional[int] = None) -> Params:
+               dtype, device, dense_d_ff: Optional[int] = None,
+               with_cross: bool = False) -> Params:
     """One layer; a ``dense`` FFN is ``dense_d_ff`` wide (default
-    ``d_ff``)."""
+    ``d_ff``); ``with_cross`` adds an encoder-decoder's cross attention
+    and its norm."""
     mixer, ffn = kind
     d = cfg.d_model
     p: Params = {"norm1": torch.ones((d,), dtype=dtype, device=device)}
@@ -72,6 +103,9 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind,
         p["mla"] = attention.init_mla(gen, cfg, dtype, device)
     else:
         p["mamba"] = ssm.init_mamba(gen, cfg, dtype, device)
+    if with_cross:
+        p["norm_cross"] = torch.ones((d,), dtype=dtype, device=device)
+        p["cross"] = attention.init_attention(gen, cfg, dtype, device)
     if ffn == "none":
         return p
     p["norm2"] = torch.ones((d,), dtype=dtype, device=device)
@@ -83,23 +117,43 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: LayerKind,
     return p
 
 
+def encoder_kinds(cfg: ModelConfig) -> List[LayerKind]:
+    """An encoder-decoder's encoder layers: the pattern repeated over
+    ``num_encoder_layers``, as the reference stacks them."""
+    pat = cfg.layer_pattern
+    if cfg.num_encoder_layers % len(pat):
+        raise ValueError(f"{cfg.num_encoder_layers} encoder layers for a "
+                         f"pattern of {len(pat)}")
+    return list(pat) * (cfg.num_encoder_layers // len(pat))
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
                 device) -> Params:
     """The layers before ``first_k_dense`` take a dense MLP of
-    ``first_dense_d_ff``, as the reference's ``prefix``."""
+    ``first_dense_d_ff``, as the reference's ``prefix``.  The token table
+    ``embed`` exists for token frontends and encoder-decoders (whose
+    decoder reads tokens), as in the reference; the ``embed`` frontend's
+    inputs are embeddings already."""
     _check_family(cfg)
     prefix_d_ff = cfg.first_dense_d_ff or cfg.d_ff
-    p: Params = {
-        "embed": layers.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
-                                   device),
-        "blocks": [init_layer(gen, cfg, kind, dtype, device,
-                              prefix_d_ff if i < cfg.first_k_dense else None)
-                   for i, kind in enumerate(cfg.layer_kinds())],
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-    }
+    p: Params = {}
+    if cfg.frontend == "token" or cfg.encdec:
+        p["embed"] = layers.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                       dtype, device)
+    p["blocks"] = [init_layer(gen, cfg, kind, dtype, device,
+                              prefix_d_ff if i < cfg.first_k_dense else None,
+                              with_cross=cfg.encdec)
+                   for i, kind in enumerate(cfg.layer_kinds())]
+    p["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
     if not cfg.tie_embeddings:
         p["lm_head"] = layers.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                          dtype, device)
+    if cfg.encdec:
+        p["encoder"] = {
+            "blocks": [init_layer(gen, cfg, kind, dtype, device)
+                       for kind in encoder_kinds(cfg)],
+            "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                     device=device)}
     return p
 
 
@@ -114,14 +168,17 @@ def ffn_forward(p: Params, h: torch.Tensor, cfg: ModelConfig,
 
 
 def mixer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
-                  *, mode: str, cache: dict, pos: Optional[torch.Tensor],
+                  *, mode: str, cache: Optional[dict],
+                  pos: Optional[torch.Tensor],
                   block_tab: Optional[torch.Tensor],
-                  kv_span: Optional[int]) -> torch.Tensor:
-    """The layer's mixer on its normed input; writes ``cache`` in place."""
+                  kv_span: Optional[int], causal: bool = True
+                  ) -> torch.Tensor:
+    """The layer's mixer on its normed input; writes ``cache`` in place
+    (none with ``mode="encode"``)."""
     if mixer in ATTN_MIXERS:
         return attention.attention_forward(
             p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
-            block_tab=block_tab, kv_span=kv_span)
+            causal=causal, block_tab=block_tab, kv_span=kv_span)
     if mixer == "mla":
         return attention.mla_forward(p["mla"], h, cfg, mode=mode,
                                      cache=cache, pos=pos)
@@ -130,15 +187,20 @@ def mixer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
 
 
 def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
-                cfg: ModelConfig, kind: LayerKind, *, mode: str, cache: dict,
-                pos: Optional[torch.Tensor],
+                cfg: ModelConfig, kind: LayerKind, *, mode: str,
+                cache: Optional[dict], pos: Optional[torch.Tensor],
                 block_tab: Optional[torch.Tensor],
-                kv_span: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+                kv_span: Optional[int], causal: bool = True,
+                enc_out: Optional[torch.Tensor] = None,
+                enc_len: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer on the residual stream ``x`` with the previous layer's
     output ``delta`` still to add (None before the first layer).  Each
     residual add rides in the norm after it (``add_rms_norm``), so the
     layer returns its stream and its own FFN output (its mixer's, with no
-    FFN), pending."""
+    FFN), pending.  A decoder layer of an encoder-decoder runs its cross
+    attention between the mixer and the FFN: over ``enc_out`` at prefill,
+    over its ``ck``/``cv`` leaves, ``enc_len`` (B,) long, at decode."""
     mixer, ffn = kind
     if mixer not in ATTN_MIXERS and (
             block_tab is not None or (mode == "prefill" and pos is not None)):
@@ -150,24 +212,39 @@ def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
     else:
         x, h = layers.add_rms_norm(x, delta, p["norm1"], cfg.norm_eps)
     a = mixer_forward(p, h, cfg, mixer, mode=mode, cache=cache, pos=pos,
-                      block_tab=block_tab, kv_span=kv_span)
+                      block_tab=block_tab, kv_span=kv_span, causal=causal)
+    if "cross" in p:
+        if cache is None or "ck" not in cache:
+            raise ValueError("a decoder layer's cross attention keeps its K "
+                             "and V in ck/cv cache leaves: make the cache "
+                             "with enc_len")
+        x, hc = layers.add_rms_norm(x, a, p["norm_cross"], cfg.norm_eps)
+        a = attention.cross_attention_forward(
+            p["cross"], hc, cfg, mode=mode, cache=cache, enc_out=enc_out,
+            enc_len=enc_len)
     if ffn == "none":
         return x, a
     x, h2 = layers.add_rms_norm(x, a, p["norm2"], cfg.norm_eps)
     return x, ffn_forward(p, h2, cfg, ffn)
 
 
-def _run_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
-               caches: List[dict], pos: Optional[torch.Tensor],
-               block_tab: Optional[torch.Tensor], kv_span: Optional[int]
+def _run_stack(blocks: List[Params], kinds: List[LayerKind],
+               cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+               caches: Optional[List[dict]], pos: Optional[torch.Tensor],
+               block_tab: Optional[torch.Tensor], kv_span: Optional[int],
+               causal: bool = True, enc_out: Optional[torch.Tensor] = None,
+               enc_len: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layers over ``x``; returns the stream and the last layer's
-    pending output, which the final norm adds."""
+    pending output, which the final norm adds.  ``caches`` None: no
+    cache (the encoder)."""
     delta = None
-    for lp, kind, cache in zip(p["blocks"], cfg.layer_kinds(), caches):
+    for i, (lp, kind) in enumerate(zip(blocks, kinds)):
         x, delta = apply_layer(lp, x, delta, cfg, kind, mode=mode,
-                               cache=cache, pos=pos, block_tab=block_tab,
-                               kv_span=kv_span)
+                               cache=None if caches is None else caches[i],
+                               pos=pos, block_tab=block_tab, kv_span=kv_span,
+                               causal=causal, enc_out=enc_out,
+                               enc_len=enc_len)
     return x, delta
 
 
@@ -196,16 +273,40 @@ def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.softcap(logits, cfg.final_logit_softcap)
 
 
+def encode(p: Params, cfg: ModelConfig,
+           enc_embeds: torch.Tensor) -> torch.Tensor:
+    """An encoder-decoder's encoder over float frame embeddings ``(B,
+    S_enc, D)``: the stack at positions ``0..S_enc-1``, bidirectional and
+    cacheless (``mode="encode"``), then its final norm.  Returns ``(B,
+    S_enc, D)``."""
+    enc = p["encoder"]
+    x = _embed_inputs(p, cfg, enc_embeds)
+    x, delta = _run_stack(enc["blocks"], encoder_kinds(cfg), cfg, x,
+                          mode="encode", caches=None, pos=None,
+                          block_tab=None, kv_span=None, causal=False)
+    return layers.add_rms_norm(x, delta, enc["final_norm"], cfg.norm_eps)[1]
+
+
 def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
-            cache: dict) -> torch.Tensor:
+            cache: dict, enc_embeds: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """Causal pass over whole prompts ``inputs`` (B, S) at positions
     ``0..S-1``; their KV lands in ``cache[:, :S]`` of every layer's dense
     ``(B, S_cache, KV, hd)`` cache (MLA: its latent rows; Mamba: its conv
-    history and state), in place.  Returns the last-position logits
-    (B, V)."""
+    history and state), in place.  An encoder-decoder encodes
+    ``enc_embeds`` (B, S_enc, D) first and caches each decoder layer's
+    cross K and V in its ``ck``/``cv`` leaves.  Returns the last-position
+    logits (B, V)."""
+    enc_out = None
+    if cfg.encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                             "prefill takes enc_embeds")
+        enc_out = encode(p, cfg, enc_embeds)
     x = _embed_inputs(p, cfg, inputs)
-    x, delta = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
-                          pos=None, block_tab=None, kv_span=None)
+    x, delta = _run_stack(p["blocks"], cfg.layer_kinds(), cfg, x,
+                          mode="prefill", caches=cache["blocks"], pos=None,
+                          block_tab=None, kv_span=None, enc_out=enc_out)
     x = _final_norm(p, cfg, x[:, -1:], delta[:, -1:])
     return unembed(p, cfg, x)[:, 0]
 
@@ -215,12 +316,24 @@ def decode_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
                 block_tab: Optional[torch.Tensor] = None,
                 kv_span: Optional[int] = None) -> torch.Tensor:
     """One decode step at per-slot positions ``pos`` (B,); ``inputs``
-    (B, 1) token ids.  ``cache`` is dense, or pooled pages read and
-    written through ``block_tab`` (B, nmax) with a ``kv_span``-token
-    view.  Writes ``cache`` in place; returns logits (B, V)."""
+    (B, 1) token ids, or (B, 1, D) embeddings for the ``embed`` frontend.
+    ``cache`` is dense, or pooled pages read and written through
+    ``block_tab`` (B, nmax) with a ``kv_span``-token view.  Writes
+    ``cache`` in place; returns logits (B, V)."""
+    enc_len = None
+    if cfg.encdec:
+        if block_tab is not None:
+            refuse_encdec(cfg, "paged decode (the paged pool refuses it, as "
+                          "the reference's)")
+        # every row attends over all the encoder's frames in every layer
+        enc_len = torch.full((inputs.shape[0],),
+                             cache["blocks"][0]["ck"].shape[1],
+                             dtype=torch.int32, device=inputs.device)
     x = _embed_inputs(p, cfg, inputs)
-    x, delta = _run_stack(p, cfg, x, mode="decode", caches=cache["blocks"],
-                          pos=pos, block_tab=block_tab, kv_span=kv_span)
+    x, delta = _run_stack(p["blocks"], cfg.layer_kinds(), cfg, x,
+                          mode="decode", caches=cache["blocks"], pos=pos,
+                          block_tab=block_tab, kv_span=kv_span,
+                          enc_len=enc_len)
     x = _final_norm(p, cfg, x, delta)
     return unembed(p, cfg, x)[:, 0]
 
@@ -233,8 +346,11 @@ def chunk_prefill_step(p: Params, cfg: ModelConfig, inputs: torch.Tensor,
     ``offset`` (B,).  Its KV lands at ``[offset, offset + C)``; attention
     spans the cache written so far, viewed ``kv_span`` tokens wide.
     Returns the chunk's last-position logits (B, V)."""
+    refuse_encdec(cfg, "chunked prefill (the reference's has no encoder "
+                  "output)")
     x = _embed_inputs(p, cfg, inputs)
-    x, delta = _run_stack(p, cfg, x, mode="prefill", caches=cache["blocks"],
-                          pos=offset, block_tab=block_tab, kv_span=kv_span)
+    x, delta = _run_stack(p["blocks"], cfg.layer_kinds(), cfg, x,
+                          mode="prefill", caches=cache["blocks"], pos=offset,
+                          block_tab=block_tab, kv_span=kv_span)
     x = _final_norm(p, cfg, x[:, -1:], delta[:, -1:])
     return unembed(p, cfg, x)[:, 0]

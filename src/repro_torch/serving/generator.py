@@ -78,6 +78,7 @@ from repro_torch.core.prefetch import PrefetchPolicy, StreamedExecutor
 from repro_torch.models.model import Model, init_cache
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
+from repro_torch.models.transformer import serves_tokens
 from repro_torch.serving.kvpool import (TRASH_PAGE, PagedKVCache,
                                         PageExhausted, resize_cache_rows)
 from repro_torch.serving.prefixcache import PrefixCache
@@ -131,6 +132,13 @@ class _GeneratorBase:
                  streamed: bool = False,
                  policy: Optional[PrefetchPolicy] = None,
                  device: DeviceLike = None):
+        if not serves_tokens(cfg):
+            # the reference's generators crash on these (seamless: its
+            # encoder is handed enc_embeds=None; chameleon: KeyError 'embed')
+            raise NotImplementedError(
+                f"{cfg.name}: the generators take token-frontend decoders "
+                f"only (encdec={cfg.encdec}, frontend={cfg.frontend!r}); "
+                "serve it through Model.prefill and Model.decode")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gen_cfg = gen_cfg

@@ -58,6 +58,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import serves_tokens
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -600,10 +601,12 @@ def resize_cache_rows(pools, rows: int) -> None:
 
 def _attn_only_kinds(cfg: ModelConfig) -> None:
     bad = {k for k, _ in cfg.layer_kinds()} - {"attn", "local"}
-    if bad or cfg.encdec:
+    if bad or not serves_tokens(cfg):
         raise NotImplementedError(
-            f"paged KV cache supports attn/local mixers only, got "
-            f"{sorted(bad)}{' + encdec' if cfg.encdec else ''}")
+            f"paged KV cache supports attn/local mixers of token-frontend "
+            f"decoders only, got {sorted(bad)}"
+            f"{' + encdec' if cfg.encdec else ''}, frontend "
+            f"{cfg.frontend!r}")
 
 
 @dataclass

@@ -370,10 +370,12 @@ def test_flash_attention_prefix_suffix_on_card(cuda_device, dtype, sq,
 
 # ------------------------------------------ the attention families' shapes
 # (query heads, kv heads, head dim): gemma2-2b, gemma-7b, chatglm3-6b,
-# granite-moe-1b-a400m, and llama3-70b's and jamba's attention (G = 8)
+# granite-moe-1b-a400m, llama3-70b's and jamba's attention (G = 8), and
+# seamless-m4t-medium's self and cross attention (G = 1 at head dim 64)
 FAMILY_SHAPES = [(8, 4, 256), (16, 16, 256), (32, 2, 128), (16, 8, 64),
-                 (64, 8, 128)]
-FAMILY_IDS = ["gemma2", "gemma7b", "chatglm3", "granite", "llama70b"]
+                 (64, 8, 128), (16, 16, 64)]
+FAMILY_IDS = ["gemma2", "gemma7b", "chatglm3", "granite", "llama70b",
+              "seamless"]
 
 
 @pytest.mark.cuda
@@ -513,6 +515,52 @@ def test_flash_attention_mla_shape_on_card(cuda_device, dtype, b, sq,
     err = np.abs(_np(got.float()) - _np(want.float()))
     assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
         float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kvh", [(16, 16), (4, 2)])
+@pytest.mark.parametrize("b,sq,sk", [(2, 16, 1024), (8, 128, 1024),
+                                     (2, 300, 1000), (1, 1000, 1000),
+                                     (3, 70, 333)])
+def test_flash_attention_non_causal_on_card(cuda_device, dtype, h, kvh, b,
+                                            sq, sk):
+    """seamless's encoder (Sq = Sk, bidirectional) and cross attention
+    (a short decoder Sq against the encoder's Sk) at head dim 64: never
+    causal, Sq != Sk, Sk ragged against the 128-key tiles (1000, 333) and
+    Sq against the 64-row warpgroups; bf16 and the fp32 path."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (_t(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, dtype)
+               for shape in ((b, sq, h, 64), (b, sk, kvh, 64),
+                             (b, sk, kvh, 64)))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ops.flash_attention(q, k, v, causal=False, impl="ref")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == (b, sq, h, 64)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+        return
+    wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                causal=False, impl="ref")
+    err = np.abs(_np(got.float()) - _np(want.float()))
+    assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+def test_decode_library_builds_g1_at_d64(cuda_device):
+    """The decode libraries report (G = 1, EPL = 2) among their built
+    pairs, and ``BUILT_SHAPES`` equals their ``kBuilt`` (held when each
+    loads)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+    for lib in (pa._lib(), da._lib()):
+        pa._check_built(lib)
+    assert 64 in pa.BUILT_SHAPES[1]
+    pa.check_decode_shape(16, 16, 64)
 
 
 @pytest.mark.cuda

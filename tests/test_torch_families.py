@@ -170,15 +170,19 @@ def test_registry_serves_the_attention_families():
 
 
 def test_family_check_refuses_the_other_mixers():
-    """The embed frontend (seamless, chameleon) waits; MLA, Mamba and the
-    hybrid of Mamba beside attention (jamba) are served."""
+    """Every reference config is taken, MLA, Mamba, the hybrid (jamba),
+    the embed frontend (chameleon) and the encoder-decoder (seamless)
+    too; a mixer or FFN kind the port does not know still raises."""
+    import dataclasses
+    from repro.configs import ASSIGNED_ARCHS as JAX_ARCHS
     from repro_torch.models.transformer import _check_family
-    for arch in ("seamless-m4t-medium", "chameleon-34b"):
-        with pytest.raises(NotImplementedError):
-            _check_family(jax_get_config(arch))
-    for arch in ("deepseek-v2-lite-16b", "mamba2-370m",
-                 "jamba-1.5-large-398b"):
+    assert len(JAX_ARCHS) == 10
+    for arch in JAX_ARCHS:
         _check_family(jax_get_config(arch))
+    base = jax_get_config("llama3-8b")
+    for pattern in ((("rwkv", "dense"),), (("attn", "glu_moe"),)):
+        with pytest.raises(NotImplementedError):
+            _check_family(dataclasses.replace(base, layer_pattern=pattern))
 
 
 # ---------------------------------------------------------------- MLPs

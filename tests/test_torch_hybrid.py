@@ -139,11 +139,19 @@ def test_config_copy_matches_reference():
 
 
 def test_family_check_serves_the_hybrid():
+    """The hybrid is taken, as all ten reference configs are (the embed
+    frontend and the encoder-decoder too); an unknown mixer beside
+    jamba's Mamba, or an unknown FFN, still raises."""
     transformer._check_family(get_config(ARCH))
     transformer._check_family(jax_get_config(ARCH))
     for arch in ("seamless-m4t-medium", "chameleon-34b"):
+        transformer._check_family(jax_get_config(arch))
+    cfg = get_config(ARCH)
+    for pattern in (cfg.layer_pattern[:3] + (("retnet", "moe"),),
+                    cfg.layer_pattern[:3] + (("attn", "sparse"),)):
         with pytest.raises(NotImplementedError):
-            transformer._check_family(jax_get_config(arch))
+            transformer._check_family(
+                dataclasses.replace(cfg, layer_pattern=pattern))
 
 
 def test_cache_spec_mixes_leaves_as_the_reference(weights):
