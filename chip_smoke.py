@@ -16,10 +16,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               library call's and the card's bound for the same work; the
               RMSNorm fused with the residual add (``add_rmsnorm``) also
               with its wrapper's host time per call.
+4a. train-kernels -- the training kernels against their plain versions:
+              the flash backward (``csrc/flash_attention_bwd.cu``) at
+              llama3-8b's shapes (B = 4, S = 2048, 32/8 x 128, causal) in
+              bf16 and fp32, then at D = 64, bidirectional, a window of
+              4096 with softcap 50 (S = 6144) and a ragged S, against the
+              plain ``flash_vjp`` passes; the RMSNorm backward, both forms,
+              at (8192, 4096) in bf16 and fp32; the flash forward's ms with
+              and without its log-sum-exp.  Kernel, plain, library (SDPA's
+              and ``F.rms_norm``'s backward through autograd) and bound ms.
 5. model   -- a reduced llama on the card (kernels) against the same
               weights on the CPU (plain versions): logits and tokens of
               chunked prefill + paged decode, and of one-shot prefill +
               dense decode.
+5-train. train -- llama3-8b at full width through the port's training
+              path (``Model.loss_fn``, ``make_train_step``, remat on): (a)
+              one layer in fp32 at batch 1 x 256, card against CPU, the
+              loss and every gradient leaf; (b) 4 layers, bf16 weights and
+              fp32 master state, 8 AdamW steps on ``SyntheticLM`` at batch
+              4 x 2048: the loss falls, both backward kernels and the flash
+              and RMSNorm forwards launch; step ms, tokens/s, MFU, peak
+              memory, one profiled step's idle share; (c) the checkpoint of
+              step 4 restored into a fresh state gives step 5's loss and
+              parameters exactly.
 5a. family-kernels -- the attention kernels at the shapes of gemma2-2b
               (8/4 heads x 256, window 4096, softcap 50: paged and dense
               decode at kv_len 4100-6200, a prefill chunk at q_offset
@@ -1353,6 +1372,352 @@ def phase_model(torch):
         log(f"[model] {cfg.name}: {what}, card (kernels) vs CPU (plain): "
             f"max logit err {err:.3e} (tol {MODEL_LOGIT_TOL}), greedy "
             "tokens equal")
+
+
+# ------------------------------------------------------------ training
+TRAIN_DEPTH = 4             # llama3-8b at full width, 4 of its 32 layers
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS, TRAIN_CKPT_STEP = 8, 4
+# Adam's first steps move every weight by about lr: 1e-3 and 3e-4 with 2
+# warmup steps took the loss to 24.3 and 23.0 at step 5 (PR 25)
+TRAIN_LR = 1e-4
+TRAIN_CHECK_SEQ = 256       # (a): card fp32 against CPU fp32, one layer
+TRAIN_GRAD_TOL = 5e-4       # (a): per leaf, of its largest |gradient|
+BWD_FP32_TOL, BWD_BF16_TOL = 1e-4, 2e-2   # of the largest |gradient|
+TRAIN_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_bwd",
+                 "rmsnorm_bwd")
+# (name, B, S, H, KV, D, causal, window, softcap, dtypes): llama3-8b's
+# training shapes first (the kernels line's row), then D = 64 (granite's
+# and seamless's heads), bidirectional (seamless's encoder), a window
+# and a softcap (gemma2's), and a ragged S
+BWD_CASES = (
+    ("llama3-8b", 4, 2048, 32, 8, 128, True, None, None, ("bf16", "fp32")),
+    ("d64", 4, 2048, 16, 8, 64, True, None, None, ("bf16",)),
+    ("bidirectional", 4, 2048, 32, 8, 128, False, None, None, ("bf16",)),
+    ("window 4096 softcap 50", 1, 6144, 32, 8, 128, True, 4096, 50.0,
+     ("bf16",)),
+    ("ragged S 2000", 4, 2000, 32, 8, 128, True, None, None, ("bf16",)),
+)
+RMS_BWD_SHAPE = (8192, 4096)
+
+
+def _bwd_ops(torch, b, sq, h, d, causal, window, sk=None):
+    """The flash backward's operations: 2.5 times the forward's 4 * D
+    flops per unmasked (query, key) pair and head (FlashAttention-2's
+    count: dV, dP, dQ, dK and the recomputed S)."""
+    q = torch.empty((b, sq, h, d), device="meta")
+    k = torch.empty((b, sq if sk is None else sk, 1, d), device="meta")
+    _, nops = _flash_bytes_ops(torch, q, k, None, 0, window, causal=causal)
+    return 2.5 * nops
+
+
+def phase_train_kernels(torch, timer, smi):
+    """The training kernels against their plain versions: the flash
+    backward (``csrc/flash_attention_bwd.cu``) at llama3-8b's shapes in
+    bf16 and fp32, then at D = 64, bidirectional, a window with a softcap
+    and a ragged S; the RMSNorm backward (both forms) at (8192, 4096) in
+    bf16 and fp32; the flash forward with and without its log-sum-exp.
+    Each with kernel, plain, library (SDPA's or ``F.rms_norm``'s backward
+    through autograd) and bound ms.  Returns the kernels line's rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_vjp
+    from repro_torch.kernels import rmsnorm as rn
+    sdpa = F.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows, shapes = {}, {"flash_attention_bwd": [], "rmsnorm_bwd": []}
+
+    def report(name, case, err, ms, plain_ms, lib_ms, bound):
+        b_ms, b_by = bound
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"[train-kernel] {name} {case}: max_abs_err {err:.3e} "
+            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib} "
+            f"bound_ms {b_ms:.5f} ({b_by}) -> {b_ms / ms:.1%} of bound "
+            f"({smi})")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+        shapes[name].append(dict(case=case, **row))
+        return row
+
+    for name, b, sq, h, kvh, d, causal, window, cap, dts in BWD_CASES:
+        for dname in dts:
+            dt = torch.bfloat16 if dname == "bf16" else torch.float32
+            q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
+            k, v = (torch.randn((b, sq, kvh, d), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            dout = torch.randn((b, sq, h, d), generator=gen,
+                               device="cuda").to(dt)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+            f32 = [t.float() for t in (q, k, v, dout)]
+            out_p, lse_p = flash_vjp.attention_fwd_lse(*f32[:3], **kw)
+            want = flash_vjp.attention_bwd(*f32[:3], out_p, f32[3], lse_p,
+                                           **kw)
+            tol = BWD_FP32_TOL if dt == torch.float32 else BWD_BF16_TOL
+            err = 0.0
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                scale = float(w.abs().max())
+                err = max(err, check_close(
+                    f"flash backward {name} {dname} {gname}", g.float(), w,
+                    atol=tol * scale))
+            del got, want, out_p
+            # the plain version on the kernel's dtype, as the CPU path runs it
+            plain = lambda: flash_vjp.attention_bwd(q, k, v, out, dout, lse,
+                                                    **kw)
+            lib_ms = None
+            if window is None and cap is None:
+                qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                              for x in (q, k, v))
+                o_l = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+                g_l = dout.transpose(1, 2)
+                lib_ms = timer(lambda: torch.autograd.grad(
+                    o_l, (qt, kt, vt), g_l, retain_graph=True))
+                del o_l, qt, kt, vt
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+            nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+                + lse.numel() * 4
+            r = report("flash_attention_bwd",
+                       f"{name} ({b}, {sq}) {h}/{kvh} x {d} {dname}", err,
+                       timer(lambda: fa.flash_attention_bwd_cuda(
+                           q, k, v, out, dout, lse, **kw)),
+                       timer(plain), lib_ms,
+                       bound_ms(nbytes, _bwd_ops(torch, b, sq, h, d, causal,
+                                                 window), peak))
+            if name == "llama3-8b" and dname == "bf16":
+                rows["flash_attention_bwd"] = r
+                # the forward's cost of its log-sum-exp
+                with_lse = timer(lambda: fa.flash_attention_cuda(
+                    q, k, v, return_lse=True, **kw))
+                without = timer(lambda: fa.flash_attention_cuda(q, k, v,
+                                                                **kw))
+                log(f"[train-kernel] flash_attention forward {name} ({b}, "
+                    f"{sq}) bf16: {with_lse:.4f} ms with the lse output, "
+                    f"{without:.4f} ms without ({smi})")
+                rows["flash_lse_ms"] = dict(with_lse=with_lse,
+                                            without=without)
+            del q, k, v, dout, out, lse
+            _free(torch)
+
+    rows_n, d = RMS_BWD_SHAPE
+    for fused in (False, True):
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt)[6:]
+            s_, dy = (torch.randn((rows_n, d), generator=gen,
+                                  device="cuda").to(dt) for _ in range(2))
+            w = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                       device="cuda")).to(dt)
+            ds = (torch.randn((rows_n, d), generator=gen,
+                              device="cuda").to(dt) if fused else None)
+            dx, dw = rn.rmsnorm_bwd_cuda(s_, dy, w, 1e-5, ds=ds)
+            f32 = [None if t is None else t.float() for t in (s_, dy, w, ds)]
+            if dt == torch.float32:
+                want_dx, want_dw = rn.rmsnorm_bwd_plain(*f32[:3], 1e-5,
+                                                        ds=f32[3])
+                err = check_close("rmsnorm backward dx", dx, want_dx,
+                                  atol=1e-5 * float(want_dx.abs().max()))
+                check_close("rmsnorm backward dw", dw, want_dw,
+                            atol=1e-5 * float(want_dw.abs().max()))
+            else:
+                want_dx, want_dw = rn.rmsnorm_bwd_cuda(*f32[:3], 1e-5,
+                                                       ds=f32[3])
+                ulp = torch.finfo(torch.bfloat16).eps * want_dx.abs().clamp(
+                    min=torch.finfo(torch.bfloat16).tiny)
+                err = check_close("rmsnorm backward dx (bf16 vs fp32 "
+                                  "kernel)", dx.float(), want_dx, atol=ulp)
+                check_close("rmsnorm backward dw", dw, want_dw,
+                            atol=1e-3 * float(want_dw.abs().max()))
+            xl = s_.detach().requires_grad_(True)
+            wl = w.detach().requires_grad_(True)
+            yl = F.rms_norm(xl, (d,), wl, 1e-5)
+            # read s, dy (and ds) and w once, write dx and dw once
+            nbytes = ((3 + fused) * s_.numel() * s_.element_size()
+                      + 2 * w.numel() * w.element_size())
+            form = "add_rmsnorm" if fused else "rmsnorm"
+            r = report("rmsnorm_bwd", f"{form} ({rows_n}, {d}) {dname}", err,
+                       timer(lambda: rn.rmsnorm_bwd_cuda(s_, dy, w, 1e-5,
+                                                         ds=ds)),
+                       timer(lambda: rn.rmsnorm_bwd_plain(s_, dy, w, 1e-5,
+                                                          ds=ds)),
+                       timer(lambda: torch.autograd.grad(
+                           yl, (xl, wl), dy, retain_graph=True)),
+                       bound_ms(nbytes, 8 * s_.numel(), PEAK_FP32))
+            if fused and dt == torch.bfloat16:
+                rows["rmsnorm_bwd"] = r
+            del s_, dy, w, ds, dx, dw, want_dx, want_dw, xl, wl, yl
+            _free(torch)
+    rows["shapes"] = shapes
+    return rows
+
+
+def _grad_tree(torch, model, params, batch):
+    from repro_torch.training.train_loop import value_and_grad
+    loss, _, grads = value_and_grad(model, params, batch)
+    return float(loss), grads
+
+
+def phase_train(torch, smi):
+    """llama3-8b at full width (4096 wide, 32/8 heads x 128, d_ff 14336,
+    vocab 128256) through the port's training path, remat on:
+    (a) one layer, batch 1 x 256, fp32: the card (kernels) against the CPU
+    (plain versions), the loss and every gradient leaf;
+    (b) 4 layers, bf16 weights, fp32 master state: 8 AdamW steps on
+    ``SyntheticLM`` at batch 4 x 2048; the loss at step 8 must be below
+    step 1's, and both backward kernels and the flash and RMSNorm forwards
+    must launch during the steps; step ms, tokens/s, MFU, peak memory and
+    one profiled step's device idle share;
+    (c) a checkpoint of step 4 restored into a fresh state: step 5 again,
+    its loss and parameters equal to the uninterrupted run's.
+    Returns the launch counts of the 8 steps."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamWConfig, TrainState,
+                                      load_checkpoint, make_train_step,
+                                      save_checkpoint)
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    full = get_config("llama3-8b")
+
+    # (a) card against CPU, fp32, one layer
+    cfg1 = dataclasses.replace(full, num_layers=1)
+    cpu = Model(cfg1, device="cpu", remat=True)
+    # drawn on the card (1.27 B values), then copied to the host
+    p_cpu = _to_dev(Model(cfg1, device="cuda").init(seed=5,
+                                                    dtype=torch.float32),
+                    "cpu")
+    g = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg1.vocab_size, (1, TRAIN_CHECK_SEQ + 1),
+                         generator=g)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _grad_tree(torch, cpu, p_cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    gpu = Model(cfg1, device="cuda", remat=True)
+    p_gpu = _to_dev(p_cpu)
+    loss_gpu, g_gpu = _grad_tree(torch, gpu, p_gpu,
+                                 {k: v.cuda() for k, v in batch.items()})
+    if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
+        fail(f"train (a): card loss {loss_gpu} vs CPU {loss_cpu}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(g_gpu), tree_leaves(g_cpu))):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        if not err <= TRAIN_GRAD_TOL * max(scale, 1e-30):
+            fail(f"train (a): gradient leaf {i} {tuple(b.shape)} off by "
+                 f"{err:.3e} of max {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"[train] (a) {cfg1.name} 1 layer full width, fp32, batch 1 x "
+        f"{TRAIN_CHECK_SEQ}: card loss {loss_gpu:.6f} vs CPU {loss_cpu:.6f}; "
+        f"{len(list(tree_leaves(g_cpu)))} gradient leaves, worst "
+        f"{worst:.2e} of the leaf's largest |g| (tol {TRAIN_GRAD_TOL}); CPU "
+        f"took {t_cpu:.1f} s")
+    del cpu, p_cpu, g_cpu, gpu, p_gpu, g_gpu
+    _free(torch)
+
+    # (b) 8 AdamW steps at 4 layers, bf16 weights, fp32 master
+    cfg = dataclasses.replace(full, num_layers=TRAIN_DEPTH)
+    model = Model(cfg, device="cuda", remat=True)
+    state = TrainState.create(model, seed=7, dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    n_matmul = n_params - state.params["embed"].numel()
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        (state.params, state.opt_state)))
+    log(f"[train] (b) {cfg.name} at depth {TRAIN_DEPTH}: {n_params:,} "
+        f"parameters ({n_matmul:,} outside the token table), params + "
+        f"AdamW state {state_bytes / 1e9:.2f} GB on the card")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt)
+    data = iter(SyntheticLM(cfg, DataConfig(batch=TRAIN_BATCH,
+                                            seq_len=TRAIN_SEQ, seed=0)))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+               for _ in range(TRAIN_STEPS)]
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    p, o = state.params, state.opt_state
+    del state
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        p, o, _, m = step(p, o, None, batches[i])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        log(f"[train] step {i + 1}: loss {losses[-1]:.4f} grad_norm "
+            f"{float(m['grad_norm']):.3f} lr {float(m['lr']):.2e} "
+            f"{step_s[-1] * 1e3:.1f} ms")
+        if i + 1 == TRAIN_CKPT_STEP:
+            t1 = time.perf_counter()
+            save_checkpoint(str(ckpt_dir), i + 1, {"p": p, "o": o})
+            log(f"[train] checkpoint of step {i + 1} saved in "
+                f"{time.perf_counter() - t1:.1f} s")
+        if i + 1 == TRAIN_CKPT_STEP + 1:
+            p5 = [t.clone() for t in tree_leaves(p)]
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall ({losses[0]:.4f} at step 1, "
+             f"{losses[-1]:.4f} at step {TRAIN_STEPS})")
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"train: {missing} launched no time in the steps ({counts})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    pairs = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * cfg.resolved_head_dim * pairs * cfg.num_heads * TRAIN_DEPTH
+    flops = 6 * n_matmul * tokens + attn
+    log(f"[train] {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {steady * 1e3:.1f} "
+        f"ms (median of steps 2-{TRAIN_STEPS}), {tokens / steady:,.0f} "
+        f"tokens/s, MFU {flops / steady / PEAK_BF16:.2%} of the dense bf16 "
+        f"peak ({flops / 1e12:.1f} TFLOP a step: 6 N tokens over the "
+        f"{n_matmul:,} parameters outside the token table plus the causal "
+        f"attention products, no recompute), peak device memory "
+        f"{peak / 2**30:.2f} GiB ({smi})")
+    log(f"[train] launches in the {TRAIN_STEPS} steps: {json.dumps(counts)}")
+    # one profiled step (its result dropped)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(p, o, None, batches[-1])
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    breakdown("train", _kernel_records(prof, torch), window_s, smi,
+              what="one train step")
+    del p, o, m, prof
+    _free(torch)
+
+    # (c) step 5 again from the checkpoint of step 4, in a fresh state
+    fresh = model.init(seed=8, dtype=torch.bfloat16)
+    template = {"p": fresh, "o": adamw_init(fresh)}
+    t1 = time.perf_counter()
+    tree, at = load_checkpoint(str(ckpt_dir), template)
+    log(f"[train] checkpoint of step {at} restored in "
+        f"{time.perf_counter() - t1:.1f} s")
+    del template, fresh
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    p, o, _, m = step(tree["p"], tree["o"], None, batches[TRAIN_CKPT_STEP])
+    del tree
+    loss5 = float(m["loss"])
+    if loss5 != losses[TRAIN_CKPT_STEP]:
+        fail(f"train (c): step {TRAIN_CKPT_STEP + 1} from the checkpoint "
+             f"gave loss {loss5!r}, the uninterrupted run "
+             f"{losses[TRAIN_CKPT_STEP]!r}")
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(p), p5)):
+        fail(f"train (c): parameters after step {TRAIN_CKPT_STEP + 1} from "
+             "the checkpoint differ from the uninterrupted run's")
+    log(f"[train] (c) step {TRAIN_CKPT_STEP + 1} from the checkpoint of "
+        f"step {TRAIN_CKPT_STEP}: loss {loss5:.6f} and all {len(p5)} "
+        "parameter leaves equal to the uninterrupted run's")
+    del p, o, m, p5, batches, model
+    _free(torch)
+    return counts
 
 
 # ------------------------------------------------- the attention families
@@ -5070,6 +5435,9 @@ def phase_serve_sharded(torch, cfg, params, store, queries, exact, smi: str,
 
 
 CATEGORIES = (
+    # training's backward kernels, before the forward's names
+    ("flash attention backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("rmsnorm backward", ("rmsnorm_bwd_kernel", "rmsnorm_dw_kernel")),
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
     ("dense decode attention", ("dense_decode_",)),
@@ -5149,6 +5517,13 @@ SOURCES = {
                        "src/repro/kernels/topk_retrieval.py:58"),
     "retrieval_topk_merge": ("cuda", "src/repro_torch/csrc/topk_retrieval.cu",
                              "src/repro/kernels/topk_retrieval.py:146"),
+    # training: the TPU path differentiates flash_attention_pallas (its
+    # custom VJP is kernels/flash_vjp.py, plain jnp) and rmsnorm_pallas
+    "flash_attention_bwd": ("cuda",
+                            "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_vjp.py:127"),
+    "rmsnorm_bwd": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:22"),
 }
 
 
@@ -5176,7 +5551,12 @@ def main() -> int:
                                       store_root)
         timer = Timer(torch)
         rows = timed("kernels", phase_kernels, torch, timer, store, queries)
+        train_rows = timed("train-kernels", phase_train_kernels, torch,
+                           Timer(torch, iters=3), smi)
+        rows.update((k, train_rows[k]) for k in ("flash_attention_bwd",
+                                                 "rmsnorm_bwd"))
         timed("model", phase_model, torch)
+        train = timed("train", phase_train, torch, smi)
         # the other families, before the llama weights take the card
         family_rows = timed("family-kernel", phase_family_kernels, torch,
                             Timer(torch, iters=10), smi)
@@ -5220,11 +5600,18 @@ def main() -> int:
         shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
             + prefix + [streamed, sharded] + placement + families + g8
-            + embed["seamless"] + embed["chameleon"])
+            + embed["seamless"] + embed["chameleon"] + [train])
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         extra = ({"shapes": family_rows[kname]} if kname in family_rows
                  else {})
+        if kname in train_rows["shapes"]:
+            extra["shapes"] = train_rows["shapes"][kname]
+        # the train steps' launches, once a kernel (llama3-8b at depth 4)
+        if kname in TRAIN_KERNELS:
+            extra["launches_at_train"] = train[kname]
+        if kname == "flash_attention":
+            extra["train_forward_ms"] = train_rows["flash_lse_ms"]
         # the launches of the G = 8 models' runs, once a kernel: each is
         # at 64/8 heads x 128 in bf16 (bf16 pages on the paged path)
         if any(row["case"].startswith(("llama3-70b", "jamba"))
@@ -5239,7 +5626,7 @@ def main() -> int:
                 extra[f"launches_at_{model}"] = sum(c[kname] for c in counts)
         kernels.append(dict(name=kname, route=route, source=source,
                             replaces=replaces,
-                            launches=sum(c[kname] for c in runs),
+                            launches=sum(c.get(kname, 0) for c in runs),
                             **rows[kname], **extra))
     log(f"[time] phases: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -1,4 +1,5 @@
-"""Load the JAX package's parameter tree into the port's parameter dict.
+"""Load the JAX package's parameter tree into the port's parameter dict,
+and the way back (``params_to_numpy``).
 
 The caller turns the JAX tree into numpy first
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
@@ -86,4 +87,44 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                                       cfg.num_encoder_layers // pattern,
                                       device, dtype),
             "final_norm": _to_torch(enc["final_norm"], device, dtype)}
+    return out
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
+
+
+def _restack(layers, pattern: int):
+    """The port's flat layers back onto the reference's stacks:
+    ``blocks[j]`` holds layers ``j, j + pattern, ...`` on a leading axis."""
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+    return [stack(layers[j::pattern]) for j in range(pattern)]
+
+
+def params_to_numpy(params: Dict[str, Any],
+                    cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's parameter tree (or a tree of the same shape: gradients,
+    optimizer moments) as numpy fp32 in the JAX package's layout: the
+    ``first_k_dense`` layers as ``prefix``, the rest restacked on each
+    pattern position's repeats axis (an encoder's blocks too).  The
+    inverse of ``params_from_numpy`` up to dtype."""
+    transformer._check_family(cfg)
+    pattern = len(cfg.layer_pattern)
+    layers = [_to_numpy(lp) for lp in params["blocks"]]
+    out = {k: _to_numpy(v) for k, v in params.items()
+           if k not in ("blocks", "encoder")}
+    if cfg.first_k_dense:
+        out["prefix"] = layers[:cfg.first_k_dense]
+    out["blocks"] = _restack(layers[cfg.first_k_dense:], pattern)
+    if cfg.encdec:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "blocks": _restack([_to_numpy(lp) for lp in enc["blocks"]],
+                               pattern),
+            "final_norm": _to_numpy(enc["final_norm"])}
     return out

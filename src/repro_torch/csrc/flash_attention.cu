@@ -76,6 +76,12 @@
 // keys are all masked averages V over them (exp(-1e30 - -1e30) = 1) and
 // stays finite; a row with no tile visited at all gives 0.  Neither
 // arises on a generator path (every row sees key 0).
+//
+// Training asks for each row's log-sum-exp too (`lse`, (B, H, Sq) fp32,
+// natural log: m + log(l) of the fp32 softmax state, which the bf16
+// kernel keeps in log2 units), which the backward pass
+// (flash_attention_bwd.cu) recomputes the probabilities from.  A null
+// `lse` writes nothing: the serving paths launch what they did before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,6 +106,8 @@ struct Args {
   const int32_t* kv_len;   // (B,) or null: Sk
   const int32_t* q_off;    // (B,) or null: q_off0 for every row
   void* out;               // (B, Sq, H, DV), q's dtype
+  float* lse;              // (B, H, Sq) log-sum-exp of each row's scores,
+                           // natural log; null: not written (serving)
   int Sq, Sk, H, KV, D, DV;
   int q_off0;
   float scale;
@@ -242,12 +250,16 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
       const int d = e * 32 + lane;
       if (d < DV) out[base + d] = acc[r][e] / fmaxf(l[r], 1e-30f);
     }
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(static_cast<size_t>(b) * a.H + h) * a.Sq + row0 + row] =
+          m[r] + logf(fmaxf(l[r], 1e-30f));
   }
 }
 
 // ---------------------------------------------------------------- bf16
 constexpr int kWgRows = 64;          // q rows a consumer warpgroup: M of wgmma
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared layout of a (rows x D) bf16 operand tile, as TMA writes it: D is
 // cut into chunks of kChunk columns, one TMA box each; a chunk is a
@@ -697,6 +709,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (r0 < a.Sq) o0[c] = pack_f32(o[4 * j + 0] * i0, o[4 * j + 1] * i0);
         if (r1 < a.Sq) o1[c] = pack_f32(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
       }
+      // the log-sum-exp in natural units: the maxima are in log2 units
+      if (a.lse != nullptr && t == 0) {
+        float* lse = a.lse + (static_cast<size_t>(w.b) * a.H + w.h) * a.Sq;
+        if (r0 < a.Sq) lse[r0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
+        if (r1 < a.Sq) lse[r1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
+      }
     }
   }
 }
@@ -829,14 +847,15 @@ bool with_bf16_pair(int D, int DV, F&& f) {
 
 // bf16 takes the pairs of kBf16Pairs, fp32 any D up to 256 and any DV up
 // to D, multiples of 16.  Others return cudaErrorInvalidValue.  The bf16
-// kernel takes 16-byte aligned q, k, v (TMA).
+// kernel takes 16-byte aligned q, k, v (TMA).  `lse` (B, H, Sq) fp32, or
+// null, takes each row's log-sum-exp for the backward pass (training).
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, const void* kv_len, const void* q_off,
-    void* out, int B, int Sq, int Sk, int H, int KV, int D, int DV, int q_off0, float scale,
+    void* out, void* lse, int B, int Sq, int Sk, int H, int KV, int D, int DV, int q_off0, float scale,
     int causal, int window, float softcap, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int32_t*>(kv_len),
-               static_cast<const int32_t*>(q_off), out, Sq, Sk, H, KV, D, DV, q_off0,
+               static_cast<const int32_t*>(q_off), out, static_cast<float*>(lse), Sq, Sk, H, KV, D, DV, q_off0,
                scale, causal, window, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {

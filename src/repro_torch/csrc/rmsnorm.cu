@@ -194,7 +194,164 @@ cudaError_t pick_weight(int wdtype, int dtype, const void* x, const void* r, con
   return pick_residual<T, T>(x, r, w, s, y, rows, d, eps, stream);
 }
 
+// ------------------------------------------------------------- backward
+//
+// y = s * inv * w with inv = rsqrt(mean(s^2) + eps) and s = x (plain) or
+// x + r (fused, rounded to x's type: the saved forward output).  With
+// g = dy * w in fp32:
+//   ds = inv * g - s * inv^3 * mean(g * s)     (+ the stream's own gradient
+//                                               ds_in for the fused form)
+//   dw = sum over rows of dy * s * inv
+// dx = ds (and dr = ds for the fused form), rounded once to x's type.  It
+// reads s, dy (and ds_in) and writes dx: bytes bound, as the forward.  A
+// block takes rows blockIdx.x, + gridDim.x, ...: for each it sums s^2 and
+// g * s (pass 1), then reads the row again (from L1/L2) for ds (pass 2),
+// so no width is too wide for its registers; each thread keeps the dw
+// partial of its columns in registers across its rows, and writes it as
+// the block's fp32 partial row.  A second kernel sums the partials of a
+// column in block order, so dw's bits do not depend on scheduling; dw
+// stays fp32 (the caller rounds it to w's type, if at all, once).
+constexpr int kBwdThreads = 256;
+
+template <typename T, typename W, int kCols>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ s, const T* __restrict__ dy,
+                   const T* __restrict__ ds_in, const W* __restrict__ w,
+                   T* __restrict__ dx, float* __restrict__ partial, int rows, int d,
+                   float eps) {
+  float dw[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) dw[c] = 0.f;
+  __shared__ float red[2][kBwdThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t base = static_cast<size_t>(row) * d;
+    float ss = 0.f, gs = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = threadIdx.x + c * kBwdThreads;
+      if (col < d) {
+        const float sv = to_f(s[base + col]);
+        const float g = to_f(dy[base + col]) * to_f(w[col]);
+        ss = fmaf(sv, sv, ss);
+        gs = fmaf(g, sv, gs);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      gs += __shfl_xor_sync(0xffffffffu, gs, off);
+    }
+    __syncthreads();                    // the last row's sums are read
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = gs;
+    }
+    __syncthreads();
+    ss = lane < kBwdThreads / 32 ? red[0][lane] : 0.f;
+    gs = lane < kBwdThreads / 32 ? red[1][lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      gs += __shfl_xor_sync(0xffffffffu, gs, off);
+    }
+    const float inv = rsqrtf(ss / d + eps);
+    const float corr = inv * inv * inv * (gs / d);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = threadIdx.x + c * kBwdThreads;
+      if (col < d) {
+        const float sv = to_f(s[base + col]);
+        const float dyv = to_f(dy[base + col]);
+        float g = inv * dyv * to_f(w[col]) - sv * corr;
+        if (ds_in != nullptr) g += to_f(ds_in[base + col]);
+        dx[base + col] = from_f<T>(g);
+        dw[c] = fmaf(dyv * sv, inv, dw[c]);
+      }
+    }
+  }
+  float* part = partial + static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int col = threadIdx.x + c * kBwdThreads;
+    if (col < d) part[col] = dw[c];
+  }
+}
+
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                                  int blocks, int d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= d) return;
+  float acc = 0.f;
+  for (int b = 0; b < blocks; ++b) acc += partial[static_cast<size_t>(b) * d + col];
+  dw[col] = acc;
+}
+
+template <typename T, typename W>
+cudaError_t bwd_launch(const void* s, const void* dy, const void* ds_in, const void* w,
+                       void* dx, void* dw, void* partial, int blocks, int rows, int d,
+                       float eps, cudaStream_t st) {
+  const int cols = (d + kBwdThreads - 1) / kBwdThreads;
+  const T* sp = static_cast<const T*>(s);
+  const T* dyp = static_cast<const T*>(dy);
+  const T* dsp = static_cast<const T*>(ds_in);
+  const W* wp = static_cast<const W*>(w);
+  T* dxp = static_cast<T*>(dx);
+  float* pp = static_cast<float*>(partial);
+  if (cols <= 4)
+    rmsnorm_bwd_kernel<T, W, 4><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
+                                                                 rows, d, eps);
+  else if (cols <= 16)
+    rmsnorm_bwd_kernel<T, W, 16><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
+                                                                  rows, d, eps);
+  else if (cols <= 64)
+    rmsnorm_bwd_kernel<T, W, 64><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
+                                                                  rows, d, eps);
+  else if (cols <= 128)     // the forward's widest rows: 32768 in bf16
+    rmsnorm_bwd_kernel<T, W, 128><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
+                                                                   rows, d, eps);
+  else
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_dw_kernel<<<(d + 255) / 256, 256, 0, st>>>(pp, static_cast<float*>(dw), blocks, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_weight(int wdtype, int dtype, const void* s, const void* dy, const void* ds_in,
+                       const void* w, void* dx, void* dw, void* partial, int blocks, int rows,
+                       int d, float eps, cudaStream_t st) {
+  if (wdtype == 0)
+    return bwd_launch<T, float>(s, dy, ds_in, w, dx, dw, partial, blocks, rows, d, eps, st);
+  if (wdtype != dtype) return cudaErrorInvalidValue;
+  return bwd_launch<T, T>(s, dy, ds_in, w, dx, dw, partial, blocks, rows, d, eps, st);
+}
+
 }  // namespace
+
+// The backward pass of both forms: s (rows, d) the norm's input (the fused
+// form's saved sum), dy (rows, d) the gradient of y, ds_in (rows, d) the
+// gradient of the fused form's s output or null; w (d,).  Writes dx (rows,
+// d; equal to dr for the fused form) and dw (d,) in fp32, through
+// `partial`, an fp32 (blocks, d) workspace; blocks <= rows.  d up to
+// 32768 (128 columns a thread), every width the forward takes.
+extern "C" int rmsnorm_bwd_launch(const void* s, const void* dy, const void* ds_in,
+                                  const void* w, void* dx, void* dw, void* partial,
+                                  int blocks, int rows, int d, float eps, int dtype,
+                                  int wdtype, void* stream) {
+  if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return bwd_weight<float>(wdtype, dtype, s, dy, ds_in, w, dx, dw, partial, blocks,
+                                     rows, d, eps, st);
+    case 1: return bwd_weight<__nv_bfloat16>(wdtype, dtype, s, dy, ds_in, w, dx, dw, partial,
+                                             blocks, rows, d, eps, st);
+    case 2: return bwd_weight<__half>(wdtype, dtype, s, dy, ds_in, w, dx, dw, partial, blocks,
+                                      rows, d, eps, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // x (rows, d) and, for the fused form, r (rows, d) of type dtype (0 fp32,
 // 1 bf16, 2 fp16); w (d,) of type wdtype (fp32 or dtype) -> y (rows, d)

@@ -62,7 +62,7 @@ def _lib() -> ctypes.CDLL:
                                f"kernel's built pairs ({n} pairs: {built})")
         lib.flash_attention_shape.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
         lib.flash_attention_shape.restype = None
-        fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
         fn.restype = _I
     return lib
 
@@ -92,8 +92,12 @@ def flash_attention_cuda(
     kv_len: Optional[torch.Tensor] = None,       # (B,)
     q_offset: Union[int, torch.Tensor] = 0,      # int or (B,)
     scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; raises on anything it cannot take."""
+    return_lse: bool = False,
+):
+    """Launch the kernel on CUDA tensors; raises on anything it cannot take.
+    ``return_lse``: return ``(out, lse)`` with each row's fp32 log-sum-exp
+    ``(B, H, Sq)`` for the backward pass (training); the serving paths ask
+    for none and launch what they did before."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -124,11 +128,14 @@ def flash_attention_cuda(
     lens = None if kv_len is None else kv_len.to(torch.int32).contiguous()
     offs = q_offset.to(torch.int32).contiguous() if per_row else None
     out = q.new_empty((b, sq, h, dv))
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     scale = scale if scale is not None else d ** -0.5
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(),
         None if offs is None else offs.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, sq, sk, h, kvh, d, dv, 0 if per_row else int(q_offset),
         float(scale),
         int(causal), 0 if window is None else int(window),
@@ -136,10 +143,105 @@ def flash_attention_cuda(
         _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+
+# head dims (D = DV) the backward kernel is built for, bf16 and fp32:
+# csrc/flash_attention_bwd.cu's, which ``_bwd_lib`` holds this list to
+BWD_HEAD_DIMS = (64, 128)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        lib.flash_attention_bwd_head_dims.argtypes = [ctypes.POINTER(_I), _I]
+        lib.flash_attention_bwd_head_dims.restype = _I
+        buf = (_I * 8)()
+        n = lib.flash_attention_bwd_head_dims(buf, 8)
+        if tuple(buf[:n]) != BWD_HEAD_DIMS:
+            raise RuntimeError(f"BWD_HEAD_DIMS {BWD_HEAD_DIMS} is not the "
+                               f"backward kernel's built dims {buf[:n]}")
+        fn.argtypes = [_P] * 11 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def check_bwd_shape(d: int, dv: int, dtype) -> None:
+    """Raise ``NotImplementedError`` naming a shape the backward kernel is
+    not built for: D = DV in ``BWD_HEAD_DIMS``, fp32 or bf16."""
+    if d != dv or d not in BWD_HEAD_DIMS or dtype not in _DTYPE_CODE:
+        raise NotImplementedError(
+            f"the flash backward kernel is not built for head dims (q/k {d}, "
+            f"v {dv}) in {dtype} (built: D = DV in {BWD_HEAD_DIMS}, fp32 or "
+            "bf16)")
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,                # (B, Sq, H, D)
+    k: torch.Tensor,                # (B, Sk, KV, D)
+    v: torch.Tensor,                # (B, Sk, KV, D)
+    out: torch.Tensor,              # (B, Sq, H, D): the forward's output
+    dout: torch.Tensor,             # (B, Sq, H, D)
+    lse: torch.Tensor,              # (B, H, Sq) fp32: the forward's
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    kv_len: Optional[torch.Tensor] = None,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+):
+    """``(dq, dk, dv)`` of flash attention from the kernel
+    (``csrc/flash_attention_bwd.cu``), in q's dtype; one launch of the
+    backward counts once (it runs three kernels).  Raises on what it
+    cannot take, ``NotImplementedError`` on a head dim it is not built
+    for."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    tensors = [q, k, v, out, dout, lse] + (
+        [kv_len] if kv_len is not None else [])
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("flash_attention_bwd_cuda takes CUDA tensors")
+    check_bwd_shape(d, dv, q.dtype)
+    if (k.shape != (b, sk, kvh, d) or v.shape != (b, sk, kvh, dv)
+            or out.shape != (b, sq, h, dv) or dout.shape != out.shape
+            or lse.shape != (b, h, sq) or h % kvh):
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} out {tuple(out.shape)} dout "
+                         f"{tuple(dout.shape)} lse {tuple(lse.shape)}")
+    if any(t.dtype != q.dtype for t in (k, v, out, dout)) or \
+            lse.dtype != torch.float32:
+        raise ValueError("q, k, v, out, dout of one dtype and an fp32 lse")
+    if kv_len is not None and kv_len.shape != (b,):
+        raise ValueError("kv_len must be (B,)")
+    if torch.is_tensor(q_offset):
+        raise NotImplementedError("the flash backward takes an int q_offset")
+    lib = _bwd_lib()
+    q, k, v, out, dout, lse = (x.contiguous()
+                               for x in (q, k, v, out, dout, lse))
+    lens = None if kv_len is None else kv_len.to(torch.int32).contiguous()
+    delta = torch.empty_like(lse)
+    dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
+    scale = scale if scale is not None else d ** -0.5
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        None if lens is None else lens.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, kvh, d, dv,
+        int(q_offset), float(scale), int(causal),
+        0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype],
+        _build.current_stream(q.device))
+    _build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dvv
+
+
+flash_attention_bwd_cuda.launches = 0
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
@@ -186,4 +288,5 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
+           "flash_attention_plain"]

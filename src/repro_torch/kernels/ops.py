@@ -14,7 +14,17 @@ There is no fallback: a kernel that cannot build or launch raises.
 ``flash_attention`` takes ``q_offset`` as an int (one-shot prefill) or a
 per-row ``(B,)`` tensor (chunked prefill); the one Hopper kernel serves
 both, where the JAX package routes per-row offsets to its plain
-``kv_scan`` tier.  That tier is the port's plain version on the CPU.
+``kv_scan`` tier.  On the CPU it routes as the JAX package does:
+``flash_vjp`` (a blocked forward and backward in plain torch) when Sq and
+Sk are multiples of 256 and ``q_offset`` is an int, else ``kv_scan``,
+which autograd differentiates.
+
+Training: where a gradient is asked for (grad mode on and an input that
+requires it), ``flash_attention``, ``rmsnorm`` and ``add_rmsnorm`` run as
+``torch.autograd.Function``s whose forward and backward are the Hopper
+kernels on a CUDA tensor (the flash forward then also writes each row's
+log-sum-exp); on a CPU tensor autograd differentiates the plain versions.
+Without a gradient the serving launches are what they were.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_vjp
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
@@ -35,6 +46,8 @@ NEG_INF = ref.NEG_INF
 KERNELS = {
     "rmsnorm": rn.rmsnorm_cuda,          # both forms count here
     "flash_attention": fa.flash_attention_cuda,
+    "flash_attention_bwd": fa.flash_attention_bwd_cuda,
+    "rmsnorm_bwd": rn.rmsnorm_bwd_cuda,  # both forms count here
     "decode_attention": da.decode_attention_cuda,
     "paged_decode_attention": pa.paged_decode_attention_cuda,
     "retrieval_topk": tk.topk_cuda,
@@ -86,8 +99,44 @@ def flash_attention(
     kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
               q_offset=q_offset, scale=scale)
     if _use_kernel(q, impl):
+        if _wants_grad(q, k, v):
+            if torch.is_tensor(q_offset):
+                raise NotImplementedError(
+                    "the flash backward takes an int q_offset")
+            fa.check_bwd_shape(q.shape[-1], v.shape[-1], q.dtype)
+            return _FlashAttention.apply(q, k, v, kv_len, causal, window,
+                                         softcap, int(q_offset), scale)
         return fa.flash_attention_cuda(q, k, v, **kw)
+    if (q.shape[1] % 256 == 0 and k.shape[1] % 256 == 0
+            and not torch.is_tensor(q_offset)):
+        return flash_vjp.flash_attention_train(q, k, v, **kw)
     return fa.flash_attention_plain(q, k, v, block_kv=block_kv, **kw)
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with its log-sum-exp, and the backward
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, window, softcap, q_offset,
+                scale):
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      kv_len=kv_len, q_offset=q_offset, scale=scale)
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                           **ctx.kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                 **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 # ===========================================================================
@@ -180,8 +229,42 @@ def retrieval_topk_merge(
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             *, impl: Optional[str] = None) -> torch.Tensor:
     if _use_kernel(x, impl):
+        if _wants_grad(x, w):
+            return _RMSNorm.apply(x, w, eps)
         return rn.rmsnorm_cuda(x, w, eps)
     return rn.rmsnorm_plain(x, w, eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)
+        return rn.rmsnorm_cuda(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rn.rmsnorm_bwd_cuda(x, dy, w, ctx.eps)
+        return dx, dw.to(w.dtype), None
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """The fused form: saves the sum ``s`` it writes, and its backward
+    takes the gradients of both outputs."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, eps):
+        ctx.eps = eps
+        s, y = rn.add_rmsnorm_cuda(x, r, w, eps)
+        ctx.save_for_backward(s, w)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, w = ctx.saved_tensors
+        dx, dw = rn.rmsnorm_bwd_cuda(s, dy, w, ctx.eps, ds=ds)
+        return dx, dx, dw.to(w.dtype), None
 
 
 def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
@@ -190,5 +273,7 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     """The residual add fused into the norm after it: returns ``(s, y)``
     with ``s = x + r`` in x's dtype and ``y = rmsnorm(s, w, eps)``."""
     if _use_kernel(x, impl):
+        if _wants_grad(x, r, w):
+            return _AddRMSNorm.apply(x, r, w, eps)
         return rn.add_rmsnorm_cuda(x, r, w, eps)
     return rn.add_rmsnorm_plain(x, r, w, eps)

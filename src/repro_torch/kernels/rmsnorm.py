@@ -9,7 +9,8 @@ the layer stack uses it for every norm that follows a residual add.
 ``rmsnorm_cuda`` is the plain form (no residual).  Both launch one kernel
 (``csrc/rmsnorm.cu``, which says what bounds it and how the design meets
 that) and count under ``rmsnorm_cuda.launches``: they port the one Pallas
-kernel.  The library is plain C, loaded with ``ctypes``, so a launch costs
+kernel.  ``rmsnorm_bwd_cuda`` is the backward pass of both forms (training;
+``rmsnorm_bwd_cuda.launches``).  The library is plain C, loaded with ``ctypes``, so a launch costs
 the host one foreign call.
 """
 from __future__ import annotations
@@ -103,5 +104,80 @@ def add_rmsnorm_cuda(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
 
 rmsnorm_cuda.launches = 0
 
-__all__ = ["rmsnorm_cuda", "add_rmsnorm_cuda", "rmsnorm_plain",
-           "add_rmsnorm_plain"]
+_bwd_launcher = None
+
+
+def rmsnorm_bwd_cuda(s: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                     eps: float = 1e-6, ds: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward pass of both forms on CUDA tensors: ``s`` the norm's
+    input (the fused form's saved sum ``x + r``), ``dy`` the gradient of
+    its output, ``ds`` the gradient of the fused form's ``s`` output (None
+    for the plain form).  Returns ``(dx, dw)``: dx in s's dtype (the fused
+    form's dr too), dw in fp32 (summed over the rows in fp32; the caller
+    rounds it to w's dtype).  One launch of the backward counts once (it
+    runs the row kernel and the dw sum)."""
+    global _bwd_launcher
+    if not (s.is_cuda and dy.is_cuda and w.is_cuda
+            and (ds is None or ds.is_cuda)):
+        raise ValueError("rmsnorm_bwd_cuda takes CUDA tensors")
+    d = s.shape[-1]
+    if w.shape != (d,) or dy.shape != s.shape or (
+            ds is not None and ds.shape != s.shape):
+        raise ValueError(f"shapes s {tuple(s.shape)} dy {tuple(dy.shape)} "
+                         f"w {tuple(w.shape)}")
+    code = _DTYPES.get(s.dtype)
+    if code is None or dy.dtype != s.dtype or (
+            ds is not None and ds.dtype != s.dtype):
+        raise ValueError(f"unsupported dtypes {s.dtype}, {dy.dtype}")
+    lib = _lib()
+    if _bwd_launcher is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rmsnorm_bwd_launch.argtypes = [P] * 7 + [I, I, I, ctypes.c_float,
+                                                     I, I, P]
+        lib.rmsnorm_bwd_launch.restype = I
+        _bwd_launcher = lib.rmsnorm_bwd_launch
+    wcode = _DTYPES.get(w.dtype)
+    w_in = w if wcode in (0, code) else w.float()
+    wcode = _DTYPES[w_in.dtype]
+    s, dy, w_in = s.contiguous(), dy.contiguous(), w_in.contiguous()
+    ds = None if ds is None else ds.contiguous()
+    dx = torch.empty_like(s)
+    dw = torch.empty((d,), dtype=torch.float32, device=s.device)
+    rows = s.numel() // d if d else 0
+    if rows:
+        sms = torch.cuda.get_device_properties(s.device).multi_processor_count
+        blocks = min(rows, 8 * sms)      # 8 blocks of 256 threads an SM
+        partial = torch.empty((blocks, d), dtype=torch.float32,
+                              device=s.device)
+        err = _bwd_launcher(s.data_ptr(), dy.data_ptr(),
+                            None if ds is None else ds.data_ptr(),
+                            w_in.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+                            partial.data_ptr(), blocks, rows, d, eps, code,
+                            wcode, _build.current_stream(s.device))
+        if err:
+            _build.check(lib, err, "rmsnorm_bwd_cuda")
+        rmsnorm_bwd_cuda.launches += 1
+    else:
+        dw.zero_()
+    return dx, dw
+
+
+rmsnorm_bwd_cuda.launches = 0
+
+
+def rmsnorm_bwd_plain(s: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-6, ds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: autograd of ``rmsnorm_plain``, plus
+    ``ds`` for the fused form."""
+    with torch.enable_grad():
+        s_ = s.detach().requires_grad_(True)
+        w_ = w.detach().requires_grad_(True)
+        dx, dw = torch.autograd.grad(rmsnorm_plain(s_, w_, eps), (s_, w_),
+                                     dy)
+    return (dx if ds is None else dx + ds), dw
+
+
+__all__ = ["rmsnorm_cuda", "add_rmsnorm_cuda", "rmsnorm_bwd_cuda",
+           "rmsnorm_plain", "add_rmsnorm_plain", "rmsnorm_bwd_plain"]

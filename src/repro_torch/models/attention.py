@@ -13,16 +13,18 @@ serving paths run (``mixer="attn"``/``"local"``):
 * ``mode="decode"``: one token per row writes its KV at ``pos`` and
   attends over the dense cache (``ops.decode_attention``) or, with a
   block table, through the pool (``ops.paged_decode_attention``);
-* ``mode="encode"``: the reference's cacheless ``mode="train"`` branch as
-  its ``encode`` runs it: the whole sequence at positions ``0..S-1``,
-  ``causal`` as given (the encoder's is bidirectional), no cache.
-  ``mode="train"`` itself waits for training.
+* ``mode="train"``: the whole sequence at positions ``0..S-1``,
+  ``causal`` as given, no cache; the reference's train branch, which its
+  ``encode`` runs too (bidirectional).  ``mode="encode"`` is another name
+  for it.  Under autograd the flash kernel's backward runs on the card
+  (``ops.flash_attention``).
 
 ``cross_attention_forward`` is the encoder-decoder's cross attention
-(seamless-m4t): no RoPE, never causal; prefill projects the encoder's
-output to K and V, writes them into the layer's ``ck``/``cv`` leaves and
-attends over them with the flash kernel at ``Sq`` (the decoder's length)
-against ``Sk`` (the encoder's); decode attends over ``ck``/``cv`` at
+(seamless-m4t): no RoPE, never causal; train projects the encoder's output
+to K and V and attends over them, no cache; prefill does the same and
+writes them into the layer's ``ck``/``cv`` leaves, attending with the
+flash kernel at ``Sq`` (the decoder's length) against ``Sk`` (the
+encoder's); decode attends over ``ck``/``cv`` at
 the encoder's length, which the decode step builds once for every layer.
 
 An int8 pool (``cache`` has ``k_scale``/``v_scale`` leaves of ``(P, KV)``
@@ -108,10 +110,11 @@ def _project_qkv(p: dict, x: torch.Tensor):
 def attention_forward(
     p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     mixer: str,                      # "attn" | "local"
-    mode: str,                       # "prefill" | "decode" | "encode"
+    mode: str,                       # "prefill" | "decode" | "train"
+                                     #   ("encode": "train")
     cache: Optional[dict],           # {"k","v"}: dense (B, S_cache, KV, hd)
                                      #   or pooled (P, page, KV, hd);
-                                     #   None with mode="encode"
+                                     #   None with mode="train"
     pos: Optional[torch.Tensor] = None,     # (B,) chunk offsets or decode
                                             # positions; None: one-shot
     causal: bool = True,
@@ -121,8 +124,7 @@ def attention_forward(
     """Returns the attention output; ``cache`` is written in place."""
     if mixer not in ("attn", "local"):
         raise NotImplementedError(f"mixer {mixer!r}")
-    if mode not in ("prefill", "decode", "encode"):
-        raise NotImplementedError(f"mode {mode!r}")
+    mode = _train_mode(mode)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     window = cfg.sliding_window if mixer == "local" else None
@@ -138,7 +140,7 @@ def attention_forward(
         return (layers.apply_rope(q, cos, sin, rot),
                 layers.apply_rope(k, cos, sin, rot))
 
-    if pos is None and mode in ("prefill", "encode"):
+    if pos is None and mode in ("prefill", "train"):
         q, k = rope(torch.arange(s, device=x.device),
                     lambda c: c[None, :, None])
         if mode == "prefill":
@@ -148,8 +150,8 @@ def attention_forward(
                                   softcap=softcap)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
-    if mode == "encode":
-        raise NotImplementedError("mode='encode' runs whole sequences only")
+    if mode == "train":
+        raise NotImplementedError("mode='train' runs whole sequences only")
     if mode == "prefill":
         if block_tab is None:
             raise NotImplementedError(
@@ -205,27 +207,41 @@ def attention_forward(
     return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
 
 
+def _train_mode(mode: str) -> str:
+    """``mode`` checked, ``"encode"`` read as ``"train"``."""
+    if mode not in ("prefill", "decode", "train", "encode"):
+        raise NotImplementedError(f"mode {mode!r}")
+    return "train" if mode == "encode" else mode
+
+
 def cross_attention_forward(
     p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-    cache: dict,                     # the layer's: "ck","cv" (B, S_enc,
-                                     #   KV, hd) among its leaves
-    enc_out: Optional[torch.Tensor] = None,   # (B, S_enc, D); prefill
+    cache: Optional[dict],           # the layer's: "ck","cv" (B, S_enc,
+                                     #   KV, hd) among its leaves; None
+                                     #   with mode="train"
+    enc_out: Optional[torch.Tensor] = None,   # (B, S_enc, D); prefill,
+                                              # train
     enc_len: Optional[torch.Tensor] = None,   # (B,) int32 S_enc; decode
 ) -> torch.Tensor:
     """Encoder-decoder cross attention: no RoPE, never causal.
 
-    ``mode="prefill"`` projects ``enc_out`` to K and V, writes them into
+    ``mode="train"`` projects ``enc_out`` to K and V and attends over
+    them; ``mode="prefill"`` also writes them into
     ``cache["ck"]``/``cache["cv"]`` in place (cast to ``x``'s dtype on the
     way, as the reference's cache takes them; the leaf keeps its own) and
     attends over them; ``mode="decode"`` attends over the cached K and V,
     every row at ``kv_len = enc_len``.  Returns the output."""
+    mode = _train_mode(mode)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         if enc_out is None:
-            raise ValueError("cross attention's prefill takes the encoder's "
+            raise ValueError(f"cross attention's {mode} takes the encoder's "
                              "output")
         k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]).to(x.dtype)
         v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]).to(x.dtype)
+        if mode == "train":
+            out = ops.flash_attention(q, k, v, causal=False)
+            return torch.einsum("bshk,hkd->bsd", out, p["wo"])
         if cache["ck"].shape != k.shape:
             raise ValueError(f"cross cache {tuple(cache['ck'].shape)} for "
                              f"encoder K/V {tuple(k.shape)}: make the cache "
@@ -234,8 +250,6 @@ def cross_attention_forward(
         cache["cv"].copy_(v)
         out = ops.flash_attention(q, k, v, causal=False)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    if mode != "decode":
-        raise NotImplementedError(f"cross attention mode {mode!r}")
     if enc_len is None:
         raise ValueError("cross attention's decode takes the encoder's "
                          "length, enc_len (B,)")
@@ -244,14 +258,15 @@ def cross_attention_forward(
 
 
 def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                cache: dict,        # {"ckv" (B, S_cache, r), "krope" (B,
-                                    #  S_cache, rd)}, dense
+                cache: Optional[dict],   # {"ckv" (B, S_cache, r), "krope"
+                                         #  (B, S_cache, rd)}, dense; None
+                                         #  with mode="train"
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MLA on a dense latent cache: one-shot prefill at positions
-    ``0..S-1`` or one decode token a row at ``pos`` (B,).  Returns the
-    output; ``cache`` is written in place."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}")
+    ``0..S-1`` or one decode token a row at ``pos`` (B,); ``mode="train"``
+    is prefill without a cache.  Returns the output; ``cache`` is written
+    in place."""
+    mode = _train_mode(mode)
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.num_heads
@@ -264,7 +279,7 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                           p["norm_kv"], cfg.norm_eps)      # (B,S,r)
     k_rope = torch.einsum("bsd,dr->bsr", x, p["w_krope"])  # one shared head
 
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         cos, sin = layers.rope_cos_sin(torch.arange(s, device=x.device), rd,
                                        cfg.rope_theta)
         cos, sin = cos[None, :, None], sin[None, :, None]
@@ -277,8 +292,9 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                       dim=-1)
         qfull = torch.cat([q_nope, q_rope], dim=-1)
         out = ops.flash_attention(qfull, k, v, causal=True, scale=scale)
-        cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
-        cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+        if mode == "prefill":
+            cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+            cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
     # decode in the absorbed form

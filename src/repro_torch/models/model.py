@@ -1,7 +1,8 @@
-"""Model facade: init / prefill / chunk prefill / decode + cache specs."""
+"""Model facade: init / train / prefill / chunk prefill / decode + cache
+specs."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -69,18 +70,48 @@ class Model:
     ``device`` defaults to CUDA and raises when it is absent; ``init``
     draws random weights from a seeded ``torch.Generator`` on it (a MoE
     router and Mamba's ``A_log``, ``dt_bias`` and ``D`` in fp32 whatever
-    ``dtype``).
+    ``dtype``).  ``remat`` recomputes each layer in the training backward
+    (the reference's default is ``True``; its tests and this default take
+    ``False``).  A mesh (``ctx``) raises: it waits for the meshes slice.
     """
 
-    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+                 remat: bool = False, ctx: Optional[object] = None):
         transformer._check_family(cfg)
+        if ctx is not None:
+            raise NotImplementedError("Model over a mesh (ctx) waits for the "
+                                      "meshes slice")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat = remat
 
     def init(self, seed: int = 0, dtype=torch.bfloat16) -> Dict[str, Any]:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return transformer.init_params(self.cfg, gen, dtype, self.device)
+
+    # ---- training ----
+    def apply_train(self, params, inputs,
+                    enc_embeds: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(logits (B, S, V), aux loss)`` of the training forward."""
+        return transformer.forward(params, self.cfg, inputs,
+                                   remat=self.remat, enc_embeds=enc_embeds)
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy plus the aux loss, in fp32, as
+        the reference's: ``logsumexp(lf) - lf[label]`` over ``batch
+        ["inputs"]``/``["labels"]`` (``["enc_embeds"]`` for an
+        encoder-decoder).  The label's logit is gathered, not picked by a
+        (B, S, V) one-hot."""
+        logits, aux = self.apply_train(params, batch["inputs"],
+                                       batch.get("enc_embeds"))
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, batch["labels"].long()[..., None])[..., 0]
+        xent = torch.mean(lse - ll)
+        return xent + aux, {"xent": xent, "aux": aux}
 
     def prefill(self, params, inputs, cache,
                 enc_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -24,9 +24,10 @@ The products are plain matrix products outside any Pallas kernel in the
 reference, and stay ``torch.bmm`` here: the exact path's in fp32 from
 bf16 operands, as ``ragged_dot(..., preferred_element_type=f32)``
 (``_mm_f32``), the capacity path's in the operands' type, as the
-reference's ``blk @ w``.  Expert parallelism
-(``moe_forward_ep``) and the tensor-parallel ``shard_map`` need a mesh and
-wait for the training slice.
+reference's ``blk @ w``.  Under autograd (training) the exact path's
+products take ``_MmF32``, whose backward is fp32 products too.  Expert
+parallelism (``moe_forward_ep``) and the tensor-parallel ``shard_map``
+need a mesh and wait for the meshes slice.
 """
 from __future__ import annotations
 
@@ -112,6 +113,31 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor,
     return torch.bmm(a.float(), b.float(), out=out)
 
 
+class _MmF32(torch.autograd.Function):
+    """``_mm_f32`` for training: the forward as serving runs it, and a
+    backward of fp32 products of operands in the forward's type (the
+    incoming fp32 gradient rounded to it), each gradient in its operand's
+    type.  ``out_dtype``'s own derivative is not relied on, and the CPU's
+    fp32 products keep their fp32 gradients."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        dy = dy.to(a.dtype)
+        da = _mm_f32(dy, b.transpose(1, 2).contiguous()).to(a.dtype)
+        db = _mm_f32(a.transpose(1, 2).contiguous(), dy).to(b.dtype)
+        return da, db
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def exact_run(tk: int, num_experts: int, d_ff: int) -> int:
     """Experts a run of the exact path takes at ``tk`` rows: the fewest
     runs that keep four fp32 ``(tk, d_ff)`` intermediates an expert under
@@ -130,14 +156,25 @@ def _grouped_ffn(p: dict, xs: torch.Tensor, gs: torch.Tensor,
     ``xs``'s type before ``w_down``, as the reference's ``ragged_dot``
     with ``preferred_element_type=f32``.  The experts go through
     ``exact_run`` at a time (from shapes alone), each run's down product
-    written into its experts' slice of one output."""
+    written into its experts' slice of one output.  Under autograd
+    (training) the products go through ``_MmF32`` and the runs' outputs
+    are concatenated instead: autograd refuses ``out=``."""
     tk, d = xs.shape
     e = gs.shape[0]
     expert, at = _group_index(gs, tk)
     buf = xs.new_zeros((e, tk, d))
     buf[expert, at] = xs
-    y = None
     run = exact_run(tk, e, p["w_gate"].shape[-1])
+    if _wants_grad(xs, p["w_gate"], p["w_up"], p["w_down"]):
+        ys = []
+        for e0 in range(0, e, run):
+            r = slice(e0, e0 + run)
+            g = _MmF32.apply(buf[r], p["w_gate"][r])
+            u = _MmF32.apply(buf[r], p["w_up"][r])
+            h = (_act(g, mlp_kind) * u).to(xs.dtype)
+            ys.append(_MmF32.apply(h, p["w_down"][r]))
+        return torch.cat(ys)[expert, at]
+    y = None
     for e0 in range(0, e, run):
         r = slice(e0, e0 + run)
         g = _mm_f32(buf[r], p["w_gate"][r])
@@ -250,7 +287,7 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """x (B, S, D) -> (out (B, S, D) in x's type, aux_loss scalar)."""
     if ctx is not None:
         raise NotImplementedError("MoE over a mesh (tensor or expert "
-                                  "parallel) waits for the training slice")
+                                  "parallel) waits for the meshes slice")
     b, s, d = x.shape
     m = cfg.moe
     out, load, imp = _moe_local(p, x.reshape(-1, d), cfg, gemm_impl)

@@ -162,13 +162,15 @@ def ssd_step(
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                  cache: dict,      # {"conv" (B, k-1, C), "state" (B, H,
-                                    #  P, N) fp32}
+                  cache: Optional[dict],   # {"conv" (B, k-1, C), "state"
+                                           #  (B, H, P, N) fp32}; None with
+                                           #  mode="train"
                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A Mamba2 block over a whole prompt (``mode="prefill"``) or one
-    token a row (``"decode"``; no positional encoding, so ``pos`` is
-    unused).  Writes ``cache`` in place; returns the output."""
-    if mode not in ("prefill", "decode"):
+    """A Mamba2 block over a whole prompt (``mode="prefill"``), over a
+    whole sequence without a cache (``"train"``: the SSD over the
+    sequence) or one token a row (``"decode"``; no positional encoding, so
+    ``pos`` is unused).  Writes ``cache`` in place; returns the output."""
+    if mode not in ("prefill", "decode", "train"):
         raise NotImplementedError(f"mode {mode!r}")
     s_cfg = cfg.ssm
     bsz, s, _ = x.shape
@@ -185,7 +187,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     a = -torch.exp(p["A_log"])
     dt = F.softplus(dt_raw + p["dt_bias"])
 
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         hist = torch.cat([xr, bc], dim=-1)
         xr = _causal_conv(xr, p["conv_x_w"], p["conv_x_b"])
         bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"])
@@ -195,10 +197,11 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                                cmat.reshape(bsz, s, g, n),
                                min(s_cfg.chunk_size, s))
         y = y + p["D"][None, None, :, None] * xh.float()
-        conv = hist[:, s - (k - 1):] if s >= k - 1 else \
-            F.pad(hist, (0, 0, k - 1 - s, 0))
-        cache["conv"].copy_(conv.to(cache["conv"].dtype))
-        cache["state"].copy_(state)
+        if mode == "prefill":
+            conv = hist[:, s - (k - 1):] if s >= k - 1 else \
+                F.pad(hist, (0, 0, k - 1 - s, 0))
+            cache["conv"].copy_(conv.to(cache["conv"].dtype))
+            cache["state"].copy_(state)
     else:
         conv_hist = cache["conv"]                          # (B, k-1, C)
         cur = torch.cat([xr, bc], dim=-1)                  # (B, 1, C)

@@ -18,7 +18,9 @@ frame embeddings (``encode``), and each decoder layer attends over its
 output between its mixer and its FFN (``norm_cross``, ``cross``; the
 cross K and V cached in its ``ck``/``cv`` leaves at prefill).  Its
 decoder takes one-shot prefill and dense decode only, as the reference
-serves it.
+serves it.  ``forward`` is the training pass (``mode="train"`` in every
+mixer: whole sequences, no cache), differentiable by autograd, with each
+layer recomputed in the backward under ``remat``.
 
 Parameters are a plain dict of tensors in the JAX package's layouts, with
 ``blocks`` a flat list of per-layer dicts, the ``first_k_dense`` prefix
@@ -40,6 +42,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import LayerKind, ModelConfig
 from repro_torch.models import attention, layers, moe, ssm
@@ -157,13 +160,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, dtype,
     return p
 
 
-def ffn_forward(p: Params, h: torch.Tensor, cfg: ModelConfig,
-                ffn: str) -> torch.Tensor:
-    """The layer's FFN on its normed input; the MoE's aux loss is a
-    training signal and is dropped here, as the reference's serving
-    passes drop it."""
+def ffn_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, ffn: str,
+                aux: Optional[list] = None) -> torch.Tensor:
+    """The layer's FFN on its normed input.  The MoE's aux loss is a
+    training signal: appended to ``aux`` when given (training), dropped
+    otherwise, as the reference's serving passes drop it."""
     if ffn == "moe":
-        return moe.moe_forward(p["moe"], h, cfg)[0]
+        out, a = moe.moe_forward(p["moe"], h, cfg)
+        if aux is not None:
+            aux.append(a)
+        return out
     return layers.apply_mlp(p["ffn"], h, cfg.mlp_kind)
 
 
@@ -174,7 +180,7 @@ def mixer_forward(p: Params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                   kv_span: Optional[int], causal: bool = True
                   ) -> torch.Tensor:
     """The layer's mixer on its normed input; writes ``cache`` in place
-    (none with ``mode="encode"``)."""
+    (none with ``mode="train"``, or ``"encode"``)."""
     if mixer in ATTN_MIXERS:
         return attention.attention_forward(
             p["attn"], h, cfg, mixer=mixer, mode=mode, cache=cache, pos=pos,
@@ -192,15 +198,18 @@ def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
                 block_tab: Optional[torch.Tensor],
                 kv_span: Optional[int], causal: bool = True,
                 enc_out: Optional[torch.Tensor] = None,
-                enc_len: Optional[torch.Tensor] = None
+                enc_len: Optional[torch.Tensor] = None,
+                aux: Optional[list] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer on the residual stream ``x`` with the previous layer's
     output ``delta`` still to add (None before the first layer).  Each
     residual add rides in the norm after it (``add_rms_norm``), so the
     layer returns its stream and its own FFN output (its mixer's, with no
     FFN), pending.  A decoder layer of an encoder-decoder runs its cross
-    attention between the mixer and the FFN: over ``enc_out`` at prefill,
-    over its ``ck``/``cv`` leaves, ``enc_len`` (B,) long, at decode."""
+    attention between the mixer and the FFN: over ``enc_out`` at prefill
+    and in training (no cache), over its ``ck``/``cv`` leaves, ``enc_len``
+    (B,) long, at decode.  A MoE layer appends its aux loss to ``aux``
+    when given."""
     mixer, ffn = kind
     if mixer not in ATTN_MIXERS and (
             block_tab is not None or (mode == "prefill" and pos is not None)):
@@ -213,19 +222,20 @@ def apply_layer(p: Params, x: torch.Tensor, delta: Optional[torch.Tensor],
         x, h = layers.add_rms_norm(x, delta, p["norm1"], cfg.norm_eps)
     a = mixer_forward(p, h, cfg, mixer, mode=mode, cache=cache, pos=pos,
                       block_tab=block_tab, kv_span=kv_span, causal=causal)
+    train = mode in ("train", "encode")
     if "cross" in p:
-        if cache is None or "ck" not in cache:
+        if not train and (cache is None or "ck" not in cache):
             raise ValueError("a decoder layer's cross attention keeps its K "
                              "and V in ck/cv cache leaves: make the cache "
                              "with enc_len")
         x, hc = layers.add_rms_norm(x, a, p["norm_cross"], cfg.norm_eps)
         a = attention.cross_attention_forward(
-            p["cross"], hc, cfg, mode=mode, cache=cache, enc_out=enc_out,
-            enc_len=enc_len)
+            p["cross"], hc, cfg, mode=mode, cache=None if train else cache,
+            enc_out=enc_out, enc_len=enc_len)
     if ffn == "none":
         return x, a
     x, h2 = layers.add_rms_norm(x, a, p["norm2"], cfg.norm_eps)
-    return x, ffn_forward(p, h2, cfg, ffn)
+    return x, ffn_forward(p, h2, cfg, ffn, aux)
 
 
 def _run_stack(blocks: List[Params], kinds: List[LayerKind],
@@ -273,18 +283,79 @@ def unembed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.softcap(logits, cfg.final_logit_softcap)
 
 
-def encode(p: Params, cfg: ModelConfig,
-           enc_embeds: torch.Tensor) -> torch.Tensor:
+def encode(p: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """An encoder-decoder's encoder over float frame embeddings ``(B,
     S_enc, D)``: the stack at positions ``0..S_enc-1``, bidirectional and
-    cacheless (``mode="encode"``), then its final norm.  Returns ``(B,
-    S_enc, D)``."""
-    enc = p["encoder"]
-    x = _embed_inputs(p, cfg, enc_embeds)
-    x, delta = _run_stack(enc["blocks"], encoder_kinds(cfg), cfg, x,
-                          mode="encode", caches=None, pos=None,
-                          block_tab=None, kv_span=None, causal=False)
-    return layers.add_rms_norm(x, delta, enc["final_norm"], cfg.norm_eps)[1]
+    cacheless (``mode="train"``, as the reference's), then its final norm.
+    Returns ``(B, S_enc, D)``."""
+    return _train_stack(p["encoder"], encoder_kinds(cfg), cfg,
+                        _embed_inputs(p, cfg, enc_embeds), causal=False,
+                        remat=remat)[0]
+
+
+def _train_layer(lp: Params, kind: LayerKind, cfg: ModelConfig,
+                 x: torch.Tensor, delta: Optional[torch.Tensor],
+                 enc_out: Optional[torch.Tensor], causal: bool):
+    """One layer of the training pass: ``(x, delta, aux)``, the aux loss
+    a 0-d fp32 tensor (0 but for a MoE layer)."""
+    aux: list = []
+    x, delta = apply_layer(lp, x, delta, cfg, kind, mode="train", cache=None,
+                           pos=None, block_tab=None, kv_span=None,
+                           causal=causal, enc_out=enc_out, aux=aux)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return x, delta, total
+
+
+def _train_stack(p: Params, kinds: List[LayerKind], cfg: ModelConfig,
+                 x: torch.Tensor, *, causal: bool = True,
+                 enc_out: Optional[torch.Tensor] = None,
+                 remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``p["blocks"]`` over ``x`` in training (no cache), then
+    ``p["final_norm"]``: ``(normed output, summed aux loss)``.  ``remat``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
+    ``nothing_saveable`` over each layer group): a layer keeps only its
+    inputs for the backward."""
+    delta = None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, kind in zip(p["blocks"], kinds):
+        if remat:
+            x, delta, a = torch.utils.checkpoint.checkpoint(
+                _train_layer, lp, kind, cfg, x, delta, enc_out, causal,
+                use_reentrant=False)
+        else:
+            x, delta, a = _train_layer(lp, kind, cfg, x, delta, enc_out,
+                                       causal)
+        aux = aux + a
+    if delta is None:
+        return layers.rms_norm(x, p["final_norm"], cfg.norm_eps), aux
+    return (layers.add_rms_norm(x, delta, p["final_norm"], cfg.norm_eps)[1],
+            aux)
+
+
+def forward(p: Params, cfg: ModelConfig, inputs: torch.Tensor, *,
+            remat: bool = False,
+            enc_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward over whole sequences ``inputs`` (B, S) (token
+    ids, or embeddings (B, S, D) for the ``embed`` frontend) at positions
+    ``0..S-1``: every layer in ``mode="train"``, the final norm and the
+    unembedding.  An encoder-decoder encodes ``enc_embeds`` first.
+    Returns ``(logits (B, S, V), aux loss)``, the MoE layers' aux losses
+    summed in fp32."""
+    enc_out = None
+    if cfg.encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                             "forward takes enc_embeds")
+        enc_out = encode(p, cfg, enc_embeds, remat=remat)
+    x, aux = _train_stack(p, cfg.layer_kinds(), cfg,
+                          _embed_inputs(p, cfg, inputs), enc_out=enc_out,
+                          remat=remat)
+    return unembed(p, cfg, x), aux
 
 
 def prefill(p: Params, cfg: ModelConfig, inputs: torch.Tensor,

@@ -1173,3 +1173,189 @@ def test_streamed_ring_over_uneven_layers(cuda_device):
         got.append(ex.decode(curs[t], cache, pos))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------------- training kernels
+# (B, Sq, Sk, H, KV, D, causal, window, softcap, kv_len): llama's heads
+# and GQA, D = 64 (granite, seamless), bidirectional, a window with a
+# softcap, ragged lengths that divide no tile, kv_len padding
+BWD_CASES = [
+    (2, 256, 256, 8, 2, 128, True, None, None, None),
+    (1, 200, 200, 4, 4, 64, True, None, None, None),
+    (2, 192, 320, 4, 2, 64, False, None, None, (320, 250)),
+    (1, 384, 384, 4, 2, 128, True, 100, 50.0, None),
+    (2, 130, 130, 8, 1, 128, False, None, 30.0, (130, 77)),
+]
+BWD_IDS = ["llama", "d64-ragged", "bidir-kvlen", "window-softcap",
+           "g8-ragged-softcap"]
+
+
+def _bwd_inputs(case, dtype, device):
+    b, sq, sk, h, kvh, d, causal, window, softcap, lens = case
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d)
+    dout = rnd(b, sq, h, d)
+    kv_len = (None if lens is None else
+              torch.tensor(lens, dtype=torch.int32, device=device))
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len)
+    return q, k, v, dout, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_flash_lse_and_backward_on_card(cuda_device, case, dtype):
+    """The forward's log-sum-exp and the backward kernel against the plain
+    ``flash_vjp`` passes: fp32 gradients within 1e-4 of the largest
+    |gradient| of the plain fp32 ones, bf16 gradients within 2e-2 of the
+    plain fp32 gradients of the same bf16 inputs; lse within 1e-4 (fp32)
+    or 2e-3 (bf16, whose scores the kernel scales after the product)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_vjp
+    q, k, v, dout, kw = _bwd_inputs(case, dtype, cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    f32 = [t.float() for t in (q, k, v, dout)]
+    out_p, lse_p = flash_vjp.attention_fwd_lse(*f32[:3], **kw)
+    live = lse_p > -1e29
+    err = float((lse - lse_p).abs()[live].max())
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-3), err
+    # each backward from its own forward: the kernel's out and lse, the
+    # plain fp32 out and lse
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    want = flash_vjp.attention_bwd(*f32[:3], out_p, f32[3], lse_p, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        rel = float((g.float() - w).abs().max() / w.abs().max())
+        assert rel <= tol, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(16, 16), (256, 256), (192, 128)])
+def test_flash_backward_unbuilt_shape_raises(cuda_device, d, dv):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(1, 32, 2, d, device=cuda_device)
+    k = torch.randn(1, 32, 2, d, device=cuda_device)
+    v = torch.randn(1, 32, 2, dv, device=cuda_device)
+    with pytest.raises(NotImplementedError, match=f"{d}"):
+        fa.flash_attention_bwd_cuda(q, k, v, q[..., :dv], q[..., :dv],
+                                    torch.zeros(1, 2, 32, device=cuda_device))
+    with pytest.raises(NotImplementedError):
+        ops.flash_attention(q.requires_grad_(True), k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(8192, 4096), (37, 1024), (5, 16384),
+                                    (3, 100)])
+def test_rmsnorm_backward_on_card(cuda_device, fused, dtype, rows, d):
+    """The backward kernel in fp32 against autograd of the plain version
+    in fp32 on the same inputs, within 1e-5 of the largest |dx| and |dw|;
+    in bf16 against the fp32 kernel on the same (upcast) inputs: dx within
+    one bf16 ulp of the fp32 result (the same fp32 arithmetic, rounded
+    once), dw (fp32 for either) within 1e-3 of the largest |dw|."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    s, dy = (torch.randn((rows, d), generator=gen, device=cuda_device)
+             .to(dtype) for _ in range(2))
+    w = (1 + 0.1 * torch.randn((d,), generator=gen,
+                               device=cuda_device)).to(dtype)
+    ds = (torch.randn((rows, d), generator=gen, device=cuda_device).to(dtype)
+          if fused else None)
+    dx, dw = rn.rmsnorm_bwd_cuda(s, dy, w, 1e-6, ds=ds)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    f32 = [None if t is None else t.float() for t in (s, dy, w, ds)]
+    if dtype == torch.float32:
+        want_dx, want_dw = rn.rmsnorm_bwd_plain(*f32[:3], 1e-6, ds=f32[3])
+        assert float((dx - want_dx).abs().max()) <= 1e-5 * float(
+            want_dx.abs().max())
+        tol = 1e-5
+    else:
+        want_dx, want_dw = rn.rmsnorm_bwd_cuda(*f32[:3], 1e-6, ds=f32[3])
+        ulp = torch.finfo(torch.bfloat16).eps * want_dx.abs().clamp(
+            min=torch.finfo(torch.bfloat16).tiny)
+        err = (dx.float() - want_dx).abs()
+        assert bool((err <= ulp).all()), float((err / ulp).max())
+        tol = 1e-3
+    rel = float((dw - want_dw).abs().max() / want_dw.abs().max())
+    assert rel <= tol, rel
+
+
+@pytest.mark.cuda
+def test_serving_forward_launches_unchanged_without_grad(cuda_device):
+    """A prefill whose weights require grad, under ``no_grad``, launches
+    the forward kernels exactly as one whose weights do not, and no
+    backward; with grad, the model's loss launches both backward
+    kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_cache
+    cfg = get_config("llama3-8b").reduced(num_layers=2, head_dim=64)
+    model = Model(cfg, device=cuda_device)
+    params = model.init(seed=0, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device)
+
+    def counts(requires_grad):
+        for t in _leaves(params):
+            t.requires_grad_(requires_grad)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            model.prefill(params, toks, init_cache(cfg, 2, 64,
+                                                   device=cuda_device))
+        torch.cuda.synchronize()
+        return ops.launch_counts()
+
+    plain, with_grad = counts(False), counts(True)
+    assert plain == with_grad
+    assert plain["flash_attention_bwd"] == plain["rmsnorm_bwd"] == 0
+    ops.reset_launch_counts()
+    loss, _ = model.loss_fn(params, {"inputs": toks, "labels": toks})
+    loss.backward()
+    c = ops.launch_counts()
+    assert c["flash_attention_bwd"] == 2 and c["rmsnorm_bwd"] == 5, c
+    assert all(t.grad is not None and bool(t.grad.isfinite().all())
+               for t in _leaves(params))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@pytest.mark.cuda
+def test_moe_exact_path_differentiable_on_card(cuda_device):
+    """granite's reduced MoE on its exact path in bf16 on the card: its
+    gradients (``_MmF32``'s backward) within 2e-2 of the largest |gradient|
+    of the same bf16 weights and input in fp32 on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    p = moe.init_moe(gen, cfg, torch.bfloat16, "cpu")
+    x = torch.randn((2, 16, cfg.d_model), generator=gen).to(torch.bfloat16)
+
+    def grads(p, x):
+        p = {k: v.detach().requires_grad_(True) for k, v in p.items()
+             if torch.is_tensor(v)}
+        x = x.detach().requires_grad_(True)
+        out, aux = moe.moe_forward(p, x, cfg)
+        (out.float().square().sum() + aux).backward()
+        return {"x": x.grad, **{k: v.grad for k, v in p.items()}}
+
+    got = grads({k: v.to(cuda_device) for k, v in p.items()},
+                x.to(cuda_device))
+    want = grads({k: v.float() for k, v in p.items()}, x.float())
+    for name, w in want.items():
+        rel = float((got[name].float().cpu() - w).abs().max()
+                    / w.abs().max())
+        assert rel <= 2e-2, (name, rel)

@@ -228,7 +228,8 @@ def test_launch_counts_start_at_zero_and_reset():
     ops.reset_launch_counts()
     assert set(ops.launch_counts()) == {
         "rmsnorm", "flash_attention", "decode_attention",
-        "paged_decode_attention", "retrieval_topk", "retrieval_topk_merge"}
+        "paged_decode_attention", "retrieval_topk", "retrieval_topk_merge",
+        "flash_attention_bwd", "rmsnorm_bwd"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
