@@ -6,9 +6,10 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device  -- a CUDA card must be present; prints its name and power limit.
-2. build   -- compiles every hand-written kernel from ``src/repro_torch``;
-              prints the registers and spills of the redesigned attention
-              kernels and their launch shapes at the main paths' sizes.
+2. build   -- compiles every hand-written kernel from ``src/repro_torch``
+              (on a thread, while the corpus is made); prints the
+              registers and spills of the redesigned attention kernels
+              and their launch shapes at the main paths' sizes.
 3. corpus  -- ``blob_corpus(1_000_000, 768)`` in 64 IVF partitions, a
               quarter of them spilled to disk under ``build/``.
 4. kernels -- each kernel against its plain PyTorch version at the main
@@ -17,14 +18,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               RMSNorm fused with the residual add (``add_rmsnorm``) also
               with its wrapper's host time per call.
 4a. train-kernels -- the training kernels against their plain versions:
-              the flash backward (``csrc/flash_attention_bwd.cu``) at
-              llama3-8b's shapes (B = 4, S = 2048, 32/8 x 128, causal) in
-              bf16 and fp32, then at D = 64, bidirectional, a window of
-              4096 with softcap 50 (S = 6144) and a ragged S, against the
-              plain ``flash_vjp`` passes; the RMSNorm backward, both forms,
-              at (8192, 4096) in bf16 and fp32; the flash forward's ms with
-              and without its log-sum-exp.  Kernel, plain, library (SDPA's
-              and ``F.rms_norm``'s backward through autograd) and bound ms.
+              the flash backward (``csrc/flash_attention_bwd.cu``; bf16 on
+              wgmma) at llama3-8b's shapes (B = 4, S = 2048, 32/8 x 128,
+              causal) in bf16 and fp32, then at D = 64, bidirectional, a
+              window of 4096 with softcap 50 (S = 6144) and a ragged S, and
+              at every head-dim pair the families train at, bf16 and fp32:
+              D = 16 (window 16, softcap 50), gemma2-2b's 8/4 x 256 at
+              (1, 6144) (window 4096, softcap 50), gemma-7b's 16/16 x 256
+              at (2, 4096), deepseek's 16/16 x (192, 128) at (2, 4096) and
+              G = 8 (64/8 x 128) at (1, 4096), against the plain
+              ``flash_vjp`` passes, two calls bit-equal; the RMSNorm
+              backward, both forms, at (8192, 4096) in bf16 and fp32; the
+              flash forward's ms with and without its log-sum-exp.  Kernel,
+              plain, library (SDPA's and ``F.rms_norm``'s backward through
+              autograd) and bound ms (the backward's: FlashAttention-2's 5
+              products; the 7 the kernel runs beside it).
 5. model   -- a reduced llama on the card (kernels) against the same
               weights on the CPU (plain versions): logits and tokens of
               chunked prefill + paged decode, and of one-shot prefill +
@@ -39,6 +47,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               memory, one profiled step's idle share; (c) the checkpoint of
               step 4 restored into a fresh state gives step 5's loss and
               parameters exactly.
+5-train-families. train-families -- gemma2-2b (one local and one
+              global layer, batch 1 x 6144), gemma-7b (one layer, 1 x
+              4096) and deepseek-v2-lite (its dense MLA layer, 1 x 2048)
+              at full width: the fp32 config at 1 x 256 card against CPU
+              (loss and every gradient leaf), then 3 steps in bf16 with
+              fp32 AdamW state (every loss finite, the flash backward once
+              per attention layer and step); then ``launch/train.py``'s
+              default reduced llama (head dim 16, fp32) for 20 steps on
+              the card (the backward launched, the loss down).
 5a. family-kernels -- the attention kernels at the shapes of gemma2-2b
               (8/4 heads x 256, window 4096, softcap 50: paged and dense
               decode at kv_len 4100-6200, a prefill chunk at q_offset
@@ -250,10 +267,12 @@ every path); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -441,7 +460,9 @@ class Timer:
     """Device time of one call: the profiler's (CUPTI) records of the
     kernels the call launched, summed, averaged over ``iters`` calls; a
     trace short of any call's records is taken again, and after three
-    short traces the call is timed by CUDA events (logged).
+    short traces the call is timed by CUDA events (logged), once it is
+    seen to launch device work at all.  ``split`` holds the last call's
+    ms by kernel (None when events timed it).
     ``cold`` overwrites the 50 MB L2 (a 256 MiB device-to-device copy,
     left out of the sum) before each call, for inputs the main path finds
     cold: the KV pages of a layer and a freshly copied partition."""
@@ -449,6 +470,7 @@ class Timer:
     def __init__(self, torch, iters: int = 20):
         self.torch = torch
         self.iters = iters
+        self.split = None
         self.src = torch.empty(2 ** 28, dtype=torch.uint8, device="cuda")
         self.dst = torch.empty_like(self.src)
         # start the profiler's tracing before any kernel library loads its
@@ -459,8 +481,10 @@ class Timer:
             self.dst.copy_(self.src)
             torch.cuda.synchronize()
 
-    def __call__(self, fn, cold: bool = False) -> float:
+    def __call__(self, fn, cold: bool = False, iters: int = 0) -> float:
+        """``iters`` calls a trace, the timer's own number when 0."""
         torch = self.torch
+        iters = iters or self.iters
         from torch.profiler import ProfilerActivity, profile
 
         def device_records(calls):
@@ -476,6 +500,7 @@ class Timer:
 
         fn()
         torch.cuda.synchronize()
+        self.split = None
         # a trace that lost records would read as a faster kernel: take
         # only a trace that holds every launch of every call (a one-call
         # trace that lost them all is taken again too)
@@ -484,30 +509,54 @@ class Timer:
             per_call = len(device_records(1))
             if per_call:
                 break
+        else:
+            # the call must be seen to launch device work: a kernel's
+            # launch count, or a trace of 64 calls (a trace loses about 10
+            # records at its ends, PERF.md §7)
+            if not (self._counts_launch(fn) or any(
+                    device_records(max(iters, 64)) for _ in range(3))):
+                fail("the profiler recorded no device work of a call in "
+                     "three one-call and three 64-call traces, and it "
+                     "launched no kernel of the port")
+            log("[timer] the profiler kept no device record of one call in "
+                "three traces: this call is timed by CUDA events instead")
+            return self._events_ms(fn, cold, iters)
         for _ in range(3):
-            recs = device_records(self.iters)
-            if len(recs) >= per_call * self.iters:
+            recs = device_records(iters)
+            if len(recs) >= per_call * iters:
                 break
         else:
             log(f"[timer] the profiler kept {len(recs)} of "
-                f"{per_call * self.iters} device records in three traces: "
+                f"{per_call * iters} device records in three traces: "
                 "this call is timed by CUDA events instead")
-            return self._events_ms(fn, cold)
+            return self._events_ms(fn, cold, iters)
         us = sum(d for _, _, d in recs)
         if us <= 0:
             fail("the profiler recorded no device time")
-        return us / self.iters / 1e3
+        split = collections.Counter()
+        for kname, _, d in recs:
+            split[kname] += d / iters / 1e3
+        self.split = dict(split)
+        return us / iters / 1e3
 
-    def _events_ms(self, fn, cold: bool) -> float:
+    def _counts_launch(self, fn) -> bool:
+        """Whether a call of ``fn`` adds to a kernel's launch count."""
+        from repro_torch.kernels import ops
+        before = sum(ops.launch_counts().values())
+        fn()
+        self.torch.cuda.synchronize()
+        return sum(ops.launch_counts().values()) > before
+
+    def _events_ms(self, fn, cold: bool, iters: int) -> float:
         """Device ms a call by CUDA events: around the ``iters`` calls
         back to back, or around each call after its L2 flush when
         ``cold``.  The gaps between kernels count too, so this never
         reads below the profiler's sum."""
         torch = self.torch
         if not cold:
-            return _events_ms(torch, fn, self.iters)
+            return _events_ms(torch, fn, iters)
         ms = 0.0
-        for _ in range(self.iters):
+        for _ in range(iters):
             self.dst.copy_(self.src)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -516,7 +565,7 @@ class Timer:
             end.record()
             end.synchronize()
             ms += start.elapsed_time(end)
-        return ms / self.iters
+        return ms / iters
 
 
 def host_us(torch, fn, calls: int = 1000, rounds: int = 5) -> float:
@@ -648,6 +697,7 @@ def phase_device(torch):
 
 # the redesigned kernels' variants on the main paths (demangled names)
 REDESIGNED = ("flash_wgmma_kernel<128,", "flash_wgmma_kernel<192,",
+              "dkdv_wgmma_kernel<", "dq_wgmma_kernel<",
               "merge_kernel",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 8, 4>",
@@ -684,30 +734,37 @@ def ptxas_entries(log_text: str):
     return out
 
 
-def phase_build(torch):
+def phase_build(torch, built=None):
+    """The kernels' libraries (``built``: a build already started, whose
+    result this waits for), their registers, spills and launch shapes."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.decode_attention import DENSE_GRANULE
-    t0 = time.perf_counter()
-    libs = _build.build()
-    t_nvcc = time.perf_counter() - t0
+    libs = built.result() if built is not None else _build.build()
+    t_nvcc = max(_build.SECONDS.values(), default=0.0)
     for name, path in libs.items():
         if name == "rmsnorm":           # one line per variant: see below
             continue
         for line in (path.parent / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] nvcc {t_nvcc:.1f} s for {sorted(libs)} "
-        f"in {path.parent.relative_to(ROOT)}")
+    log(f"[build] nvcc {t_nvcc:.1f} s from its start for {sorted(libs)} "
+        f"in {path.parent.relative_to(ROOT)}; each process's seconds "
+        f"{json.dumps(_build.SECONDS)}")
     # the redesigned kernels: registers and spills, and their launch shapes
     # at the main paths' sizes
-    for name in ("flash_attention", "paged_attention", "decode_attention",
-                 "topk_retrieval", "rmsnorm"):
+    for name in ("flash_attention", "flash_attention_bwd", "paged_attention",
+                 "decode_attention", "topk_retrieval", "rmsnorm"):
         text = (libs[name].parent / f"{name}.log").read_text()
         for kern, regs, spill in ptxas_entries(text):
             if any(k in kern for k in REDESIGNED):
                 log(f"[build] {kern[:150]}: {regs}; {spill}")
+        # ptxas serialises every wgmma of a kernel (warning C7513) when a
+        # register an in-flight one reads is written
+        if name.startswith("flash_attention") and "C7513" in text:
+            fail(f"ptxas serialised the wgmma instructions of {name} "
+                 f"(C7513): {[l for l in text.splitlines() if 'C7513' in l]}")
     for case, b, sq, h, d, dv in (
             ("one-shot", SLOTS, CTX, HEADS, HEAD_DIM, HEAD_DIM),
             ("chunk", 1, CHUNK, HEADS, HEAD_DIM, HEAD_DIM),
@@ -1386,38 +1443,54 @@ TRAIN_GRAD_TOL = 5e-4       # (a): per leaf, of its largest |gradient|
 BWD_FP32_TOL, BWD_BF16_TOL = 1e-4, 2e-2   # of the largest |gradient|
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_bwd",
                  "rmsnorm_bwd")
-# (name, B, S, H, KV, D, causal, window, softcap, dtypes): llama3-8b's
+# (name, B, S, H, KV, D, DV, causal, window, softcap, dtypes): llama3-8b's
 # training shapes first (the kernels line's row), then D = 64 (granite's
 # and seamless's heads), bidirectional (seamless's encoder), a window
-# and a softcap (gemma2's), and a ragged S
+# and a softcap (gemma2's), a ragged S; then every head-dim pair the
+# families train at, in both dtypes: D = 16 (the reduced configs),
+# gemma2-2b's and gemma-7b's D = 256, deepseek's MLA (192, 128), and
+# G = 8 (llama3-70b's and jamba's 64/8 heads)
 BWD_CASES = (
-    ("llama3-8b", 4, 2048, 32, 8, 128, True, None, None, ("bf16", "fp32")),
-    ("d64", 4, 2048, 16, 8, 64, True, None, None, ("bf16",)),
-    ("bidirectional", 4, 2048, 32, 8, 128, False, None, None, ("bf16",)),
-    ("window 4096 softcap 50", 1, 6144, 32, 8, 128, True, 4096, 50.0,
+    ("llama3-8b", 4, 2048, 32, 8, 128, 128, True, None, None,
+     ("bf16", "fp32")),
+    ("d64", 4, 2048, 16, 8, 64, 64, True, None, None, ("bf16",)),
+    ("bidirectional", 4, 2048, 32, 8, 128, 128, False, None, None,
      ("bf16",)),
-    ("ragged S 2000", 4, 2000, 32, 8, 128, True, None, None, ("bf16",)),
+    ("window 4096 softcap 50", 1, 6144, 32, 8, 128, 128, True, 4096, 50.0,
+     ("bf16",)),
+    ("ragged S 2000", 4, 2000, 32, 8, 128, 128, True, None, None, ("bf16",)),
+    ("d16 window 16 softcap 50", 8, 1024, 4, 2, 16, 16, True, 16, 50.0,
+     ("bf16", "fp32")),
+    ("gemma2-2b window 4096 softcap 50", 1, 6144, 8, 4, 256, 256, True, 4096,
+     50.0, ("bf16", "fp32")),
+    ("gemma-7b", 2, 4096, 16, 16, 256, 256, True, None, None,
+     ("bf16", "fp32")),
+    ("deepseek-v2-lite MLA", 2, 4096, 16, 16, 192, 128, True, None, None,
+     ("bf16", "fp32")),
+    ("g8", 1, 4096, 64, 8, 128, 128, True, None, None, ("bf16", "fp32")),
 )
 RMS_BWD_SHAPE = (8192, 4096)
 
 
-def _bwd_ops(torch, b, sq, h, d, causal, window, sk=None):
-    """The flash backward's operations: 2.5 times the forward's 4 * D
-    flops per unmasked (query, key) pair and head (FlashAttention-2's
-    count: dV, dP, dQ, dK and the recomputed S)."""
+def _bwd_ops(torch, b, sq, h, d, dv, causal, window):
+    """The flash backward's operations: FlashAttention-2's 5 products of
+    the forward's size (S, dP, dV, dK, dQ), 6 D + 4 DV flops per unmasked
+    (query, key) pair and head, the least work the card could do; and the
+    7 the kernel runs (S and dP in both of its kernels), 8 D + 6 DV."""
     q = torch.empty((b, sq, h, d), device="meta")
-    k = torch.empty((b, sq if sk is None else sk, 1, d), device="meta")
-    _, nops = _flash_bytes_ops(torch, q, k, None, 0, window, causal=causal)
-    return 2.5 * nops
+    k = torch.empty((b, sq, 1, d), device="meta")
+    _, nops = _flash_bytes_ops(torch, q, k, None, 0, window, dv=dv,
+                               causal=causal)
+    pairs = nops // (2 * (d + dv))                  # pairs x heads
+    return pairs * (6 * d + 4 * dv), pairs * (8 * d + 6 * dv)
 
 
 def phase_train_kernels(torch, timer, smi):
     """The training kernels against their plain versions: the flash
-    backward (``csrc/flash_attention_bwd.cu``) at llama3-8b's shapes in
-    bf16 and fp32, then at D = 64, bidirectional, a window with a softcap
-    and a ragged S; the RMSNorm backward (both forms) at (8192, 4096) in
-    bf16 and fp32; the flash forward with and without its log-sum-exp.
-    Each with kernel, plain, library (SDPA's or ``F.rms_norm``'s backward
+    backward (``csrc/flash_attention_bwd.cu``) at ``BWD_CASES`` (two calls
+    bit-equal); the RMSNorm backward (both forms) at (8192, 4096) in bf16
+    and fp32; the flash forward with and without its log-sum-exp.  Each
+    with kernel, plain, library (SDPA's or ``F.rms_norm``'s backward
     through autograd) and bound ms.  Returns the kernels line's rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1439,17 +1512,24 @@ def phase_train_kernels(torch, timer, smi):
         shapes[name].append(dict(case=case, **row))
         return row
 
-    for name, b, sq, h, kvh, d, causal, window, cap, dts in BWD_CASES:
+    for name, b, sq, h, kvh, d, dv, causal, window, cap, dts in BWD_CASES:
         for dname in dts:
             dt = torch.bfloat16 if dname == "bf16" else torch.float32
             q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
-            k, v = (torch.randn((b, sq, kvh, d), generator=gen,
-                                device="cuda").to(dt) for _ in range(2))
-            dout = torch.randn((b, sq, h, d), generator=gen,
+            k = torch.randn((b, sq, kvh, d), generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn((b, sq, kvh, dv), generator=gen,
+                            device="cuda").to(dt)
+            dout = torch.randn((b, sq, h, dv), generator=gen,
                                device="cuda").to(dt)
             kw = dict(causal=causal, window=window, softcap=cap)
             out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
             got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"flash backward {name} {dname}: two calls on the same "
+                     "inputs differ")
+            del again
             f32 = [t.float() for t in (q, k, v, dout)]
             out_p, lse_p = flash_vjp.attention_fwd_lse(*f32[:3], **kw)
             want = flash_vjp.attention_bwd(*f32[:3], out_p, f32[3], lse_p,
@@ -1461,7 +1541,7 @@ def phase_train_kernels(torch, timer, smi):
                 err = max(err, check_close(
                     f"flash backward {name} {dname} {gname}", g.float(), w,
                     atol=tol * scale))
-            del got, want, out_p
+            del got, want, out_p, f32
             # the plain version on the kernel's dtype, as the CPU path runs it
             plain = lambda: flash_vjp.attention_bwd(q, k, v, out, dout, lse,
                                                     **kw)
@@ -1475,15 +1555,26 @@ def phase_train_kernels(torch, timer, smi):
                     o_l, (qt, kt, vt), g_l, retain_graph=True))
                 del o_l, qt, kt, vt
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
-            nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-                + lse.numel() * 4
-            r = report("flash_attention_bwd",
-                       f"{name} ({b}, {sq}) {h}/{kvh} x {d} {dname}", err,
-                       timer(lambda: fa.flash_attention_bwd_cuda(
-                           q, k, v, out, dout, lse, **kw)),
-                       timer(plain), lib_ms,
-                       bound_ms(nbytes, _bwd_ops(torch, b, sq, h, d, causal,
-                                                 window), peak))
+            # q, k, v, o, dO and lse read once; dq, dk, dv written once
+            nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
+                      * q.element_size() + lse.numel() * 4)
+            ops5, ops7 = _bwd_ops(torch, b, sq, h, d, dv, causal, window)
+            ms = timer(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, out, dout, lse, **kw))
+            case = f"{name} ({b}, {sq}) {h}/{kvh} x {d}" + (
+                f"/{dv}" if dv != d else "") + f" {dname}"
+            split = timer.split and {
+                (m.group(0) if (m := re.search(r"\w+_kernel", n)) else n[:40]):
+                round(t, 4) for n, t in timer.split.items()}
+            # one call a trace: the plain version's thousands of small
+            # kernels make a trace of three take seconds to stop
+            r = report("flash_attention_bwd", case, err, ms,
+                       timer(plain, iters=1),
+                       lib_ms, bound_ms(nbytes, ops5, peak))
+            r["bound_7_products_ms"] = bound_ms(nbytes, ops7, peak)[0]
+            log(f"[train-kernel] flash_attention_bwd {case}: two calls "
+                f"bit-equal; {ops7 / ms / 1e9:.1f} TFLOP/s of the 7 products "
+                f"it runs; device ms a call by kernel {json.dumps(split)}")
             if name == "llama3-8b" and dname == "bf16":
                 rows["flash_attention_bwd"] = r
                 # the forward's cost of its log-sum-exp
@@ -1556,6 +1647,48 @@ def _grad_tree(torch, model, params, batch):
     return float(loss), grads
 
 
+def _grads_card_vs_cpu(torch, cfg1, tag):
+    """One fp32 config at batch 1 x ``TRAIN_CHECK_SEQ``: the card (kernels)
+    against the CPU (plain versions), the loss and every gradient leaf
+    within ``TRAIN_GRAD_TOL`` of the leaf's largest |gradient|."""
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import tree_leaves
+    cpu = Model(cfg1, device="cpu", remat=True)
+    gpu = Model(cfg1, device="cuda", remat=True)
+    # drawn on the card (llama3-8b's layer: 1.27 B values), copied to the
+    # host
+    p_gpu = gpu.init(seed=5, dtype=torch.float32)
+    p_cpu = _to_dev(p_gpu, "cpu")
+    g = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg1.vocab_size, (1, TRAIN_CHECK_SEQ + 1),
+                         generator=g)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _grad_tree(torch, cpu, p_cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    loss_gpu, g_gpu = _grad_tree(torch, gpu, p_gpu,
+                                 {k: v.cuda() for k, v in batch.items()})
+    if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
+        fail(f"{tag}: card loss {loss_gpu} vs CPU {loss_cpu}")
+    worst = 0.0
+    # compared on the card: the token table's gradient is 2-3 GB
+    for i, (a, b) in enumerate(zip(tree_leaves(g_gpu), tree_leaves(g_cpu))):
+        b = b.to(a.device)
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not err <= TRAIN_GRAD_TOL * max(scale, 1e-30):
+            fail(f"{tag}: gradient leaf {i} {tuple(b.shape)} off by "
+                 f"{err:.3e} of max {scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"{tag} {cfg1.name} {cfg1.num_layers} layer(s) full width, fp32, "
+        f"batch 1 x {TRAIN_CHECK_SEQ}: card loss {loss_gpu:.6f} vs CPU "
+        f"{loss_cpu:.6f}; {len(list(tree_leaves(g_cpu)))} gradient leaves, "
+        f"worst {worst:.2e} of the leaf's largest |g| (tol "
+        f"{TRAIN_GRAD_TOL}); CPU took {t_cpu:.1f} s")
+    del cpu, p_cpu, g_cpu, gpu, p_gpu, g_gpu
+    _free(torch)
+
+
 def phase_train(torch, smi):
     """llama3-8b at full width (4096 wide, 32/8 heads x 128, d_ff 14336,
     vocab 128256) through the port's training path, remat on:
@@ -1582,40 +1715,8 @@ def phase_train(torch, smi):
     full = get_config("llama3-8b")
 
     # (a) card against CPU, fp32, one layer
-    cfg1 = dataclasses.replace(full, num_layers=1)
-    cpu = Model(cfg1, device="cpu", remat=True)
-    # drawn on the card (1.27 B values), then copied to the host
-    p_cpu = _to_dev(Model(cfg1, device="cuda").init(seed=5,
-                                                    dtype=torch.float32),
-                    "cpu")
-    g = torch.Generator().manual_seed(6)
-    toks = torch.randint(0, cfg1.vocab_size, (1, TRAIN_CHECK_SEQ + 1),
-                         generator=g)
-    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
-    t0 = time.perf_counter()
-    loss_cpu, g_cpu = _grad_tree(torch, cpu, p_cpu, batch)
-    t_cpu = time.perf_counter() - t0
-    gpu = Model(cfg1, device="cuda", remat=True)
-    p_gpu = _to_dev(p_cpu)
-    loss_gpu, g_gpu = _grad_tree(torch, gpu, p_gpu,
-                                 {k: v.cuda() for k, v in batch.items()})
-    if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
-        fail(f"train (a): card loss {loss_gpu} vs CPU {loss_cpu}")
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(tree_leaves(g_gpu), tree_leaves(g_cpu))):
-        scale = float(b.abs().max())
-        err = float((a.cpu() - b).abs().max())
-        if not err <= TRAIN_GRAD_TOL * max(scale, 1e-30):
-            fail(f"train (a): gradient leaf {i} {tuple(b.shape)} off by "
-                 f"{err:.3e} of max {scale:.3e}")
-        worst = max(worst, err / max(scale, 1e-30))
-    log(f"[train] (a) {cfg1.name} 1 layer full width, fp32, batch 1 x "
-        f"{TRAIN_CHECK_SEQ}: card loss {loss_gpu:.6f} vs CPU {loss_cpu:.6f}; "
-        f"{len(list(tree_leaves(g_cpu)))} gradient leaves, worst "
-        f"{worst:.2e} of the leaf's largest |g| (tol {TRAIN_GRAD_TOL}); CPU "
-        f"took {t_cpu:.1f} s")
-    del cpu, p_cpu, g_cpu, gpu, p_gpu, g_gpu
-    _free(torch)
+    _grads_card_vs_cpu(torch, dataclasses.replace(full, num_layers=1),
+                       "[train] (a)")
 
     # (b) 8 AdamW steps at 4 layers, bf16 weights, fp32 master
     cfg = dataclasses.replace(full, num_layers=TRAIN_DEPTH)
@@ -1718,6 +1819,100 @@ def phase_train(torch, smi):
     del p, o, m, p5, batches, model
     _free(torch)
     return counts
+
+
+# (arch, layers, sequence): the families the flash backward's other head
+# dims train, at full width: gemma2-2b one local and one global layer
+# (D = 256; its window of 4096 masks at 6144, softcap 50), gemma-7b one
+# layer (D = 256, G = 1), deepseek-v2-lite its dense prefix layer (MLA,
+# q/k 192, v 128)
+TRAIN_FAMILIES = (("gemma2-2b", 2, 6144), ("gemma-7b", 1, 4096),
+                  ("deepseek-v2-lite-16b", 1, 2048))
+TRAIN_FAMILY_STEPS = 3
+LAUNCHER_STEPS = 20
+
+
+def phase_train_families(torch, smi):
+    """The families whose flash backward runs at D = 16, 256 or (192, 128),
+    trained on the card at full width: for each of ``TRAIN_FAMILIES``,
+    the fp32 config at batch 1 x 256 card against CPU (the loss and every
+    gradient leaf; gemma2 at its two-layer pattern, a pattern repeat being
+    the least depth it takes), then bf16 weights and fp32 AdamW state,
+    ``TRAIN_FAMILY_STEPS`` steps at batch 1: every loss finite, the flash
+    backward launched once per attention layer and step.  Then
+    ``launch/train.py``'s default reduced llama (D = 16, fp32) for
+    ``LAUNCHER_STEPS`` steps: the backward launched, the loss down.
+    Returns the launch counts of the steps and of the launcher's run."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.model import Model
+    from repro_torch.training import AdamWConfig, TrainState, make_train_step
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    runs = []
+    for arch, layers, seq in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        _grads_card_vs_cpu(torch, cfg, "[train-families] (a)")
+        model = Model(cfg, device="cuda", remat=True)
+        state = TrainState.create(model, seed=7, dtype=torch.bfloat16)
+        step = make_train_step(model, AdamWConfig(
+            lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_FAMILY_STEPS))
+        data = iter(SyntheticLM(cfg, DataConfig(batch=1, seq_len=seq,
+                                                seed=0)))
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in next(data).items()}
+                   for _ in range(TRAIN_FAMILY_STEPS)]
+        attn = sum(m in ("attn", "local", "mla") for m, _ in
+                   cfg.layer_kinds())
+        p, o = state.params, state.opt_state
+        del state
+        losses, step_ms = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        for b in batches:
+            t0 = time.perf_counter()
+            p, o, _, m = step(p, o, None, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train-families {arch}: a loss is not finite ({losses})")
+        want = attn * TRAIN_FAMILY_STEPS
+        if counts["flash_attention_bwd"] != want:
+            fail(f"train-families {arch}: the flash backward launched "
+                 f"{counts['flash_attention_bwd']} times in "
+                 f"{TRAIN_FAMILY_STEPS} steps of {attn} attention "
+                 f"layer(s), not {want}")
+        log(f"[train-families] {arch} at {layers} layer(s), full width, bf16 "
+            f"weights + fp32 AdamW, batch 1 x {seq}: losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; step ms "
+            f"{', '.join(f'{x:.1f}' for x in step_ms)}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{json.dumps(counts)} ({smi})")
+        runs.append(counts)
+        del p, o, m, model, step, batches
+        _free(torch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = launcher.main(["--steps", str(LAUNCHER_STEPS), "--log-every",
+                            "5"])
+    counts = ops.launch_counts()
+    if counts["flash_attention_bwd"] == 0:
+        fail(f"train-families launcher: the flash backward never launched "
+             f"({counts})")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"train-families launcher: the loss did not fall ({losses})")
+    log(f"[train-families] launch/train.py, reduced llama3-8b (head dim 16, "
+        f"fp32), {LAUNCHER_STEPS} steps in {time.perf_counter() - t0:.1f} s: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"{json.dumps(counts)}")
+    runs.append(counts)
+    _free(torch)
+    return runs
 
 
 # ------------------------------------------------- the attention families
@@ -5436,7 +5631,9 @@ def phase_serve_sharded(torch, cfg, params, store, queries, exact, smi: str,
 
 CATEGORIES = (
     # training's backward kernels, before the forward's names
-    ("flash attention backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("flash attention backward", ("dkdv_wgmma_kernel", "dq_wgmma_kernel",
+                                  "dkdv_simt_kernel", "dq_simt_kernel",
+                                  "delta_kernel")),
     ("rmsnorm backward", ("rmsnorm_bwd_kernel", "rmsnorm_dw_kernel")),
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
@@ -5541,14 +5738,19 @@ def main() -> int:
         return out
 
     name, smi = timed("device", phase_device, torch)
-    timed("build", phase_build, torch)
+    from repro_torch.kernels import _build
     store_root = ROOT / "build" / "smoke_corpus"
     recluster_root = ROOT / "build" / "smoke_recluster"
     shutil.rmtree(store_root, ignore_errors=True)
     shutil.rmtree(recluster_root, ignore_errors=True)
+    # nvcc's processes run while the corpus is drawn and partitioned (the
+    # corpus launches no kernel of the port)
+    builder = concurrent.futures.ThreadPoolExecutor(1)
     try:
+        built = builder.submit(_build.build)
         store, queries, exact = timed("corpus", phase_corpus, torch,
                                       store_root)
+        timed("build", phase_build, torch, built)
         timer = Timer(torch)
         rows = timed("kernels", phase_kernels, torch, timer, store, queries)
         train_rows = timed("train-kernels", phase_train_kernels, torch,
@@ -5557,6 +5759,8 @@ def main() -> int:
                                                  "rmsnorm_bwd"))
         timed("model", phase_model, torch)
         train = timed("train", phase_train, torch, smi)
+        train_families = timed("train-families", phase_train_families, torch,
+                               smi)
         # the other families, before the llama weights take the card
         family_rows = timed("family-kernel", phase_family_kernels, torch,
                             Timer(torch, iters=10), smi)
@@ -5596,11 +5800,13 @@ def main() -> int:
         placement = timed("serve-placement", phase_serve_placement, torch,
                           cfg, params, *serve, dict(batch, serve=paged))
     finally:
+        builder.shutdown(wait=True)
         shutil.rmtree(store_root, ignore_errors=True)
         shutil.rmtree(recluster_root, ignore_errors=True)
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
             + prefix + [streamed, sharded] + placement + families + g8
-            + embed["seamless"] + embed["chameleon"] + [train])
+            + embed["seamless"] + embed["chameleon"] + [train]
+            + train_families)
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         extra = ({"shapes": family_rows[kname]} if kname in family_rows

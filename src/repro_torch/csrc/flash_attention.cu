@@ -257,47 +257,18 @@ __global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int kWgRows = 64;          // q rows a consumer warpgroup: M of wgmma
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared layout of a (rows x D) bf16 operand tile, as TMA writes it: D is
-// cut into chunks of kChunk columns, one TMA box each; a chunk is a
-// (rows x kSw bytes) slab, swizzled over kSw bytes (128, or 32 at D = 16,
-// whose rows are 32 bytes), so 8 rows make one swizzle atom of 8 * kSw
-// bytes.  Slabs start 1024-byte aligned.  A kv tile holds KEYS keys (N of
-// S = QK^T, K of O += PV); Tiles below picks KEYS and the ring's stages.
-constexpr int swizzle_bytes(int d) { return d >= 64 ? 128 : 32; }
-
-template <int D, int KEYS>
-struct Geo {
-  static_assert(D % 16 == 0 && D <= 256, "head dim");
-  static constexpr int kKeys = KEYS;
-  static constexpr int kSw = swizzle_bytes(D);
-  static constexpr int kChunk = kSw / 2;
-  static constexpr int kChunks = D / kChunk;
-  static constexpr uint32_t kLayout = kSw == 128 ? 1 : 3;   // wgmma swizzle code
-  static constexpr int kQBytes = kWgRows * D * 2;            // a warpgroup's q rows
-  static constexpr int kKvBytes = kKeys * D * 2;             // one K or V tile
-
-  // Q or K, K-major (D contiguous): k-step kk covers columns 16kk..16kk+15.
-  // Within a 128-byte atom the step moves the start address by 32 bytes;
-  // the leading offset is unused, the stride offset is one 8-row atom.
-  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int kk) {
-    const int col = kk * 16;
-    const uint32_t addr = tile + (col / kChunk) * rows * kSw + (col % kChunk) * 2;
-    return hopper::make_desc(addr, 16, 8 * kSw, kLayout);
-  }
-
-  // V, MN-major (D contiguous, keys the K of PV): k-step j covers keys
-  // 16j..16j+15, two 8-row atoms; the leading offset steps from one
-  // column chunk to the next, the stride offset from one atom to the next.
-  // Columns from chunk c0 on (a PV product n128 wide covers two chunks).
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j, int c0 = 0) {
-    return hopper::make_desc(tile + c0 * kKeys * kSw + j * 16 * kSw, kKeys * kSw, 8 * kSw,
-                             kLayout);
-  }
-};
+// Q, K and V tiles are hopper::Geo's layout (wgmma.cuh).  A kv tile holds
+// KEYS keys (N of S = QK^T, K of O += PV); Tiles below picks KEYS and the
+// ring's stages.
+using hopper::Geo;
+using hopper::kWgRows;
+using hopper::fast_exp2;
+using hopper::pack_f32;
+using hopper::make_map;
+using hopper::sm_count;
 
 // dynamic shared bytes a block: alignment slack, q rows, the ring, barriers
 constexpr size_t ring_smem(int nwg, int stages, int q_bytes, int k_bytes, int v_bytes) {
@@ -317,9 +288,9 @@ struct Tiles {
   static constexpr int kKeys = DQK + DV > 320 ? 64 : 128;
   using QK = Geo<DQK, kKeys>;
   using V = Geo<DV, kKeys>;
-  static constexpr int kQBytes = QK::kQBytes;           // a warpgroup's q rows
-  static constexpr int kKBytes = QK::kKvBytes;          // one K tile
-  static constexpr int kVBytes = V::kKvBytes;           // one V tile
+  static constexpr int kQBytes = kWgRows * DQK * 2;    // a warpgroup's q rows
+  static constexpr int kKBytes = QK::kTileBytes;        // one K tile
+  static constexpr int kVBytes = V::kTileBytes;         // one V tile
   static constexpr int kStages =
       ring_smem(2, 3, kQBytes, kKBytes, kVBytes) <= 227 * 1024 ? 3 : 2;
   static constexpr size_t smem(int nwg) {
@@ -346,42 +317,11 @@ constexpr size_t wgmma_smem() {
   return Tiles<DQK, DV>::smem(NWG);
 }
 
-// O += P V's k-step j over the V tile at `tile`; at D = 256 as two
-// m64n128k16 products, columns 0-127 into o[0..63] and 128-255 into
-// o[64..127] (the accumulator's layout continues across them).
-template <int D, int KEYS>
-__device__ __forceinline__ void pv_mma(float* o, const uint32_t* p, uint32_t tile, int j) {
-  using Gm = Geo<D, KEYS>;
-  if constexpr (D == 256) {
-    hopper::wgmma_rs_n128(o, p, Gm::mnmajor(tile, j, 0));
-    hopper::wgmma_rs_n128(o + 64, p, Gm::mnmajor(tile, j, 2));
-  } else if constexpr (D == 128) {
-    hopper::wgmma_rs_n128(o, p, Gm::mnmajor(tile, j));
-  } else if constexpr (D == 64) {
-    hopper::wgmma_rs_n64(o, p, Gm::mnmajor(tile, j));
-  } else {
-    hopper::wgmma_rs_n16(o, p, Gm::mnmajor(tile, j));
-  }
-}
-
 // S = Q K^T's k-step kk, n = KEYS
 template <int KEYS>
 __device__ __forceinline__ void qk_mma(float* sc, uint64_t dq, uint64_t dk, int acc) {
   if constexpr (KEYS == 64) hopper::wgmma_ss_n64(sc, dq, dk, acc);
   else hopper::wgmma_ss_n128(sc, dq, dk, acc);
-}
-
-// 2**x (ex2.approx.ftz: about 2 ulp; -1e30 and below give 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two bf16 in one register, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The work of one q tile: which (q head, batch, rows) and which kv tiles.
@@ -560,7 +500,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         hopper::wgmma_fence();
 #pragma unroll
         for (int j = 0; j < kKeys / 16; ++j)
-          pv_mma<DV, kKeys>(o, pa[j], sv + s * T::kVBytes, j);
+          hopper::rs_mma<DV, Gv>(o, pa[j], sv + s * T::kVBytes, j);
         hopper::wgmma_commit();
         hopper::fence_regs<DV / 2>(o);
         hopper::fence_regs<kKeys / 4>(&pa[0][0]);
@@ -729,67 +669,6 @@ cudaError_t launch(K kern, dim3 grid, int threads, size_t smem, cudaStream_t str
   }
   kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, taken from the driver through the runtime, so
-// the library needs no link against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over a row-major bf16 (d3, d2, d1, D) tensor whose boxes are
-// (1, rows, 1, chunk): one chunk of D columns of `rows` consecutive rows
-// of dim 2, for one index of dims 1 and 3.  Rows past d2 read as zeros, and
-// never as the next index of dim 3.
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int d1, int d2, int d3, int rows) {
-  constexpr int kSw = swizzle_bytes(D);
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(d1),
-                              static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(d1) * D * 2,
-                                 static_cast<cuuint64_t>(d2) * d1 * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kSw / 2), 1u,
-                             static_cast<cuuint32_t>(rows), 1u};
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
 }
 
 template <int DQK, int DV, int NWG>

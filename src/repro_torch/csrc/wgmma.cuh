@@ -1,10 +1,13 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernel: mbarriers,
-// TMA tensor loads, warpgroup MMA (wgmma) and its shared-memory matrix
-// descriptors, and register reallocation.  Inline PTX only; each helper is
-// named after the instruction it issues.
+// Hopper (sm_90a) building blocks of the flash-attention kernels, forward
+// and backward: mbarriers, TMA tensor loads, warpgroup MMA (wgmma) and its
+// shared-memory matrix descriptors, register reallocation (inline PTX; each
+// helper is named after the instruction it issues), and the shared layout
+// of a bf16 operand tile with the host-side TMA map that writes it.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -259,6 +262,142 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x N, fp32) += A (64 x 16, bf16 from registers) B, with B the
+// k-step j (16 rows) of an MN-major tile of G's layout, N of its columns:
+// N = 192 and 256 as n128 products and the rest, the accumulator's layout
+// running on across them (columns 128 on are registers 64 on).
+template <int N, typename G>
+__device__ __forceinline__ void rs_mma(float* d, const uint32_t* a, uint32_t tile, int j) {
+  if constexpr (N == 256) {
+    wgmma_rs_n128(d, a, G::mnmajor(tile, j, 0));
+    wgmma_rs_n128(d + 64, a, G::mnmajor(tile, j, 2));
+  } else if constexpr (N == 192) {
+    wgmma_rs_n128(d, a, G::mnmajor(tile, j, 0));
+    wgmma_rs_n64(d + 64, a, G::mnmajor(tile, j, 2));
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, G::mnmajor(tile, j));
+  } else if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, G::mnmajor(tile, j));
+  } else {
+    static_assert(N == 16, "product width");
+    wgmma_rs_n16(d, a, G::mnmajor(tile, j));
+  }
+}
+
+// ---------------------------------------------------------------- tiles
+constexpr int kWgRows = 64;          // rows of a warpgroup's product: M of wgmma
+
+// Shared layout of a (ROWS x D) bf16 operand tile, as TMA writes it: D is
+// cut into chunks of kChunk columns, one TMA box each; a chunk is a
+// (ROWS x kSw bytes) slab, swizzled over kSw bytes (128, or 32 at D = 16,
+// whose rows are 32 bytes), so 8 rows make one swizzle atom of 8 * kSw
+// bytes.  Slabs start 1024-byte aligned.
+constexpr int swizzle_bytes(int d) { return d >= 64 ? 128 : 32; }
+
+template <int D, int ROWS>
+struct Geo {
+  static_assert(D % 16 == 0 && D <= 256, "head dim");
+  static constexpr int kRows = ROWS;
+  static constexpr int kSw = swizzle_bytes(D);
+  static constexpr int kChunk = kSw / 2;
+  static constexpr int kChunks = D / kChunk;
+  static constexpr uint32_t kLayout = kSw == 128 ? 1 : 3;   // wgmma swizzle code
+  static constexpr int kTileBytes = ROWS * D * 2;
+
+  // K-major use (D the reduced dim): k-step kk covers columns
+  // 16kk..16kk+15.  Within a 128-byte atom the step moves the start
+  // address by 32 bytes; the leading offset is unused, the stride offset
+  // is one 8-row atom.  `rows` is the tile's row count (its slab height).
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows, int kk) {
+    const int col = kk * 16;
+    const uint32_t addr = tile + (col / kChunk) * rows * kSw + (col % kChunk) * 2;
+    return make_desc(addr, 16, 8 * kSw, kLayout);
+  }
+
+  // MN-major use (the rows the reduced dim, D the product's columns):
+  // k-step j covers rows 16j..16j+15, two 8-row atoms; the leading offset
+  // steps from one column chunk to the next, the stride offset from one
+  // atom to the next.  Columns from chunk c0 on.
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j, int c0 = 0) {
+    return make_desc(tile + c0 * kRows * kSw + j * 16 * kSw, kRows * kSw, 8 * kSw, kLayout);
+  }
+};
+
+// 2**x (ex2.approx.ftz: about 2 ulp; -1e30 and below give 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two bf16 in one register, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------- host
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so
+// the library needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a row-major bf16 (d3, d2, d1, D) tensor whose boxes are
+// (1, rows, 1, chunk): one chunk of D columns of `rows` consecutive rows
+// of dim 2, for one index of dims 1 and 3 -- Geo<D, rows>'s tile layout.
+// Rows past d2 read as zeros, and never as the next index of dim 3.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int d1, int d2, int d3, int rows) {
+  constexpr int kSw = swizzle_bytes(D);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2), static_cast<cuuint64_t>(d3)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(d1) * D * 2,
+                                 static_cast<cuuint64_t>(d2) * d1 * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kSw / 2), 1u,
+                             static_cast<cuuint32_t>(rows), 1u};
+  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                kSw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
 }
 
 }  // namespace hopper

@@ -6,7 +6,9 @@ All sources compile at once, one ``nvcc`` process each.  Libraries land in
 ``build/kernels/<hash>/`` at the root of the checkout, where ``<hash>``
 covers the sources and the flags, so an edit to any source rebuilds.
 The compiler's resource report (``-Xptxas -v``) is kept beside each
-library as ``<name>.log``.
+library as ``<name>.log``; ``SECONDS`` holds each process's seconds in
+the last build.  A build may run on a thread of its own: a second call
+waits for it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -27,7 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_build_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -52,32 +57,42 @@ def build_dir() -> Path:
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     """Compile every missing library among ``names`` in parallel."""
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {n: out_dir / f"lib{n}.so" for n in names}
-    todo = [n for n in names if not libs[n].exists()]
-    if not todo:
+    with _build_lock:
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        libs = {n: out_dir / f"lib{n}.so" for n in names}
+        todo = [n for n in names if not libs[n].exists()]
+        if not todo:
+            return libs
+        nvcc = nvcc_path()
+        t0 = time.perf_counter()
+        procs = {}
+        for n in todo:
+            tmp = out_dir / f"lib{n}.so.{os.getpid()}.tmp"
+            log = open(out_dir / f"{n}.log", "w")
+            procs[n] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                stdout=log, stderr=subprocess.STDOUT), tmp, log)
+        failed = []
+        while procs:
+            for n, (proc, tmp, log) in list(procs.items()):
+                rc = proc.poll()
+                if rc is None:
+                    continue
+                log.close()
+                SECONDS[n] = round(time.perf_counter() - t0, 1)
+                del procs[n]
+                if rc == 0:
+                    os.replace(tmp, libs[n])  # atomic: readers never see half
+                else:
+                    failed.append(n)
+            if procs:
+                time.sleep(0.05)
+        if failed:
+            logs = "\n".join((out_dir / f"{n}.log").read_text()
+                             for n in failed)
+            raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
         return libs
-    nvcc = nvcc_path()
-    procs = {}
-    for n in todo:
-        tmp = out_dir / f"lib{n}.so.{os.getpid()}.tmp"
-        log = open(out_dir / f"{n}.log", "w")
-        procs[n] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=log, stderr=subprocess.STDOUT), tmp, log)
-    failed = []
-    for n, (proc, tmp, log) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, libs[n])      # atomic: readers never see half
-        else:
-            failed.append(n)
-    if failed:
-        logs = "\n".join((out_dir / f"{n}.log").read_text() for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    return libs
 
 
 def library(name: str) -> ctypes.CDLL:

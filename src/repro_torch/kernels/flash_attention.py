@@ -26,6 +26,11 @@ the one before and under the other warpgroup's products.  At (192, 128)
 S reduces over 192 columns and PV is the D = 128 case's; two 128-key
 stages fit beside the wider q rows.  fp32 runs on the CUDA cores in the
 JAX order of operations.
+
+The backward (``flash_attention_bwd_cuda``, ``csrc/flash_attention_bwd.cu``)
+is built at the same head-dim pairs, bf16 and fp32: in bf16 two kernels on
+``wgmma`` with no atomics (dK/dV a block a 64 keys, dQ a block a 64 or 128
+q rows), so two calls give bit-equal gradients; in fp32 the CUDA cores.
 """
 from __future__ import annotations
 
@@ -148,22 +153,25 @@ def flash_attention_cuda(
 
 flash_attention_cuda.launches = 0
 
-# head dims (D = DV) the backward kernel is built for, bf16 and fp32:
-# csrc/flash_attention_bwd.cu's, which ``_bwd_lib`` holds this list to
-BWD_HEAD_DIMS = (64, 128)
+# (q/k, v) head dims the backward kernel is built for, bf16 and fp32: the
+# forward's pairs (csrc/flash_attention_bwd.cu's kPairs), which ``_bwd_lib``
+# holds this list to when it loads the kernel
+BWD_HEAD_DIMS = BF16_HEAD_DIMS
 
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
-        lib.flash_attention_bwd_head_dims.argtypes = [ctypes.POINTER(_I), _I]
-        lib.flash_attention_bwd_head_dims.restype = _I
-        buf = (_I * 8)()
-        n = lib.flash_attention_bwd_head_dims(buf, 8)
-        if tuple(buf[:n]) != BWD_HEAD_DIMS:
+        lib.flash_attention_bwd_pairs.argtypes = [ctypes.POINTER(_I), _I]
+        lib.flash_attention_bwd_pairs.restype = _I
+        buf = (_I * (2 * len(BWD_HEAD_DIMS)))()
+        n = lib.flash_attention_bwd_pairs(buf, len(BWD_HEAD_DIMS))
+        built = tuple(zip(buf[0:2 * n:2], buf[1:2 * n:2]))
+        if n != len(BWD_HEAD_DIMS) or set(built) != set(BWD_HEAD_DIMS):
             raise RuntimeError(f"BWD_HEAD_DIMS {BWD_HEAD_DIMS} is not the "
-                               f"backward kernel's built dims {buf[:n]}")
+                               f"backward kernel's built pairs ({n} pairs: "
+                               f"{built})")
         fn.argtypes = [_P] * 11 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
         fn.restype = _I
     return lib
@@ -171,20 +179,21 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def check_bwd_shape(d: int, dv: int, dtype) -> None:
     """Raise ``NotImplementedError`` naming a shape the backward kernel is
-    not built for: D = DV in ``BWD_HEAD_DIMS``, fp32 or bf16."""
-    if d != dv or d not in BWD_HEAD_DIMS or dtype not in _DTYPE_CODE:
+    not built for: a (q/k, v) head-dim pair of ``BWD_HEAD_DIMS``, fp32 or
+    bf16."""
+    if (d, dv) not in BWD_HEAD_DIMS or dtype not in _DTYPE_CODE:
         raise NotImplementedError(
             f"the flash backward kernel is not built for head dims (q/k {d}, "
-            f"v {dv}) in {dtype} (built: D = DV in {BWD_HEAD_DIMS}, fp32 or "
-            "bf16)")
+            f"v {dv}) in {dtype} (built: (q/k, v) in {BWD_HEAD_DIMS}, fp32 "
+            "or bf16)")
 
 
 def flash_attention_bwd_cuda(
     q: torch.Tensor,                # (B, Sq, H, D)
     k: torch.Tensor,                # (B, Sk, KV, D)
-    v: torch.Tensor,                # (B, Sk, KV, D)
-    out: torch.Tensor,              # (B, Sq, H, D): the forward's output
-    dout: torch.Tensor,             # (B, Sq, H, D)
+    v: torch.Tensor,                # (B, Sk, KV, DV)
+    out: torch.Tensor,              # (B, Sq, H, DV): the forward's output
+    dout: torch.Tensor,             # (B, Sq, H, DV)
     lse: torch.Tensor,              # (B, H, Sq) fp32: the forward's
     *,
     causal: bool = True,
@@ -197,8 +206,8 @@ def flash_attention_bwd_cuda(
     """``(dq, dk, dv)`` of flash attention from the kernel
     (``csrc/flash_attention_bwd.cu``), in q's dtype; one launch of the
     backward counts once (it runs three kernels).  Raises on what it
-    cannot take, ``NotImplementedError`` on a head dim it is not built
-    for."""
+    cannot take, ``NotImplementedError`` on a head-dim pair it is not
+    built for."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -221,8 +230,8 @@ def flash_attention_bwd_cuda(
     if torch.is_tensor(q_offset):
         raise NotImplementedError("the flash backward takes an int q_offset")
     lib = _bwd_lib()
-    q, k, v, out, dout, lse = (x.contiguous()
-                               for x in (q, k, v, out, dout, lse))
+    q, k, v, out, dout = (_build.aligned16(x) for x in (q, k, v, out, dout))
+    lse = lse.contiguous()
     lens = None if kv_len is None else kv_len.to(torch.int32).contiguous()
     delta = torch.empty_like(lse)
     dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))

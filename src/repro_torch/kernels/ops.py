@@ -23,8 +23,10 @@ Training: where a gradient is asked for (grad mode on and an input that
 requires it), ``flash_attention``, ``rmsnorm`` and ``add_rmsnorm`` run as
 ``torch.autograd.Function``s whose forward and backward are the Hopper
 kernels on a CUDA tensor (the flash forward then also writes each row's
-log-sum-exp); on a CPU tensor autograd differentiates the plain versions.
-Without a gradient the serving launches are what they were.
+log-sum-exp; its backward is built at the forward's head-dim pairs, and
+any other pair raises ``NotImplementedError`` before the forward); on a
+CPU tensor autograd differentiates the plain versions.  Without a
+gradient the serving launches are what they were.
 """
 from __future__ import annotations
 

@@ -1176,29 +1176,40 @@ def test_streamed_ring_over_uneven_layers(cuda_device):
 
 
 # ------------------------------------------------------- training kernels
-# (B, Sq, Sk, H, KV, D, causal, window, softcap, kv_len): llama's heads
+# (B, Sq, Sk, H, KV, D, DV, causal, window, softcap, kv_len): llama's heads
 # and GQA, D = 64 (granite, seamless), bidirectional, a window with a
-# softcap, ragged lengths that divide no tile, kv_len padding
+# softcap, ragged lengths that divide no tile, kv_len padding; then every
+# built pair: D = 16 (the reduced configs) with a window and a softcap,
+# D = 256 (gemma2's window and softcap with kv_len; gemma-7b's G = 1,
+# ragged), (192, 128) (MLA: causal with kv_len; ragged with a softcap)
+# and G = 8 at D = 64
 BWD_CASES = [
-    (2, 256, 256, 8, 2, 128, True, None, None, None),
-    (1, 200, 200, 4, 4, 64, True, None, None, None),
-    (2, 192, 320, 4, 2, 64, False, None, None, (320, 250)),
-    (1, 384, 384, 4, 2, 128, True, 100, 50.0, None),
-    (2, 130, 130, 8, 1, 128, False, None, 30.0, (130, 77)),
+    (2, 256, 256, 8, 2, 128, 128, True, None, None, None),
+    (1, 200, 200, 4, 4, 64, 64, True, None, None, None),
+    (2, 192, 320, 4, 2, 64, 64, False, None, None, (320, 250)),
+    (1, 384, 384, 4, 2, 128, 128, True, 100, 50.0, None),
+    (2, 130, 130, 8, 1, 128, 128, False, None, 30.0, (130, 77)),
+    (1, 200, 200, 4, 2, 16, 16, True, 16, 50.0, None),
+    (2, 256, 300, 8, 4, 256, 256, True, 100, 50.0, (300, 270)),
+    (1, 130, 130, 4, 4, 256, 256, False, None, None, None),
+    (2, 256, 256, 4, 4, 192, 128, True, None, None, (256, 200)),
+    (1, 200, 200, 8, 2, 192, 128, True, None, 30.0, None),
+    (1, 256, 256, 8, 1, 64, 64, True, None, None, None),
 ]
 BWD_IDS = ["llama", "d64-ragged", "bidir-kvlen", "window-softcap",
-           "g8-ragged-softcap"]
+           "g8-ragged-softcap", "d16-window-softcap", "d256-window-kvlen",
+           "d256-g1-ragged", "mla-kvlen", "mla-ragged-softcap", "d64-g8"]
 
 
 def _bwd_inputs(case, dtype, device):
-    b, sq, sk, h, kvh, d, causal, window, softcap, lens = case
+    b, sq, sk, h, kvh, d, dv, causal, window, softcap, lens = case
     gen = torch.Generator(device=device).manual_seed(7)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
-    q, k, v = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d)
-    dout = rnd(b, sq, h, d)
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, dv)
+    dout = rnd(b, sq, h, dv)
     kv_len = (None if lens is None else
               torch.tensor(lens, dtype=torch.int32, device=device))
     kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len)
@@ -1235,8 +1246,44 @@ def test_flash_lse_and_backward_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,dv", [(16, 16), (256, 256), (192, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_flash_backward_bit_equal_across_calls(cuda_device, case, dtype):
+    """Every sum of the backward has one fixed order: two calls on the
+    same inputs give bit-equal dq, dk and dv (what a checkpoint resume's
+    exact replay rests on)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout, kw = _bwd_inputs(case, dtype, cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    for g, h in zip(first, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_flash_backward_bf16_near_fp32_kernel(cuda_device, case):
+    """The bf16 kernel (wgmma) against the fp32 kernel (CUDA cores) on the
+    same inputs upcast, with the bf16 forward's out and lse: within 2e-2
+    of the largest |gradient| (P and dS enter the bf16 products
+    rounded)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, dout, kw = _bwd_inputs(case, torch.bfloat16, cuda_device)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    want = fa.flash_attention_bwd_cuda(
+        *(t.float() for t in (q, k, v, out, dout)), lse, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        rel = float((g.float() - w).abs().max() / w.abs().max())
+        assert rel <= 2e-2, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(96, 96), (24, 16), (128, 64)])
 def test_flash_backward_unbuilt_shape_raises(cuda_device, d, dv):
+    """A pair outside the forward's built set raises, in the kernel's
+    wrapper and under autograd, before any launch."""
     from repro_torch.kernels import flash_attention as fa
     q = torch.randn(1, 32, 2, d, device=cuda_device)
     k = torch.randn(1, 32, 2, d, device=cuda_device)
@@ -1246,6 +1293,20 @@ def test_flash_backward_unbuilt_shape_raises(cuda_device, d, dv):
                                     torch.zeros(1, 2, 32, device=cuda_device))
     with pytest.raises(NotImplementedError):
         ops.flash_attention(q.requires_grad_(True), k, v)
+
+
+@pytest.mark.cuda
+def test_launcher_trains_reduced_llama_on_card(cuda_device):
+    """``launch/train.py``'s default reduced llama (head dim 16, fp32) on
+    the card: every step's loss finite, the flash backward launched on
+    every step, the loss down over 20 steps."""
+    from repro_torch.launch import train
+    ops.reset_launch_counts()
+    losses = train.main(["--steps", "20", "--log-every", "5"])
+    c = ops.launch_counts()
+    assert len(losses) == 20 and all(np.isfinite(losses)), losses
+    assert c["flash_attention_bwd"] >= 20, c
+    assert losses[-1] < losses[0], losses
 
 
 @pytest.mark.cuda

@@ -5,12 +5,14 @@ log-sum-exp and the blocked backward, in plain torch: the plain version
 of the card's two flash kernels of training) against
 ``repro.kernels.flash_vjp`` under ``jax.vjp`` on the same numpy inputs:
 causal and bidirectional, a window, a softcap, ``kv_len`` padding, GQA,
-a value head dim unlike the query/key's, fp32.  The forward to 2e-5, the
+a value head dim unlike the query/key's (MLA's 192 and 128 too), the
+head dims 64 at G = 8 and 256, fp32.  The forward to 2e-5, the
 gradients to 1e-4 of the largest |gradient|.  Also ``ops.flash_attention``
 on the CPU, which routes as the JAX op does (``flash_vjp`` at multiples of
 256, ``kv_scan`` otherwise), ``attention_fwd_lse``/``attention_bwd`` at
-ragged lengths, and the gradients of ``rmsnorm`` and ``add_rmsnorm``
-against ``jax.grad``.
+ragged lengths, the backward kernel's shape gate (the forward's head-dim
+pairs), and the gradients of ``rmsnorm`` and ``add_rmsnorm`` against
+``jax.grad``.
 """
 import numpy as np
 import pytest
@@ -35,9 +37,17 @@ CASES = [
     (2, 128, 256, 2, 2, 32, 32, False, None, None, (256, 150), 64),
     (2, 256, 256, 8, 1, 16, 16, True, 64, 30.0, (256, 200), 64),
     (1, 256, 256, 4, 2, 48, 32, True, None, None, None, 128),
+    # the head-dim pairs the card's backward kernel is built at beyond 16:
+    # D = 256 (gemma2's window and softcap at G = 2; gemma-7b's G = 1),
+    # MLA's q/k 192 with v 128 (causal, kv_len padding), D = 64 at G = 8
+    (1, 256, 256, 4, 2, 256, 256, True, 100, 50.0, None, 128),
+    (2, 256, 256, 2, 2, 256, 256, True, None, None, None, 128),
+    (2, 256, 256, 2, 2, 192, 128, True, None, None, (256, 180), 128),
+    (1, 256, 256, 8, 1, 64, 64, True, None, None, None, 64),
 ]
 IDS = ["causal-gqa", "bidirectional", "window", "softcap", "kvlen-cross",
-       "g8-window-softcap-kvlen", "dqk-ne-dv"]
+       "g8-window-softcap-kvlen", "dqk-ne-dv", "d256-window-softcap-g2",
+       "d256-g1", "mla-192-128-kvlen", "d64-g8"]
 
 
 def _inputs(case, seed=0):
@@ -167,6 +177,24 @@ def test_plain_kernel_passes_at_ragged_lengths_match_jax(case):
     assert np.abs(out.numpy() - want_o).max() <= FWD_TOL
     for a, b in zip(got, want_g):
         assert _rel(a.numpy(), b) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pair", [(16, 16), (64, 64), (128, 128), (256, 256),
+                                  (192, 128), (96, 96), (24, 16), (128, 64)])
+def test_backward_shape_gate_is_the_forward_pairs(pair, dtype):
+    """``check_bwd_shape`` (the gate ``ops.flash_attention`` applies under
+    autograd on the card) takes exactly the forward's bf16 pairs, in bf16
+    and fp32, and raises ``NotImplementedError`` on any other pair:
+    reduced deepseek's (24, 16) too, which the forward refuses as well."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.BWD_HEAD_DIMS == fa.BF16_HEAD_DIMS
+    if pair in fa.BF16_HEAD_DIMS:
+        fa.check_bwd_shape(*pair, dtype)
+    else:
+        with pytest.raises(NotImplementedError, match=f"q/k {pair[0]}, "
+                                                      f"v {pair[1]}"):
+            fa.check_bwd_shape(*pair, dtype)
 
 
 @pytest.mark.parametrize("fused", [False, True])
