@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               paths' shapes, with its time, the plain version's, one
               library call's and the card's bound for the same work; the
               RMSNorm fused with the residual add (``add_rmsnorm``) also
-              with its wrapper's host time per call.
+              with its wrapper's host time per call; the fp32 flash kernel
+              (3xTF32, its own row ``flash_attention_fp32``) against its
+              3xTF32 bound (``PEAK_TF32 / 3``) with the CUDA cores' bound
+              and its device ms by kernel beside it.
 4a. train-kernels -- the training kernels against their plain versions:
               the flash backward (``csrc/flash_attention_bwd.cu``; bf16 on
               wgmma) at llama3-8b's shapes (B = 4, S = 2048, 32/8 x 128,
@@ -28,7 +31,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               at (2, 4096), deepseek's 16/16 x (192, 128) at (2, 4096) and
               G = 8 (64/8 x 128) at (1, 4096), against the plain
               ``flash_vjp`` passes, two calls bit-equal; the RMSNorm
-              backward, both forms, at (8192, 4096) in bf16 and fp32; the
+              backward, both forms, at (8192, 4096) in bf16 and fp32 (two
+              calls bit-equal, its device ms by kernel); the
               flash forward's ms with and without its log-sum-exp.  Kernel,
               plain, library (SDPA's and ``F.rms_norm``'s backward through
               autograd) and bound ms (the backward's: FlashAttention-2's 5
@@ -55,7 +59,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               fp32 AdamW state (every loss finite, the flash backward once
               per attention layer and step); then ``launch/train.py``'s
               default reduced llama (head dim 16, fp32) for 20 steps on
-              the card (the backward launched, the loss down).
+              the card (the backward launched, the loss down).  Each fp32
+              card-against-CPU check is profiled: its forward must run
+              ``flash_tf32_kernel``.
 5a. family-kernels -- the attention kernels at the shapes of gemma2-2b
               (8/4 heads x 256, window 4096, softcap 50: paged and dense
               decode at kv_len 4100-6200, a prefill chunk at q_offset
@@ -171,7 +177,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               partial_swap=True)`` pumped single-threaded; at least one
               swap, every swap back in, nothing left parked, and every
               request's tokens equal to the same int8 generator's with
-              pages for every slot and no host pool.
+              pages for every slot and no host pool; the profiled batch
+              must run ``flash_tf32_kernel`` (the int8 chunk attends in
+              fp32), whose share of the busy time is printed.
 9. serve-prefix -- recurring RAG prompts: the same weights, the
               continuous path's generator at a ragged context of 1022
               (``CTX - 2``), 16 requests asking 4 queries 4 times each,
@@ -287,6 +295,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FP32 = 67e12           # CUDA cores
 PEAK_BF16 = 989e12          # tensor cores, bf16 in, fp32 accumulation
+PEAK_TF32 = 494.7e12        # tensor cores, TF32 in, fp32 accumulation
+# fp32-exact attention on the tensor cores (the fp32 flash kernel) takes
+# three TF32 products a product (3xTF32): its bound is at a third of the
+# TF32 peak; the CUDA cores' bound (PEAK_FP32) is printed beside it
+PEAK_FP32_ATTN = PEAK_TF32 / 3
 
 # llama3-8b serving shapes of the main paths
 CTX, MAX_NEW, PAGE, CHUNK, SLOTS = 1024, 32, 16, 256, 8
@@ -316,8 +329,10 @@ CONTINUOUS_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
                       "retrieval_topk_merge", "flash_attention")
 WHOLE_BATCH_KERNELS = ("rmsnorm", "flash_attention", "decode_attention",
                        "retrieval_topk", "retrieval_topk_merge")
+# (int8 pages: the chunked prefill attends over the fp32 dequantized
+# gather, through the fp32 flash kernel)
 SWAP_KERNELS = ("rmsnorm", "paged_decode_attention", "retrieval_topk",
-                "retrieval_topk_merge", "flash_attention")
+                "retrieval_topk_merge", "flash_attention_fp32")
 SWAP_PRIORITY_REQ = 4       # serve-swap: the last 4 requests are priority 1
 # serve-swap profiles a batch of 2 (8 took 17 s, and as long again to stop
 # the profiler: 4338 kernels a step over int8 pages)
@@ -459,7 +474,7 @@ def _kernel_records(prof, torch):
 class Timer:
     """Device time of one call: the profiler's (CUPTI) records of the
     kernels the call launched, summed, averaged over ``iters`` calls; a
-    trace short of any call's records is taken again, and after three
+    trace short of any kernel's records is taken again, and after three
     short traces the call is timed by CUDA events (logged), once it is
     seen to launch device work at all.  ``split`` holds the last call's
     ms by kernel (None when events timed it).
@@ -488,26 +503,36 @@ class Timer:
         from torch.profiler import ProfilerActivity, profile
 
         def device_records(calls):
+            # a trace can lose its first device record (after the train
+            # phases every trace did, PERF.md §6): an empty spin kernel
+            # launched first takes that place, and is left out where it
+            # survives
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(0)
                 for _ in range(calls):
                     if cold:
                         self.dst.copy_(self.src)
                     fn()
                 torch.cuda.synchronize()
-            return [r for r in _kernel_records(prof, torch)
+            recs = sorted(_kernel_records(prof, torch), key=lambda r: r[1])
+            if recs and "spin_kernel" in recs[0][0]:
+                recs.pop(0)
+            return [r for r in recs
                     if not (cold and r[0].startswith("Memcpy DtoD"))]
 
         fn()
         torch.cuda.synchronize()
         self.split = None
         # a trace that lost records would read as a faster kernel: take
-        # only a trace that holds every launch of every call (a one-call
-        # trace that lost them all is taken again too)
-        per_call = 0
+        # only a trace that holds every launch of every call, kernel by
+        # kernel (a one-call trace can lose a record too: each kernel seen
+        # in either trace must appear at least once a call; a one-call
+        # trace that lost them all is taken again)
+        one = collections.Counter()
         for _ in range(3):
-            per_call = len(device_records(1))
-            if per_call:
+            one = collections.Counter(r[0] for r in device_records(1))
+            if one:
                 break
         else:
             # the call must be seen to launch device work: a kernel's
@@ -523,12 +548,17 @@ class Timer:
             return self._events_ms(fn, cold, iters)
         for _ in range(3):
             recs = device_records(iters)
-            if len(recs) >= per_call * iters:
+            seen = collections.Counter(r[0] for r in recs)
+            short = {n: (seen[n], iters * max(one[n], 1))
+                     for n in one.keys() | seen.keys()
+                     if seen[n] < iters * max(one[n], 1)}
+            if not short:
                 break
         else:
-            log(f"[timer] the profiler kept {len(recs)} of "
-                f"{per_call * iters} device records in three traces: "
-                "this call is timed by CUDA events instead")
+            log(f"[timer] three traces of {iters} calls kept too few records "
+                f"of {len(short)} kernel(s) (kept, wanted: "
+                f"{ {n[:60]: c for n, c in short.items()} }): this call is "
+                "timed by CUDA events instead")
             return self._events_ms(fn, cold, iters)
         us = sum(d for _, _, d in recs)
         if us <= 0:
@@ -641,6 +671,54 @@ def bound_ms(nbytes: float, ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sdpa_ms(torch, timer, q, k, v, *, causal=True, q_offset=None,
+            kv_len=None, window=None):
+    """SDPA's device ms on the flash kernel's inputs ((B, S, heads, D),
+    GQA): a one-shot call as ``is_causal``, else each row's reach (causal
+    from ``q_offset``, an int or (B,), below ``kv_len`` (B,), inside
+    ``window``) as a boolean mask; no softcap."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q_offset is None and kv_len is None and window is None:
+        return timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    off = (q_offset if torch.is_tensor(q_offset) else torch.full(
+        (b,), q_offset or 0, dtype=torch.int32, device="cuda"))
+    q_pos = off[:, None] + torch.arange(sq, device="cuda")      # (B, Sq)
+    k_pos = torch.arange(sk, device="cuda")[None, None, :]
+    live = torch.ones((b, sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        live &= k_pos <= q_pos[:, :, None]
+    if kv_len is not None:
+        live &= k_pos < kv_len[:, None, None]
+    if window:
+        live &= k_pos > q_pos[:, :, None] - window
+    mask = live[:, None]
+    return timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+
+
+def _by_kernel(split):
+    """``Timer.split`` keyed by the kernels' short names, ms rounded."""
+    return {(m.group(0) if (m := re.search(r"\w+_kernel", n)) else n[:40]):
+            round(t, 4) for n, t in (split or {}).items()}
+
+
+def fp32_flash_extra(tag, case, split, ms, nbytes, nops, smi=""):
+    """The fp32 flash kernel beside its second bound, the CUDA cores'
+    (its first is 3xTF32's, ``PEAK_FP32_ATTN``), and the timed call's
+    device ms by kernel (the split blocks, then their merge): logged, and
+    returned for the ``kernels`` line."""
+    cc_ms, cc_by = bound_ms(nbytes, nops, PEAK_FP32)
+    by_kernel = _by_kernel(split)
+    log(f"{tag} flash_attention_fp32 {case}: CUDA-core bound {cc_ms:.5f} ms "
+        f"({cc_by}) -> {cc_ms / ms:.1%} of it; device ms by kernel "
+        f"{json.dumps(by_kernel) if split else 'not recorded (events)'}"
+        + (f" ({smi})" if smi else ""))
+    return dict(bound_cuda_cores_ms=cc_ms, ms_by_kernel=by_kernel)
+
+
 # ------------------------------------------------------------ comparisons
 def check_close(name, got, want, *, atol, rtol=0.0) -> float:
     err = (got.double() - want.double()).abs()
@@ -697,6 +775,9 @@ def phase_device(torch):
 
 # the redesigned kernels' variants on the main paths (demangled names)
 REDESIGNED = ("flash_wgmma_kernel<128,", "flash_wgmma_kernel<192,",
+              "flash_tf32_kernel<16, 128>", "flash_tf32_kernel<32, 256>",
+              "rmsnorm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8, 2, false>",
+              "rmsnorm_bwd_kernel<float, float, 8, 2, false>",
               "dkdv_wgmma_kernel<", "dq_wgmma_kernel<",
               "merge_kernel",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
@@ -781,8 +862,23 @@ def phase_build(torch, built=None):
             f"over {shp['items']} q tiles of {shp['rows']} rows, "
             f"{shp['consumers']} consumer warpgroup(s) of 64 rows, "
             f"{shp['stages']} K/V stages, {shp['smem']} B shared")
-    warps, stages, unit = pa.launch_shape()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the fp32 kernel at the serving chunks it was cut for
+    for case, h, sk, window, d in (
+            ("serve-swap chunk, 32 heads x 128", HEADS, CTX, None, HEAD_DIM),
+            ("gemma2 deep int8 chunk, 8 heads x 256, window 4096", 8,
+             LONG_CTX, GEMMA2_WINDOW, 256)):
+        shp = fa.fp32_shape(d, d)
+        splits, split_len = fa.fp32_splits(1, CHUNK, h, sk, True, window,
+                                           shp["rows"], shp["keys"],
+                                           shp["per_sm"] * sms)
+        log(f"[build] flash_tf32_kernel {case} (1 x {CHUNK} against {sk}): "
+            f"{-(-CHUNK // shp['rows']) * h * splits} blocks x "
+            f"{shp['threads']} threads ({shp['per_sm']} an SM, "
+            f"{shp['smem']} B shared), {splits} splits of {split_len} keys "
+            f"in {shp['keys']}-key tiles; merge pass "
+            + (f"grid ({CHUNK}, {h}, 1)" if splits > 1 else "none"))
+    warps, stages, unit = pa.launch_shape()
     total = CTX + MAX_NEW
     for kname, span, gran in (("paged_decode_kernel", -(-total // PAGE) * PAGE,
                                PAGE),
@@ -1238,28 +1334,27 @@ def phase_kernels(torch, timer, store, queries):
         lib_ms = None
         if window is None and cap is None:
             # yardstick: SDPA with GQA, causal from the chunk's offset
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if off == 0 and sq == sk:
-                lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True))
-            else:
-                q_pos = (kw["q_offset"][:, None]
-                         + torch.arange(sq, device="cuda"))      # (B, Sq)
-                k_pos = torch.arange(sk, device="cuda")
-                mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
-                        & (k_pos < kw["kv_len"][:, None, None]))[:, None]
-                lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                            enable_gqa=True))
+            lib_ms = sdpa_ms(torch, timer, q, k, v,
+                             q_offset=kw.get("q_offset"),
+                             kv_len=kw.get("kv_len"))
         nbytes, nops = _flash_bytes_ops(torch, q, k, kw.get("kv_len"),
                                         kw.get("q_offset", 0), window)
-        r = report("flash_attention", case, err,
-                   timer(lambda: ops.flash_attention(q, k, v, **kw)),
+        fp32 = dt == torch.float32
+        ms = timer(lambda: ops.flash_attention(q, k, v, **kw))
+        split = timer.split
+        r = report("flash_attention_fp32" if fp32 else "flash_attention",
+                   case, err, ms,
                    timer(lambda: ops.flash_attention(q, k, v, impl="ref",
                                                      **kw)),
-                   lib_ms, bound_ms(nbytes, nops, PEAK_BF16
-                                    if dt == torch.bfloat16 else PEAK_FP32))
+                   lib_ms, bound_ms(nbytes, nops,
+                                    PEAK_FP32_ATTN if fp32 else PEAK_BF16))
+        if fp32:
+            r.update(fp32_flash_extra("[kernel]", case, split, ms, nbytes,
+                                      nops))
         if case.startswith("one-shot bf16"):
             rows["flash_attention"] = r
+        if case.startswith("chunk fp32 (1, 256) at 768"):
+            rows["flash_attention_fp32"] = r
         del q, k, v, got, want
 
     # ---- dense decode: 8 slots of ctx + max_new, one of them dead
@@ -1563,9 +1658,7 @@ def phase_train_kernels(torch, timer, smi):
                 q, k, v, out, dout, lse, **kw))
             case = f"{name} ({b}, {sq}) {h}/{kvh} x {d}" + (
                 f"/{dv}" if dv != d else "") + f" {dname}"
-            split = timer.split and {
-                (m.group(0) if (m := re.search(r"\w+_kernel", n)) else n[:40]):
-                round(t, 4) for n, t in timer.split.items()}
+            split = _by_kernel(timer.split)
             # one call a trace: the plain version's thousands of small
             # kernels make a trace of three take seconds to stop
             r = report("flash_attention_bwd", case, err, ms,
@@ -1625,9 +1718,15 @@ def phase_train_kernels(torch, timer, smi):
             nbytes = ((3 + fused) * s_.numel() * s_.element_size()
                       + 2 * w.numel() * w.element_size())
             form = "add_rmsnorm" if fused else "rmsnorm"
-            r = report("rmsnorm_bwd", f"{form} ({rows_n}, {d}) {dname}", err,
-                       timer(lambda: rn.rmsnorm_bwd_cuda(s_, dy, w, 1e-5,
-                                                         ds=ds)),
+            ms = timer(lambda: rn.rmsnorm_bwd_cuda(s_, dy, w, 1e-5, ds=ds))
+            split = _by_kernel(timer.split)
+            again = rn.rmsnorm_bwd_cuda(s_, dy, w, 1e-5, ds=ds)
+            if not (torch.equal(again[0], dx) and torch.equal(again[1], dw)):
+                fail(f"rmsnorm backward {form} {dname}: two calls differ")
+            case = f"{form} ({rows_n}, {d}) {dname}"
+            log(f"[train-kernel] rmsnorm_bwd {case}: two calls bit-equal; "
+                f"device ms a call by kernel {json.dumps(split)}")
+            r = report("rmsnorm_bwd", case, err, ms,
                        timer(lambda: rn.rmsnorm_bwd_plain(s_, dy, w, 1e-5,
                                                           ds=ds)),
                        timer(lambda: torch.autograd.grad(
@@ -1666,8 +1765,16 @@ def _grads_card_vs_cpu(torch, cfg1, tag):
     t0 = time.perf_counter()
     loss_cpu, g_cpu = _grad_tree(torch, cpu, p_cpu, batch)
     t_cpu = time.perf_counter() - t0
-    loss_gpu, g_gpu = _grad_tree(torch, gpu, p_gpu,
-                                 {k: v.cuda() for k, v in batch.items()})
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss_gpu, g_gpu = _grad_tree(torch, gpu, p_gpu,
+                                     {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+    # the fp32 training forward runs the fp32 flash kernel, by name (the
+    # trace may lose its first and last records, never the middle's)
+    if not any("flash_tf32_kernel" in n for n, _, _ in
+               _kernel_records(prof, torch)):
+        fail(f"{tag}: the fp32 forward launched no flash_tf32_kernel")
     if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
         fail(f"{tag}: card loss {loss_gpu} vs CPU {loss_cpu}")
     worst = 0.0
@@ -1684,7 +1791,8 @@ def _grads_card_vs_cpu(torch, cfg1, tag):
         f"batch 1 x {TRAIN_CHECK_SEQ}: card loss {loss_gpu:.6f} vs CPU "
         f"{loss_cpu:.6f}; {len(list(tree_leaves(g_cpu)))} gradient leaves, "
         f"worst {worst:.2e} of the leaf's largest |g| (tol "
-        f"{TRAIN_GRAD_TOL}); CPU took {t_cpu:.1f} s")
+        f"{TRAIN_GRAD_TOL}); CPU took {t_cpu:.1f} s; the forward's "
+        "attention ran flash_tf32_kernel (profiled)")
     del cpu, p_cpu, g_cpu, gpu, p_gpu, g_gpu
     _free(torch)
 
@@ -2014,7 +2122,8 @@ def phase_family_kernels(torch, timer, smi):
     gen.manual_seed(7)
     sdpa = F.scaled_dot_product_attention
     shapes = {k: [] for k in ("paged_decode_attention", "decode_attention",
-                              "flash_attention", "rmsnorm")}
+                              "flash_attention", "flash_attention_fp32",
+                              "rmsnorm")}
     dims = {a: (c.num_heads, c.num_kv_heads, c.resolved_head_dim, c.d_model)
             for a, c in ((a, get_config(a))
                          for a in FAMILY_ARCHS + (LLAMA70B, JAMBA,
@@ -2033,6 +2142,23 @@ def phase_family_kernels(torch, timer, smi):
         shapes[kname].append(dict(case=case, max_abs_err=err, ms=ms,
                                   plain_ms=plain_ms, library_ms=lib_ms,
                                   bound_ms=b_ms, bound_by=b_by))
+        return shapes[kname][-1]
+
+    def flash_report(case, err, dt, kernel, plain, lib_ms, nbytes, nops,
+                     note=""):
+        """A flash case's row: the bf16 kernel's against the bf16 peak,
+        the fp32 kernel's against 3xTF32's, with the CUDA cores' bound and
+        the device ms by kernel beside it."""
+        fp32 = dt == torch.float32
+        ms = timer(kernel)
+        split = timer.split
+        row = report("flash_attention_fp32" if fp32 else "flash_attention",
+                     case, err, ms, timer(plain), lib_ms,
+                     bound_ms(nbytes, nops,
+                              PEAK_FP32_ATTN if fp32 else PEAK_BF16), note)
+        if fp32:
+            row.update(fp32_flash_extra("[family-kernel]", case, split, ms,
+                                        nbytes, nops, smi))
 
     def check(name, got, want, attn_wmean=None):
         if got.dtype == torch.float32:
@@ -2198,35 +2324,22 @@ def phase_family_kernels(torch, timer, smi):
             wmean = ops.flash_attention(q.float(), k.float(), v.float().abs(),
                                         impl="ref", **kwf)
         err = check(f"flash {case}", got, want, wmean)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         note = "" if kw["window"] is None else " (SDPA, no softcap)"
-        if off is None and kw["window"] is None:
-            lib_ms = timer(lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                        enable_gqa=True))
-        else:
-            q_pos = (off or 0) + torch.arange(sq, device="cuda")
-            k_pos = torch.arange(sk, device="cuda")
-            live = ((k_pos[None, :] <= q_pos[:, None])
-                    & (k_pos[None, :] < (off or 0) + sq))
-            if kw["window"]:
-                live &= k_pos[None, :] > q_pos[:, None] - kw["window"]
-            mask = live[None, None]
-            lib_ms = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                        enable_gqa=True))
+        lib_ms = sdpa_ms(torch, timer, q, k, v, causal=causal, q_offset=off,
+                         kv_len=kwf.get("kv_len"), window=kw["window"])
         nbytes, nops = _flash_bytes_ops(torch, q, k, kwf.get("kv_len"),
                                         kwf.get("q_offset", 0), kw["window"],
                                         causal=causal)
         where = ("" if off is None else f" at q_offset {off} of {sk}")
         if sk != sq and off is None:
             where += f" against ({b}, {sk})"
-        report("flash_attention", f"{case} ({b}, {sq}) x {h}/{kvh} heads x "
-               f"{d}{where}" + ("" if causal else ", not causal")
-               + (f", window {kw['window']} softcap {kw['softcap']:g}"
-                  if kw["window"] else ""),
-               err, timer(lambda: ops.flash_attention(q, k, v, **kwf)),
-               timer(lambda: ops.flash_attention(q, k, v, impl="ref", **kwf)),
-               lib_ms, bound_ms(nbytes, nops, PEAK_BF16
-                                if dt == torch.bfloat16 else PEAK_FP32), note)
+        flash_report(f"{case} ({b}, {sq}) x {h}/{kvh} heads x "
+                     f"{d}{where}" + ("" if causal else ", not causal")
+                     + (f", window {kw['window']} softcap {kw['softcap']:g}"
+                        if kw["window"] else ""),
+                     err, dt, lambda: ops.flash_attention(q, k, v, **kwf),
+                     lambda: ops.flash_attention(q, k, v, impl="ref", **kwf),
+                     lib_ms, nbytes, nops, note)
         del q, k, v, got, want, wmean
 
     for args in (
@@ -2297,13 +2410,11 @@ def phase_family_kernels(torch, timer, smi):
             log(f"[family-kernel] flash {case}: SDPA refused the shape: "
                 f"{str(e).splitlines()[0][:200]}")
         nbytes, nops = _flash_bytes_ops(torch, q, k, None, 0, None, dv=dvm)
-        report("flash_attention", f"{case} ({b}, {sq}) x {hm}/{hm} heads x "
-               f"q/k {dqk}, v {dvm}", err,
-               timer(lambda: ops.flash_attention(q, k, v, **kwf)),
-               timer(lambda: ops.flash_attention(q, k, v, impl="ref", **kwf)),
-               lib_ms, bound_ms(nbytes, nops, PEAK_BF16
-                                if dt == torch.bfloat16 else PEAK_FP32),
-               note)
+        flash_report(f"{case} ({b}, {sq}) x {hm}/{hm} heads x q/k {dqk}, "
+                     f"v {dvm}", err, dt,
+                     lambda: ops.flash_attention(q, k, v, **kwf),
+                     lambda: ops.flash_attention(q, k, v, impl="ref", **kwf),
+                     lib_ms, nbytes, nops, note)
         del q, k, v, got, want, wmean
 
     # ---- RMSNorm alone at MLA's latent (512: deepseek's norm_kv, a decode
@@ -4250,8 +4361,20 @@ def phase_serve_swap(torch, cfg, params, store, queries, exact, smi: str):
                     window = time.perf_counter() - t0
                 log(f"[profile serve-swap] stopping the profiler took "
                     f"{time.perf_counter() - t0 - window:.2f} s more")
-                breakdown("serve-swap", _kernel_records(prof, torch),
-                          window, smi, what=f"{SWAP_PROFILE_REQ} requests")
+                recs = _kernel_records(prof, torch)
+                busy = breakdown("serve-swap", recs, window, smi,
+                                 what=f"{SWAP_PROFILE_REQ} requests")
+                # the int8 chunked prefill's fp32 attention, by name
+                f32 = sum(d for n, _, d in recs if "flash_tf32_" in n) / 1e6
+                if not any("flash_tf32_kernel" in n for n, _, _ in recs):
+                    fail("[serve-swap] the profiled batch launched no "
+                         "flash_tf32_kernel (the int8 chunked prefill's "
+                         "fp32 attention)")
+                log(f"[profile serve-swap] fp32 flash (flash_tf32_kernel "
+                    f"+ its merge): {f32:.4f} s, "
+                    f"{f32 / busy if busy else 0.0:.1%} of the device's "
+                    "busy time (the SIMT kernel's share before it, 8 "
+                    f"requests: 20.7 %) ({smi})")
                 decode_step_kernels(torch, "serve-swap", gen.model, params,
                                     gen.cache, gen.kv.device_tab(),
                                     gen._total)
@@ -5638,7 +5761,8 @@ CATEGORIES = (
     # the split kernels and their merge passes (*_decode_combine_kernel)
     ("paged decode attention", ("paged_decode_",)),
     ("dense decode attention", ("dense_decode_",)),
-    ("flash attention (prefill)", ("flash_wgmma_kernel", "flash_fp32_kernel")),
+    ("flash attention (prefill, bf16)", ("flash_wgmma_kernel",)),
+    ("flash attention fp32 (prefill)", ("flash_tf32_",)),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("retrieval top-k and merge", ("topk_stream_kernel", "merge_kernel")),
     ("matmul (projections, MLP, lm_head)",
@@ -5649,13 +5773,13 @@ CATEGORIES = (
 
 
 def breakdown(tag, records, window_s: float, smi: str,
-              what: str = f"{PROFILE_REQ} requests") -> None:
+              what: str = f"{PROFILE_REQ} requests") -> float:
     """Device busy share of a serving window (``what``) and its time by
-    kind."""
+    kind; returns the busy seconds."""
     if not records:
         log(f"[profile {tag}] the profiler recorded no device activity: "
             "not measured")
-        return
+        return 0.0
     busy, cur = 0.0, None
     for start, end in sorted((s, s + d) for _, s, d in records):
         if cur is None or start > cur[1]:
@@ -5679,6 +5803,7 @@ def breakdown(tag, records, window_s: float, smi: str,
         log(f"[profile {tag}]   {t:8.3f} s {t / total:6.1%}  {label}")
     for name, t in sorted(names.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[profile {tag}]   top {t:8.3f} s  {name[:110]}")
+    return busy
 
 
 def _cast(tree, dtype):
@@ -5706,6 +5831,11 @@ SOURCES = {
                 "src/repro/kernels/rmsnorm.py:22"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:88"),
+    # the same Pallas kernel in fp32: a kernel of its own (3xTF32), counted
+    # apart from the bf16 one
+    "flash_attention_fp32": ("cuda",
+                             "src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:88"),
     "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:76"),
     "paged_decode_attention": ("cuda", "src/repro_torch/csrc/paged_attention.cu",
@@ -5753,6 +5883,11 @@ def main() -> int:
         timed("build", phase_build, torch, built)
         timer = Timer(torch)
         rows = timed("kernels", phase_kernels, torch, timer, store, queries)
+        # the other families' kernels before the train phases, after which
+        # the profiler loses records and the timer falls back to events
+        family_rows = timed("family-kernel", phase_family_kernels, torch,
+                            Timer(torch, iters=10), smi)
+        del timer
         train_rows = timed("train-kernels", phase_train_kernels, torch,
                            Timer(torch, iters=3), smi)
         rows.update((k, train_rows[k]) for k in ("flash_attention_bwd",
@@ -5761,10 +5896,6 @@ def main() -> int:
         train = timed("train", phase_train, torch, smi)
         train_families = timed("train-families", phase_train_families, torch,
                                smi)
-        # the other families, before the llama weights take the card
-        family_rows = timed("family-kernel", phase_family_kernels, torch,
-                            Timer(torch, iters=10), smi)
-        del timer
         timed("family-models", phase_family_models, torch, smi)
         timed("dense-family-models", phase_dense_family_models, torch, smi)
         timed("embed-models", phase_embed_models, torch, smi)

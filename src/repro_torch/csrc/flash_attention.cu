@@ -15,15 +15,18 @@
 // (B = 8, Sq = Sk = 1024, 32/8 heads x 128) does 4 * D flops per unmasked
 // (query, key) pair and head, about 69 GFLOP against 168 MB of q, k, v and
 // o, some 400 flops a byte: above the ~295 at which bf16 tensor cores,
-// not memory, bind.  Only wgmma reaches the tensor cores' full rate.
+// not memory, bind.  Only wgmma reaches the tensor cores' full rate.  In
+// fp32 the chunked prefill's chunk reads its K and V once for all its q
+// tiles' products (gemma2's deep int8 chunk: 8.6 GFLOP against 50 MB),
+// so operations bind there too, at 3xTF32's 165 TFLOP/s.
 //
 // Design.  The Pallas grid (batch, head, q block, kv block) carried the
 // online softmax in VMEM scratch across its innermost, sequential kv axis,
 // and predicated fully masked tiles off with pl.when.  Hopper blocks run
-// in parallel and in no order, so here one block (fp32) or one work item
-// of a persistent block (bf16) owns (q head, batch, q tile) and loops over
-// the kv tiles itself, in order, with the softmax state (m, l, acc) in
-// fp32 registers.  The loop visits only the tiles
+// in parallel and in no order, so here one block (fp32: of one split of
+// the keys) or one work item of a persistent block (bf16) owns (q head,
+// batch, q tile) and loops over the kv tiles itself, in order, with the
+// softmax state (m, l, acc) in fp32 registers.  The loop visits only the tiles
 // that the q tile's causal and window reach can touch, computed from that
 // batch row's own q_offset (this replaces pl.when).  The kv head is
 // h / (H / KV): K and V are never repeated.  Two variants:
@@ -57,13 +60,34 @@
 //   softmax-weighted mean of |v|.  Items of 128 rows (two consumers
 //   sharing each K/V tile) when there are two for every SM, else of 64
 //   rows (a 256-row prefill chunk of 32 heads: 128 items, not 64).
-// * fp32 (the reduced models and the CPU-parity checks on the card): CUDA
-//   cores, the JAX order exactly (q * scale in fp32, then the product,
-//   then the softcap, then the -1e30 mask).  4 warps own 8 rows each of a
-//   32-row q tile; the q tile (pre-scaled) and 32-key K and V tiles sit in
-//   dynamic shared memory (K rows padded by one float against bank
-//   conflicts).  Lane j scores key j of the tile; each lane accumulates
-//   DV/32 columns of the output.
+// * fp32 (the int8 pages' chunked prefill, which attends over the fp32
+//   dequantized gather; the fp32 models and their training forward):
+//   fp32-exact products on the tensor cores, in the JAX order (q * scale
+//   in fp32, then the product, then the softcap, then the -1e30 mask).
+//   TF32 alone keeps 10 mantissa bits and moves a score by about 1e-3, so
+//   each operand is split into two TF32 halves and each product is three
+//   (3xTF32, tf32.cuh): fp32 to about 2**-21 a product, at a third of the
+//   TF32 peak (494.7 / 3 TFLOP/s, against 67 on the CUDA cores).  The
+//   instruction is mma.sync m16n8k8, not wgmma: its fragments load from
+//   shared memory lane by lane, so V needs no transpose (wgmma takes TF32
+//   operands only K-major, which would stage V with the keys contiguous,
+//   a transpose TMA cannot make), and the S accumulator is, under a
+//   permutation of the reduction index, P's A fragment (P stays in
+//   registers, as in the bf16 kernel).  A block is 4 warps, 64 q rows of
+//   one head (16 a warp) held pre-scaled in shared memory, over 32-key K
+//   and V tiles staged by 16-byte cp.async copies into a ring of 2 stages
+//   (the next tile's copies run under this one's products); rows padded
+//   (D + 8, DV + 4 floats) so the fragment loads meet no bank conflict.
+//   Operands are split where they are loaded.  A serving chunk is short
+//   (256 rows: 32-128 work items of 64 rows for 132 SMs) and its rows see
+//   up to 4096 keys, so each q tile's key reach is cut into splits of
+//   whole tiles (the wrapper picks their count from shapes, to fill the
+//   blocks the card holds at once; the last split runs to the reach's
+//   end), each split's block writes its
+//   unnormalised (m, l, acc) to fp32 scratch, and a second kernel merges
+//   the splits in split order, as the decode kernels do (decode_tiles.cuh):
+//   no atomics, so two calls give the same bits.  Grid: one block a (q
+//   tile, head, batch, split), the q tiles heaviest first.
 //
 // MLA's head dims (D = 192, DV = 128): S = QK^T reduces over 192 columns
 // (12 k16 steps, three 64-column TMA boxes), O and PV are the DV = 128
@@ -91,6 +115,7 @@
 #include <limits.h>
 #include <type_traits>
 
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -147,113 +172,299 @@ __device__ __forceinline__ float cap_and_mask(const Args& a, float s, int q_pos,
 }
 
 // ---------------------------------------------------------------- fp32
-constexpr int kSimtWarps = 4;
-constexpr int kSimtRows = 32;                       // q rows a block
-constexpr int kSimtKeys = 32;                       // keys a tile: one a lane
-constexpr int kSimtRowsPerWarp = kSimtRows / kSimtWarps;
+// 3xTF32 on mma.sync (tf32.cuh).  A block: 4 warps, 64 q rows of one head
+// (16 a warp), over the kv tiles of one split of their key reach.
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32Rows = 16 * kF32Warps;            // q rows a block
+constexpr int kF32Keys = 32;                        // keys a kv tile
+constexpr int kF32Stages = 2;                       // cp.async ring
+constexpr int kF32CombineThreads = 64;
 
-size_t simt_smem(int D, int DV) {
-  return sizeof(float) * (static_cast<size_t>(kSimtRows) * D
-                          + static_cast<size_t>(kSimtKeys) * (D + 1)
-                          + static_cast<size_t>(kSimtKeys) * DV);
+// Row strides in floats: D + 8 keeps a half-warp's 8-byte loads of Q and
+// K rows g (0..3) and columns 2t (0..7) on 32 banks; DV + 4 puts V rows 2t
+// and 2t + 1 of the 8 lanes g on distinct banks.
+__host__ __device__ __forceinline__ int f32_qk_stride(int D) { return D + 8; }
+__host__ __device__ __forceinline__ int f32_v_stride(int DV) { return DV + 4; }
+
+size_t f32_smem(int D, int DV) {
+  return sizeof(float) * (static_cast<size_t>(kF32Rows) * f32_qk_stride(D)
+                          + static_cast<size_t>(kF32Stages) * kF32Keys
+                                * (f32_qk_stride(D) + f32_v_stride(DV)));
 }
 
-// EPL: output columns per lane (lane holds d = e * 32 + lane, d < DV).
-template <int EPL>
-__global__ void __launch_bounds__(kSimtWarps * 32) flash_fp32_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int D = a.D, DV = a.DV;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+// The split scratch: acc (B * H * nsplit * Sq, DV), then (m, l) of each row
+struct Split {
+  int nqt, B, nsplit, split_len;
+  float* part;
+};
+
+// NT: output n-tiles of 8 columns a warp holds (DV <= 8 * NT).  DQK: the
+// q/k head dim fixed at compile time (then DV = 8 * NT), so the S loop
+// unrolls whole and every shared address is a constant offset; 0 takes
+// D and DV from the arguments (any pair the contract allows).
+template <int NT, int DQK>
+__global__ void __launch_bounds__(kF32Threads) flash_tf32_kernel(Args a, Split sp_) {
+  extern __shared__ float4 f32_smem_raw[];
+  float* smem = reinterpret_cast<float*>(f32_smem_raw);
+  constexpr bool kFixed = DQK > 0;
+  const int D = kFixed ? DQK : a.D, DV = kFixed ? 8 * NT : a.DV;
+  const int qs = f32_qk_stride(D), vst = f32_v_stride(DV);
+  float* sq = smem;                                  // kF32Rows x qs
+  float* sk = sq + kF32Rows * qs;                    // stages x keys x qs
+  float* sv = sk + kF32Stages * kF32Keys * qs;       // stages x keys x vst
+  // work item: q tiles heaviest first, then head, batch, split
+  int i = blockIdx.x;
+  const int per = a.H * sp_.B * sp_.nsplit;
+  const int qt = sp_.nqt - 1 - i / per;
+  i %= per;
+  const int sp = i % sp_.nsplit;
+  i /= sp_.nsplit;
+  const int h = i % a.H, b = i / a.H;
   const int kh = h / (a.H / a.KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qs = smem;                                 // kSimtRows x D
-  float* ks = qs + kSimtRows * D;                   // kSimtKeys x (D + 1)
-  float* vs = ks + kSimtKeys * (D + 1);             // kSimtKeys x DV
+  const int row0 = qt * kF32Rows;
+  const int nrows = min(kF32Rows, a.Sq - row0);
+  const int off = row_offset(a, b);
+  const int len = valid_len(a, b);
+  int first, end;
+  key_span(a, len, off + row0, off + row0 + nrows - 1, kF32Keys, &first, &end);
+  // the last split runs to the end of the reach, whatever split_len
+  // covers: no key of the reach is left out
+  const int lo = first + sp * sp_.split_len;
+  const int hi = sp == sp_.nsplit - 1 ? end : min(end, lo + sp_.split_len);
+  const int ntiles = hi > lo ? (hi - lo + kF32Keys - 1) / kF32Keys : 0;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
-  const int row0 = qt * kSimtRows;
-  const int nrows = min(kSimtRows, a.Sq - row0);
-  const int off = row_offset(a, b);
-  const int len = valid_len(a, b);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  for (int i = threadIdx.x; i < kSimtRows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    qs[i] = r < nrows
-        ? q[((static_cast<size_t>(b) * a.Sq + row0 + r) * a.H + h) * D + d] * a.scale
-        : 0.f;
-  }
-  float m[kSimtRowsPerWarp], l[kSimtRowsPerWarp], acc[kSimtRowsPerWarp][EPL];
-#pragma unroll
-  for (int r = 0; r < kSimtRowsPerWarp; ++r) {
-    m[r] = kNegInit;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
-  }
-  int first, end;
-  key_span(a, len, off + row0, off + row0 + nrows - 1, kSimtKeys, &first, &end);
-  for (int k0 = first; k0 < end; k0 += kSimtKeys) {
-    __syncthreads();              // the last tile is consumed, q is staged
-    for (int i = threadIdx.x; i < kSimtKeys * D; i += blockDim.x) {
-      const int j = i / D, d = i % D, t = k0 + j;   // DV <= D: v rides along
-      float kx = 0.f, vx = 0.f;
-      if (t < a.Sk) {
-        const size_t row = (static_cast<size_t>(b) * a.Sk + t) * a.KV + kh;
-        kx = k[row * D + d];
-        if (d < DV) vx = v[row * DV + d];
-      }
-      ks[j * (D + 1) + d] = kx;
-      if (d < DV) vs[j * DV + d] = vx;
+  // kv tile `it` into ring slot it % stages; keys past Sk arrive as zeros
+  auto issue = [&](int it) {
+    const int slot = it % kF32Stages, k0 = lo + it * kF32Keys;
+    const uint32_t dk = hopper::smem_u32(sk + slot * kF32Keys * qs);
+    const uint32_t dv = hopper::smem_u32(sv + slot * kF32Keys * vst);
+    const int kc = D / 4, vc = DV / 4;
+    for (int c = tid; c < kF32Keys * kc; c += kF32Threads) {
+      const int j = c / kc, x = c % kc, key = k0 + j;
+      const size_t row = (static_cast<size_t>(b) * a.Sk + min(key, a.Sk - 1)) * a.KV + kh;
+      tf32::cp_async16(dk + 4u * (j * qs + 4 * x), k + row * D + 4 * x, key < a.Sk ? 16 : 0);
     }
-    __syncthreads();
-    const float* kr = ks + lane * (D + 1);
+    for (int c = tid; c < kF32Keys * vc; c += kF32Threads) {
+      const int j = c / vc, x = c % vc, key = k0 + j;
+      const size_t row = (static_cast<size_t>(b) * a.Sk + min(key, a.Sk - 1)) * a.KV + kh;
+      tf32::cp_async16(dv + 4u * (j * vst + 4 * x), v + row * DV + 4 * x, key < a.Sk ? 16 : 0);
+    }
+  };
+  if (ntiles > 0) issue(0);
+  tf32::cp_async_commit();
+  // q * scale in fp32, as the JAX tiers scale it; rows past Sq are zeros
+  for (int c = tid; c < kF32Rows * (D / 4); c += kF32Threads) {
+    const int r = c / (D / 4), x = c % (D / 4);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nrows) {
+      val = reinterpret_cast<const float4*>(
+          q + ((static_cast<size_t>(b) * a.Sq + row0 + r) * a.H + h) * D)[x];
+      val.x *= a.scale;
+      val.y *= a.scale;
+      val.z *= a.scale;
+      val.w *= a.scale;
+    }
+    *reinterpret_cast<float4*>(sq + r * qs + 4 * x) = val;
+  }
+
+  float o[NT][4];
 #pragma unroll
-    for (int r = 0; r < kSimtRowsPerWarp; ++r) {
-      const int row = warp * kSimtRowsPerWarp + r;
-      if (row >= nrows) continue;                   // warp-uniform
-      const float* qr = qs + row * D;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qr[d] * kr[d];
-      s = cap_and_mask(a, s, off + row0 + row, k0 + lane, len);
-      float mx = s;
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // rows g and g + 8 of this warp: running maxima, this lane's share of
+  // the sums
+  float m0 = kNegInit, m1 = kNegInit, l0 = 0.f, l1 = 0.f;
+  const int qp0 = off + row0 + warp * 16 + g, qp1 = qp0 + 8;
+  const float* qw = sq + (warp * 16 + g) * qs + 2 * t;
+  // a warp whose 16 rows all lie past Sq only stages and waits (a short
+  // chunk or a 16-row prompt fills one warp of the four)
+  const bool live = warp * 16 < nrows;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) issue(it + 1);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();                        // tile it has landed
+    __syncthreads();                                 // (and q is staged)
+    if (live) {
+      const int slot = it % kF32Stages, k0 = lo + it * kF32Keys;
+      const float* kw = sk + slot * kF32Keys * qs + g * qs + 2 * t;
+      const float* vw = sv + slot * kF32Keys * vst + 2 * t * vst + g;
+
+      // S = (q * scale) K^T over the tile's 32 keys: 4 n-tiles of 8
+      float s[4][4], sl[4][4];
 #pragma unroll
-      for (int o = 16; o >= 1; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-      const float mn = fmaxf(m[r], mx);
-      const float c = expf(m[r] - mn);
-      const float p = expf(s - mn);
-      float ps = p;
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int o = 16; o >= 1; o >>= 1) ps += __shfl_xor_sync(kFull, ps, o);
-      l[r] = l[r] * c + ps;
-      m[r] = mn;
+        for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.f;
+      auto qk_step = [&](int kk) {
+        const float2 qa = *reinterpret_cast<const float2*>(qw + kk * 8);
+        const float2 qb = *reinterpret_cast<const float2*>(qw + 8 * qs + kk * 8);
+        uint32_t ah[4], al[4];
+        tf32::split(qa.x, ah[0], al[0]);
+        tf32::split(qb.x, ah[1], al[1]);
+        tf32::split(qa.y, ah[2], al[2]);
+        tf32::split(qb.y, ah[3], al[3]);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[r][e] *= c;
-      for (int j = 0; j < kSimtKeys; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
+        for (int n = 0; n < 4; ++n) {
+          const float2 kb = *reinterpret_cast<const float2*>(kw + n * 8 * qs + kk * 8);
+          uint32_t bh[2], bl[2];
+          tf32::split(kb.x, bh[0], bl[0]);
+          tf32::split(kb.y, bh[1], bl[1]);
+          tf32::mma3(s[n], sl[n], ah, al, bh, bl);
+        }
+      };
+      if constexpr (kFixed) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          const int d = e * 32 + lane;
-          if (d < DV) acc[r][e] += pj * vs[j * DV + d];
+        for (int kk = 0; kk < DQK / 8; ++kk) qk_step(kk);
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < D / 8; ++kk) qk_step(kk);
+      }
+
+      // softcap, mask, online softmax: lane holds keys 8n + 2t (+1) of rows
+      // g (e = 0, 1) and g + 8 (e = 2, 3)
+      float mx0 = kNegInit, mx1 = kNegInit;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * n + 2 * t + (e & 1);
+          const float x = cap_and_mask(a, s[n][e] + sl[n][e], e < 2 ? qp0 : qp1, kp, len);
+          s[n][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+        }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {           // the 4 lanes of a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, sh));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        s[n][0] = __expf(s[n][0] - mn0);
+        s[n][1] = __expf(s[n][1] - mn0);
+        s[n][2] = __expf(s[n][2] - mn1);
+        s[n][3] = __expf(s[n][3] - mn1);
+        ps0 += s[n][0] + s[n][1];
+        ps1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][0] *= c0;
+        o[j][1] *= c0;
+        o[j][2] *= c1;
+        o[j][3] *= c1;
+      }
+
+      // O += P V: k-step kk is S's n-tile kk, whose C fragment is the A
+      // fragment under the k = t -> key 2t, k = t + 4 -> key 2t + 1 order;
+      // so B takes V rows 2t and 2t + 1 of the k-step, column g of n-tile j
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ah[4], al[4];
+        tf32::split(s[kk][0], ah[0], al[0]);
+        tf32::split(s[kk][2], ah[1], al[1]);
+        tf32::split(s[kk][1], ah[2], al[2]);
+        tf32::split(s[kk][3], ah[3], al[3]);
+        const float* vk = vw + kk * 8 * vst;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j * 8 < DV) {
+            uint32_t bh[2], bl[2];
+            tf32::split(vk[j * 8], bh[0], bl[0]);
+            tf32::split(vk[vst + j * 8], bh[1], bl[1]);
+            tf32::mma3(o[j], o[j], ah, al, bh, bl);
+          }
         }
       }
     }
+    __syncthreads();                                 // slot free for tile it + 2
   }
-  float* out = static_cast<float*>(a.out);
+  tf32::cp_async_wait<0>();
+
 #pragma unroll
-  for (int r = 0; r < kSimtRowsPerWarp; ++r) {
-    const int row = warp * kSimtRowsPerWarp + r;
-    if (row >= nrows) continue;
-    const size_t base = ((static_cast<size_t>(b) * a.Sq + row0 + row) * a.H + h) * DV;
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(kFull, l0, sh);
+    l1 += __shfl_xor_sync(kFull, l1, sh);
+  }
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  if (sp_.nsplit == 1) {
+    const float i0 = 1.f / fmaxf(l0, 1e-30f), i1 = 1.f / fmaxf(l1, 1e-30f);
+    float* out = static_cast<float*>(a.out);
+    float* o0 = out + ((static_cast<size_t>(b) * a.Sq + r0) * a.H + h) * DV + 2 * t;
+    float* o1 = out + ((static_cast<size_t>(b) * a.Sq + r1) * a.H + h) * DV + 2 * t;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      const int d = e * 32 + lane;
-      if (d < DV) out[base + d] = acc[r][e] / fmaxf(l[r], 1e-30f);
+    for (int j = 0; j < NT; ++j) {
+      if (j * 8 >= DV) continue;
+      if (r0 < a.Sq)
+        *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(o[j][0] * i0, o[j][1] * i0);
+      if (r1 < a.Sq)
+        *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(o[j][2] * i1, o[j][3] * i1);
     }
-    if (a.lse != nullptr && lane == 0)
-      a.lse[(static_cast<size_t>(b) * a.H + h) * a.Sq + row0 + row] =
-          m[r] + logf(fmaxf(l[r], 1e-30f));
+    if (a.lse != nullptr && t == 0) {
+      float* lse = a.lse + (static_cast<size_t>(b) * a.H + h) * a.Sq;
+      if (r0 < a.Sq) lse[r0] = m0 + logf(fmaxf(l0, 1e-30f));
+      if (r1 < a.Sq) lse[r1] = m1 + logf(fmaxf(l1, 1e-30f));
+    }
+    return;
   }
+  // the split's unnormalised state; an empty split writes (-1e30, 0, 0)
+  const size_t base = (static_cast<size_t>(b) * a.H + h) * sp_.nsplit + sp;
+  const size_t nrow_all = static_cast<size_t>(sp_.B) * a.H * sp_.nsplit * a.Sq;
+  float* acc = sp_.part;
+  float* ml = sp_.part + nrow_all * DV;
+  const size_t p0 = base * a.Sq + r0, p1 = base * a.Sq + r1;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j * 8 >= DV) continue;
+    if (r0 < a.Sq)
+      *reinterpret_cast<float2*>(acc + p0 * DV + 8 * j + 2 * t) = make_float2(o[j][0], o[j][1]);
+    if (r1 < a.Sq)
+      *reinterpret_cast<float2*>(acc + p1 * DV + 8 * j + 2 * t) = make_float2(o[j][2], o[j][3]);
+  }
+  if (t == 0) {
+    if (r0 < a.Sq) *reinterpret_cast<float2*>(ml + 2 * p0) = make_float2(m0, l0);
+    if (r1 < a.Sq) *reinterpret_cast<float2*>(ml + 2 * p1) = make_float2(m1, l1);
+  }
+}
+
+// The splits of row (b, blockIdx.x, h) merged by log-sum-exp in split
+// order (no atomics: two calls give the same bits); then the output and
+// the row's log-sum-exp.
+__global__ void __launch_bounds__(kF32CombineThreads) flash_tf32_combine_kernel(Args a, Split sp_) {
+  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z, ns = sp_.nsplit;
+  const size_t nrow_all = static_cast<size_t>(sp_.B) * a.H * ns * a.Sq;
+  const float* acc = sp_.part;
+  const float* ml = sp_.part + nrow_all * a.DV;
+  const size_t base = (static_cast<size_t>(b) * a.H + h) * ns * a.Sq + r;
+  float mx = kNegInit;
+  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, ml[2 * (base + s * a.Sq)]);
+  float l = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float2 st = *reinterpret_cast<const float2*>(ml + 2 * (base + s * a.Sq));
+    l += st.y * expf(st.x - mx);
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  float* out = static_cast<float*>(a.out) + ((static_cast<size_t>(b) * a.Sq + r) * a.H + h) * a.DV;
+  for (int c = threadIdx.x; c < a.DV; c += blockDim.x) {
+    float o = 0.f;
+    for (int s = 0; s < ns; ++s)
+      o += acc[(base + s * a.Sq) * a.DV + c] * expf(ml[2 * (base + s * a.Sq)] - mx);
+    out[c] = o * inv;
+  }
+  if (a.lse != nullptr && threadIdx.x == 0)
+    a.lse[(static_cast<size_t>(b) * a.H + h) * a.Sq + r] = mx + logf(fmaxf(l, 1e-30f));
 }
 
 // ---------------------------------------------------------------- bf16
@@ -722,16 +933,42 @@ bool with_bf16_pair(int D, int DV, F&& f) {
   }
 }
 
+// The fp32 kernel for head dims (D, DV): the pairs the port's configs
+// serve and train at, (16, 16), (64, 64), (128, 128), (256, 256) and
+// (192, 128), built with their dims fixed; any other pair runs the
+// kernel that reads them, in the n-tile count that holds DV.
+using F32Kernel = void (*)(Args, Split);
+
+F32Kernel f32_kernel(int D, int DV) {
+  if (D == 16 && DV == 16) return flash_tf32_kernel<2, 16>;
+  if (D == 64 && DV == 64) return flash_tf32_kernel<8, 64>;
+  if (D == 128 && DV == 128) return flash_tf32_kernel<16, 128>;
+  if (D == 256 && DV == 256) return flash_tf32_kernel<32, 256>;
+  if (D == 192 && DV == 128) return flash_tf32_kernel<16, 192>;
+  if (DV <= 16) return flash_tf32_kernel<2, 0>;
+  if (DV <= 32) return flash_tf32_kernel<4, 0>;
+  if (DV <= 64) return flash_tf32_kernel<8, 0>;
+  if (DV <= 128) return flash_tf32_kernel<16, 0>;
+  return flash_tf32_kernel<32, 0>;
+}
+
 }  // namespace
 
 // bf16 takes the pairs of kBf16Pairs, fp32 any D up to 256 and any DV up
 // to D, multiples of 16.  Others return cudaErrorInvalidValue.  The bf16
-// kernel takes 16-byte aligned q, k, v (TMA).  `lse` (B, H, Sq) fp32, or
-// null, takes each row's log-sum-exp for the backward pass (training).
+// kernel takes 16-byte aligned q, k, v (TMA); so does fp32 (cp.async).
+// `lse` (B, H, Sq) fp32, or null, takes each row's log-sum-exp for the
+// backward pass (training).  fp32 cuts each q tile's key reach into
+// `nsplit` splits of `split_len` keys, the last to the reach's end (a
+// multiple of 32; with one split,
+// at least Sk); with more than one, `part` is fp32 scratch of
+// B * H * nsplit * Sq * (DV + 2) floats and a second kernel merges the
+// splits.
 extern "C" int flash_attention(
     const void* q, const void* k, const void* v, const void* kv_len, const void* q_off,
-    void* out, void* lse, int B, int Sq, int Sk, int H, int KV, int D, int DV, int q_off0, float scale,
-    int causal, int window, float softcap, int dtype, void* stream) {
+    void* out, void* lse, void* part, int B, int Sq, int Sk, int H, int KV, int D, int DV,
+    int q_off0, float scale, int causal, int window, float softcap, int nsplit, int split_len,
+    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0) return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int32_t*>(kv_len),
                static_cast<const int32_t*>(q_off), out, static_cast<float*>(lse), Sq, Sk, H, KV, D, DV, q_off0,
@@ -746,13 +983,38 @@ extern "C" int flash_attention(
   }
   if (dtype == kF32) {
     if (D % 16 || DV % 16 || D > 256 || DV <= 0 || DV > D) return cudaErrorInvalidValue;
-    const dim3 grid((Sq + kSimtRows - 1) / kSimtRows, H, B);
-    const size_t smem = simt_smem(D, DV);
-    if (DV <= 32) return launch(flash_fp32_kernel<1>, grid, kSimtWarps * 32, smem, s, a);
-    if (DV <= 128) return launch(flash_fp32_kernel<4>, grid, kSimtWarps * 32, smem, s, a);
-    return launch(flash_fp32_kernel<8>, grid, kSimtWarps * 32, smem, s, a);
+    if (nsplit < 1 || split_len < kF32Keys || split_len % kF32Keys
+        || (nsplit == 1 && split_len < Sk) || (nsplit > 1 && part == nullptr))
+      return cudaErrorInvalidValue;
+    const int nqt = (Sq + kF32Rows - 1) / kF32Rows;
+    const Split sp{nqt, B, nsplit, split_len, static_cast<float*>(part)};
+    const cudaError_t e = launch(f32_kernel(D, DV), dim3(nqt * H * B * nsplit), kF32Threads,
+                                 f32_smem(D, DV), s, a, sp);
+    if (e != cudaSuccess || nsplit == 1) return e;
+    return launch(flash_tf32_combine_kernel, dim3(Sq, H, B), kF32CombineThreads, 0, s, a, sp);
   }
   return cudaErrorInvalidValue;
+}
+
+// The fp32 kernel's launch for head dims (D, DV), into info: keys a kv
+// tile, q rows a block, threads and dynamic shared bytes a block, blocks
+// an SM can hold; false (0) for dims it does not take.
+extern "C" int flash_attention_fp32_shape(int D, int DV, int* info) {
+  if (D % 16 || DV % 16 || D > 256 || DV <= 0 || DV > D) return 0;
+  const size_t smem = f32_smem(D, DV);
+  int per_sm = 0;
+  const F32Kernel kern = f32_kernel(D, DV);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kF32Threads, smem);
+  if (e != cudaSuccess) return 0;
+  info[0] = kF32Keys;
+  info[1] = kF32Rows;
+  info[2] = kF32Threads;
+  info[3] = static_cast<int>(smem);
+  info[4] = per_sm;
+  return 1;
 }
 
 // The launch shape the bf16 kernel takes for these sizes (for reports; no

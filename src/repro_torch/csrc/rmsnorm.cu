@@ -203,154 +203,305 @@ cudaError_t pick_weight(int wdtype, int dtype, const void* x, const void* r, con
 //                                               ds_in for the fused form)
 //   dw = sum over rows of dy * s * inv
 // dx = ds (and dr = ds for the fused form), rounded once to x's type.  It
-// reads s, dy (and ds_in) and writes dx: bytes bound, as the forward.  A
-// block takes rows blockIdx.x, + gridDim.x, ...: for each it sums s^2 and
-// g * s (pass 1), then reads the row again (from L1/L2) for ds (pass 2),
-// so no width is too wide for its registers; each thread keeps the dw
-// partial of its columns in registers across its rows, and writes it as
-// the block's fp32 partial row.  A second kernel sums the partials of a
-// column in block order, so dw's bits do not depend on scheduling; dw
-// stays fp32 (the caller rounds it to w's type, if at all, once).
-constexpr int kBwdThreads = 256;
+// reads s, dy (and ds_in) and writes dx, each once: bytes bound, as the
+// forward (at the fused bf16 (8192, 4096) shape, 268 MB, 0.080 ms).
+//
+// Design: one pass.  A persistent block (a few an SM, as many as the
+// card holds at once) walks rows blockIdx.x, + gridDim.x, ...; its
+// threads own the same columns on every row (vectors of 8 elements, 16 or
+// 32 bytes in 16-byte loads, in every dtype, so the fp32 kernel on a
+// 16-bit row's upcast values forms the same sums bit for bit), so each
+// thread loads its w once and keeps its dw partial in registers across
+// the rows.  A row's s, dy and ds_in are loaded into registers at once
+// (bytes in flight: 24 KB a row at the fused bf16 shape, times the blocks
+// an SM), both sums reduced with one barrier (the warps' sums go to one
+// of two shared slots by row parity), and dx formed from the registers:
+// HBM sees each byte once.  Rows wider than a block of 512 holds in two
+// vectors a thread (over 8192 elements, up to the forward's widest,
+// 32768) run with 1024 threads of 2 vectors (4 over 16384; in fp32 those
+// spill, and only the fp32 reference of a 16-bit row that wide takes
+// them): s and dy stay in registers, w and ds_in are read where they are
+// used, and the dw partial sits in shared memory.  Each block writes its
+// fp32 dw partial row; a column kernel sums the partials of 32 columns a
+// block in a fixed tree (8 strided slices, then halving), so dw's bits do
+// not depend on scheduling; dw stays fp32 (the caller rounds it to w's
+// type, if at all, once).
+constexpr int kBwdThreads = 512;         // two vectors a thread
+constexpr int kBwdWideThreads = 1024;    // up to four
+constexpr int kDwCols = 32, kDwSlices = 8;
 
-template <typename T, typename W, int kCols>
-__global__ void __launch_bounds__(kBwdThreads)
+template <typename T, typename W, int kVec, int kVecs, bool kWide>
+__global__ void __launch_bounds__(kWide ? kBwdWideThreads : kBwdThreads)
 rmsnorm_bwd_kernel(const T* __restrict__ s, const T* __restrict__ dy,
                    const T* __restrict__ ds_in, const W* __restrict__ w,
                    T* __restrict__ dx, float* __restrict__ partial, int rows, int d,
                    float eps) {
-  float dw[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) dw[c] = 0.f;
-  __shared__ float red[2][kBwdThreads / 32];
+  using VT = Pack<T, kVec>;
+  using VW = Pack<W, kVec>;
+  using VF = Pack<float, kVec>;
+  extern __shared__ float dw_smem[];                 // wide: d floats
+  __shared__ float red[2][2][kBwdWideThreads / 32];  // [row parity][sum][warp]
+  const int nvec = d / kVec;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const size_t base = static_cast<size_t>(row) * d;
-    float ss = 0.f, gs = 0.f;
+  const int nwarps = blockDim.x >> 5;
+  const VW* wv = reinterpret_cast<const VW*>(w);
+  VW wr[kWide ? 1 : kVecs];
+  float dw[kWide ? 1 : kVecs][kVec];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = threadIdx.x + c * kBwdThreads;
-      if (col < d) {
-        const float sv = to_f(s[base + col]);
-        const float g = to_f(dy[base + col]) * to_f(w[col]);
-        ss = fmaf(sv, sv, ss);
-        gs = fmaf(g, sv, gs);
+  for (int i = 0; i < kVecs; ++i) {
+    const int v = threadIdx.x + i * blockDim.x;
+    if (v >= nvec) continue;
+    if constexpr (kWide) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) dw_smem[v * kVec + e] = 0.f;
+    } else {
+      wr[i] = load(wv + v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) dw[i][e] = 0.f;
+    }
+  }
+  int parity = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const size_t base = static_cast<size_t>(row) * d;
+    const VT* sv = reinterpret_cast<const VT*>(s + base);
+    const VT* gv = reinterpret_cast<const VT*>(dy + base);
+    const VT* dv = reinterpret_cast<const VT*>(ds_in + base);
+    VT sr[kVecs], gr[kVecs], dr[kWide ? 1 : kVecs];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int v = threadIdx.x + i * blockDim.x;
+      if (v >= nvec) continue;
+      sr[i] = load(sv + v);
+      gr[i] = load(gv + v);
+      if constexpr (!kWide) {
+        if (ds_in != nullptr) dr[i] = load(dv + v);
       }
     }
+    float ss = 0.f, gs = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      gs += __shfl_xor_sync(0xffffffffu, gs, off);
+    for (int i = 0; i < kVecs; ++i) {
+      const int v = threadIdx.x + i * blockDim.x;
+      if (v >= nvec) continue;
+      VW wi;
+      if constexpr (kWide) wi = load(wv + v); else wi = wr[i];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float sf = to_f(sr[i].v[e]);
+        const float g = to_f(gr[i].v[e]) * to_f(wi.v[e]);
+        ss = fmaf(sf, sf, ss);
+        gs = fmaf(g, sf, gs);
+      }
     }
-    __syncthreads();                    // the last row's sums are read
+    // warp sums, then every warp sums the warps' sums: one barrier a row
+    // (the slots alternate by row, so the next row's writes never meet
+    // this row's reads), the same order in every thread
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gs += __shfl_xor_sync(0xffffffffu, gs, o);
+    }
     if (lane == 0) {
-      red[0][warp] = ss;
-      red[1][warp] = gs;
+      red[parity][0][warp] = ss;
+      red[parity][1][warp] = gs;
     }
     __syncthreads();
-    ss = lane < kBwdThreads / 32 ? red[0][lane] : 0.f;
-    gs = lane < kBwdThreads / 32 ? red[1][lane] : 0.f;
+    ss = lane < nwarps ? red[parity][0][lane] : 0.f;
+    gs = lane < nwarps ? red[parity][1][lane] : 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      gs += __shfl_xor_sync(0xffffffffu, gs, off);
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gs += __shfl_xor_sync(0xffffffffu, gs, o);
     }
     const float inv = rsqrtf(ss / d + eps);
     const float corr = inv * inv * inv * (gs / d);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = threadIdx.x + c * kBwdThreads;
-      if (col < d) {
-        const float sv = to_f(s[base + col]);
-        const float dyv = to_f(dy[base + col]);
-        float g = inv * dyv * to_f(w[col]) - sv * corr;
-        if (ds_in != nullptr) g += to_f(ds_in[base + col]);
-        dx[base + col] = from_f<T>(g);
-        dw[c] = fmaf(dyv * sv, inv, dw[c]);
+    for (int i = 0; i < kVecs; ++i) {
+      const int v = threadIdx.x + i * blockDim.x;
+      if (v >= nvec) continue;
+      VW wi;
+      VT di;
+      if constexpr (kWide) {
+        wi = load(wv + v);
+        if (ds_in != nullptr) di = load(dv + v);
+      } else {
+        wi = wr[i];
+        if (ds_in != nullptr) di = dr[i];
       }
+      VT out;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float sf = to_f(sr[i].v[e]);
+        const float dyf = to_f(gr[i].v[e]);
+        float g = inv * dyf * to_f(wi.v[e]) - sf * corr;
+        if (ds_in != nullptr) g += to_f(di.v[e]);
+        out.v[e] = from_f<T>(g);
+        if constexpr (kWide) {
+          dw_smem[v * kVec + e] = fmaf(dyf * sf, inv, dw_smem[v * kVec + e]);
+        } else {
+          dw[i][e] = fmaf(dyf * sf, inv, dw[i][e]);
+        }
+      }
+      store(reinterpret_cast<VT*>(dx + base) + v, out);
     }
   }
-  float* part = partial + static_cast<size_t>(blockIdx.x) * d;
+  VF* part = reinterpret_cast<VF*>(partial + static_cast<size_t>(blockIdx.x) * d);
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int col = threadIdx.x + c * kBwdThreads;
-    if (col < d) part[col] = dw[c];
+  for (int i = 0; i < kVecs; ++i) {
+    const int v = threadIdx.x + i * blockDim.x;
+    if (v >= nvec) continue;
+    VF out;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      if constexpr (kWide) out.v[e] = dw_smem[v * kVec + e]; else out.v[e] = dw[i][e];
+    }
+    store(part + v, out);
   }
 }
 
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial, float* __restrict__ dw,
-                                  int blocks, int d) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
-  float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partial[static_cast<size_t>(b) * d + col];
-  dw[col] = acc;
+// dw[c] = the sum of the blocks' partials of column c: a block a 32
+// columns, 8 slices of 32 lanes each summing every 8th partial row in
+// row order, then the slices halved in a fixed tree.
+__global__ void __launch_bounds__(kDwCols * kDwSlices)
+rmsnorm_dw_kernel(const float* __restrict__ partial, float* __restrict__ dw, int blocks, int d) {
+  __shared__ float acc[kDwSlices][kDwCols];
+  const int cx = threadIdx.x % kDwCols, sy = threadIdx.x / kDwCols;
+  const int col = blockIdx.x * kDwCols + cx;
+  float sum = 0.f;
+  if (col < d)
+    for (int b = sy; b < blocks; b += kDwSlices) sum += partial[static_cast<size_t>(b) * d + col];
+  acc[sy][cx] = sum;
+  __syncthreads();
+#pragma unroll
+  for (int h = kDwSlices / 2; h >= 1; h >>= 1) {
+    if (sy < h) acc[sy][cx] += acc[sy + h][cx];
+    __syncthreads();
+  }
+  if (sy == 0 && col < d) dw[col] = acc[0][cx];
 }
 
-template <typename T, typename W>
-cudaError_t bwd_launch(const void* s, const void* dy, const void* ds_in, const void* w,
-                       void* dx, void* dw, void* partial, int blocks, int rows, int d,
-                       float eps, cudaStream_t st) {
-  const int cols = (d + kBwdThreads - 1) / kBwdThreads;
-  const T* sp = static_cast<const T*>(s);
-  const T* dyp = static_cast<const T*>(dy);
-  const T* dsp = static_cast<const T*>(ds_in);
-  const W* wp = static_cast<const W*>(w);
-  T* dxp = static_cast<T*>(dx);
-  float* pp = static_cast<float*>(partial);
-  if (cols <= 4)
-    rmsnorm_bwd_kernel<T, W, 4><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
-                                                                 rows, d, eps);
-  else if (cols <= 16)
-    rmsnorm_bwd_kernel<T, W, 16><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
-                                                                  rows, d, eps);
-  else if (cols <= 64)
-    rmsnorm_bwd_kernel<T, W, 64><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
-                                                                  rows, d, eps);
-  else if (cols <= 128)     // the forward's widest rows: 32768 in bf16
-    rmsnorm_bwd_kernel<T, W, 128><<<blocks, kBwdThreads, 0, st>>>(sp, dyp, dsp, wp, dxp, pp,
-                                                                   rows, d, eps);
-  else
-    return cudaErrorInvalidValue;
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  rmsnorm_dw_kernel<<<(d + 255) / 256, 256, 0, st>>>(pp, static_cast<float*>(dw), blocks, d);
-  return cudaGetLastError();
+// The row kernel for rows of d (kVec elements a vector), its threads and
+// dynamic shared bytes: two vectors a thread where 512 threads hold the
+// row, else 1024 of up to four (the forward's widest rows); null kern for
+// wider rows.
+template <typename T_, typename W_>
+struct BwdPlan {
+  using T = T_;
+  using W = W_;
+  void (*kern)(const T*, const T*, const T*, const W*, T*, float*, int, int, float);
+  int threads;
+  size_t smem;
+};
+
+template <typename T, typename W, int kVec>
+BwdPlan<T, W> bwd_plan(int d) {
+  const int nvec = d / kVec;
+  const size_t wide = sizeof(float) * static_cast<size_t>(d);
+  if (nvec <= 2 * kBwdThreads) {
+    // at least 128 threads, or a vector each where a row has fewer
+    const int one = (nvec + 31) / 32 * 32, two = ((nvec + 1) / 2 + 31) / 32 * 32;
+    const int threads = two > (one < 128 ? one : 128) ? two : (one < 128 ? one : 128);
+    return {rmsnorm_bwd_kernel<T, W, kVec, 2, false>, threads, 0};
+  }
+  if (nvec <= 2 * kBwdWideThreads)
+    return {rmsnorm_bwd_kernel<T, W, kVec, 2, true>, kBwdWideThreads, wide};
+  if (nvec <= 4 * kBwdWideThreads)
+    return {rmsnorm_bwd_kernel<T, W, kVec, 4, true>, kBwdWideThreads, wide};
+  return {nullptr, 0, 0};
 }
 
-template <typename T>
-cudaError_t bwd_weight(int wdtype, int dtype, const void* s, const void* dy, const void* ds_in,
-                       const void* w, void* dx, void* dw, void* partial, int blocks, int rows,
-                       int d, float eps, cudaStream_t st) {
-  if (wdtype == 0)
-    return bwd_launch<T, float>(s, dy, ds_in, w, dx, dw, partial, blocks, rows, d, eps, st);
+// Calls f(plan) with the plan for these dtypes (0 fp32, 1 bf16, 2 fp16; w
+// in fp32 or dtype) and vectors of 8 elements (vec) or 1; returns what f
+// does, or cudaErrorInvalidValue where there is no plan.
+template <typename T, typename W, typename F>
+cudaError_t with_plan(int d, bool vec, F&& f) {
+  const BwdPlan<T, W> p = vec ? bwd_plan<T, W, 8>(d) : bwd_plan<T, W, 1>(d);
+  return p.kern == nullptr ? cudaErrorInvalidValue : f(p);
+}
+
+template <typename T, typename F>
+cudaError_t with_weight(int d, int dtype, int wdtype, bool vec, F&& f) {
+  if (wdtype == 0) return with_plan<T, float>(d, vec, f);
   if (wdtype != dtype) return cudaErrorInvalidValue;
-  return bwd_launch<T, T>(s, dy, ds_in, w, dx, dw, partial, blocks, rows, d, eps, st);
+  return with_plan<T, T>(d, vec, f);
 }
+
+template <typename F>
+cudaError_t with_bwd_plan(int d, int dtype, int wdtype, bool vec, F&& f) {
+  if (d <= 0 || (vec && d % 8)) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return with_weight<float>(d, dtype, wdtype, vec, f);
+    case 1: return with_weight<__nv_bfloat16>(d, dtype, wdtype, vec, f);
+    case 2: return with_weight<__half>(d, dtype, wdtype, vec, f);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename P>
+cudaError_t allow_smem(const P& p) {
+  if (p.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(p.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(p.smem));
+}
+
+// the backward's persistent blocks: at most this many an SM, so the dw
+// partial stays a few rows an SM
+constexpr int kBwdBlocksPerSm = 4;
 
 }  // namespace
+
+// The backward's row kernel blocks for rows of d in these dtypes, vectors
+// of 8 (vec) or 1: as many as the current card holds at once, at most
+// kBwdBlocksPerSm an SM; 0 where no kernel takes the rows.  The dw
+// partial has this many rows (or the rows, if fewer).
+extern "C" int rmsnorm_bwd_blocks(int d, int dtype, int wdtype, int vec) {
+  int blocks = 0;
+  const cudaError_t e = with_bwd_plan(d, dtype, wdtype, vec != 0, [&](auto p) {
+    int per_sm = 0, dev = 0, sms = 0;
+    cudaError_t err = allow_smem(p);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, p.kern, p.threads, p.smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    blocks = (per_sm < kBwdBlocksPerSm ? per_sm : kBwdBlocksPerSm) * sms;
+    return err;
+  });
+  return e == cudaSuccess ? blocks : 0;
+}
 
 // The backward pass of both forms: s (rows, d) the norm's input (the fused
 // form's saved sum), dy (rows, d) the gradient of y, ds_in (rows, d) the
 // gradient of the fused form's s output or null; w (d,).  Writes dx (rows,
 // d; equal to dr for the fused form) and dw (d,) in fp32, through
-// `partial`, an fp32 (blocks, d) workspace; blocks <= rows.  d up to
-// 32768 (128 columns a thread), every width the forward takes.
+// `partial`, an fp32 (blocks, d) workspace: the row kernel runs `blocks`
+// blocks (at most rows; rmsnorm_bwd_blocks's count for a persistent
+// grid), then the dw sum.  vec: vectors of 8 elements, which takes d a
+// multiple of 8 and every pointer 16-byte aligned.  d up to 32768 (4096
+// vectors of 8), every width the forward takes.
 extern "C" int rmsnorm_bwd_launch(const void* s, const void* dy, const void* ds_in,
-                                  const void* w, void* dx, void* dw, void* partial,
-                                  int blocks, int rows, int d, float eps, int dtype,
-                                  int wdtype, void* stream) {
-  if (rows <= 0 || d <= 0 || blocks <= 0 || blocks > rows) return cudaErrorInvalidValue;
+                                  const void* w, void* dx, void* dw, void* partial, int blocks,
+                                  int rows, int d, float eps, int dtype, int wdtype, int vec,
+                                  void* stream) {
+  if (rows <= 0 || blocks <= 0 || blocks > rows) return cudaErrorInvalidValue;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(ds_in) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(dx) | reinterpret_cast<uintptr_t>(partial);
+  if (vec && bits % 16) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return bwd_weight<float>(wdtype, dtype, s, dy, ds_in, w, dx, dw, partial, blocks,
-                                     rows, d, eps, st);
-    case 1: return bwd_weight<__nv_bfloat16>(wdtype, dtype, s, dy, ds_in, w, dx, dw, partial,
-                                             blocks, rows, d, eps, st);
-    case 2: return bwd_weight<__half>(wdtype, dtype, s, dy, ds_in, w, dx, dw, partial, blocks,
-                                      rows, d, eps, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return with_bwd_plan(d, dtype, wdtype, vec != 0, [&](auto p) {
+    using T = typename decltype(p)::T;
+    using W = typename decltype(p)::W;
+    cudaError_t e = allow_smem(p);
+    if (e != cudaSuccess) return e;
+    p.kern<<<blocks, p.threads, p.smem, st>>>(
+        static_cast<const T*>(s), static_cast<const T*>(dy), static_cast<const T*>(ds_in),
+        static_cast<const W*>(w), static_cast<T*>(dx), static_cast<float*>(partial), rows, d,
+        eps);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    rmsnorm_dw_kernel<<<(d + kDwCols - 1) / kDwCols, kDwCols * kDwSlices, 0, st>>>(
+        static_cast<const float*>(partial), static_cast<float*>(dw), blocks, d);
+    return cudaGetLastError();
+  });
 }
 
 // x (rows, d) and, for the fused form, r (rows, d) of type dtype (0 fp32,

@@ -24,8 +24,11 @@ and one or two consumer warpgroups of 64 q rows run S = QK^T and O += PV
 as ``wgmma`` (P from registers), the softmax of one tile under the PV of
 the one before and under the other warpgroup's products.  At (192, 128)
 S reduces over 192 columns and PV is the D = 128 case's; two 128-key
-stages fit beside the wider q rows.  fp32 runs on the CUDA cores in the
-JAX order of operations.
+stages fit beside the wider q rows.  fp32 (``flash_attention_fp32_cuda``,
+counted apart) keeps the JAX order of operations with fp32-exact products
+on the tensor cores: each operand split into two TF32 halves, three
+``mma.sync`` a product (3xTF32), the keys of each 64-row q tile cut into
+splits (``fp32_splits``) that a second kernel merges in a fixed order.
 
 The backward (``flash_attention_bwd_cuda``, ``csrc/flash_attention_bwd.cu``)
 is built at the same head-dim pairs, bf16 and fp32: in bf16 two kernels on
@@ -35,7 +38,8 @@ q rows), so two calls give bit-equal gradients; in fp32 the CUDA cores.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Union
+import functools
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -48,6 +52,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the fp32 path takes any q/k dim up to 256 and any v dim up to it,
 # multiples of 16
 BF16_HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (192, 128))
+# the fp32 kernel's splits: at least this many kv tiles each
+MIN_SPLIT_TILES = 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -67,7 +73,10 @@ def _lib() -> ctypes.CDLL:
                                f"kernel's built pairs ({n} pairs: {built})")
         lib.flash_attention_shape.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
         lib.flash_attention_shape.restype = None
-        fn.argtypes = [_P] * 7 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
+        lib.flash_attention_fp32_shape.argtypes = [_I, _I,
+                                                   ctypes.POINTER(_I)]
+        lib.flash_attention_fp32_shape.restype = _I
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _I, _F, _I, _I, _I, _P]
         fn.restype = _I
     return lib
 
@@ -86,8 +95,42 @@ def launch_shape(b: int, sq: int, h: int, d: int,
     return dict(zip(keys, info))
 
 
+@functools.lru_cache(maxsize=None)
+def fp32_shape(d: int, dv: int) -> Dict[str, int]:
+    """The fp32 kernel's launch at head dims (d, dv): keys a kv tile, q
+    rows a block, threads and dynamic shared bytes a block, and the blocks
+    an SM holds (the card's occupancy for that kernel)."""
+    info = (_I * 5)()
+    if not _lib().flash_attention_fp32_shape(d, dv, info):
+        raise ValueError(f"the fp32 kernel takes no head dims ({d}, {dv})")
+    return dict(zip(("keys", "rows", "threads", "smem", "per_sm"), info))
+
+
+def fp32_splits(b: int, sq: int, h: int, sk: int, causal: bool,
+                window: Optional[int], rows: int, keys: int,
+                slots: int) -> Tuple[int, int]:
+    """``(splits, keys a split)`` for the fp32 kernel, from shapes alone.
+
+    A work item is ``rows`` q rows of one head and batch row; its keys
+    (at most ``sk``; a causal window's reach, which causality bounds from
+    above, when both are set) are cut into splits of whole
+    ``keys``-key tiles, as many as bring ``items * splits`` blocks up to
+    the ``slots`` the card holds at once (SMs x blocks an SM), each split
+    at least ``MIN_SPLIT_TILES`` tiles: a prefill chunk of 256 rows gives
+    32-128 items where 132-264 fit.  With one split a split is the whole
+    reach (``sk`` rounded up to a tile)."""
+    items = -(-sq // rows) * h * b
+    span = min(sk, window + rows + keys - 2) if causal and window else sk
+    tiles = max(1, -(-span // keys))
+    want = min(max(1, slots // items), max(1, tiles // MIN_SPLIT_TILES))
+    if want == 1:
+        return 1, -(-sk // keys) * keys
+    per = -(-tiles // want)
+    return -(-tiles // per), per * keys
+
+
 def flash_attention_cuda(
-    q: torch.Tensor,                # (B, Sq, H, D) fp32 or bf16
+    q: torch.Tensor,                # (B, Sq, H, D) bf16
     k: torch.Tensor,                # (B, Sk, KV, D), q's dtype
     v: torch.Tensor,                # (B, Sk, KV, DV), q's dtype
     *,
@@ -100,9 +143,31 @@ def flash_attention_cuda(
     return_lse: bool = False,
 ):
     """Launch the kernel on CUDA tensors; raises on anything it cannot take.
-    ``return_lse``: return ``(out, lse)`` with each row's fp32 log-sum-exp
-    ``(B, H, Sq)`` for the backward pass (training); the serving paths ask
-    for none and launch what they did before."""
+    fp32 goes to ``flash_attention_fp32_cuda`` (its own kernel and launch
+    count), bf16 launches the wgmma kernel here.  ``return_lse``: return
+    ``(out, lse)`` with each row's fp32 log-sum-exp ``(B, H, Sq)`` for the
+    backward pass (training); the serving paths ask for none and launch
+    what they did before."""
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len,
+              q_offset=q_offset, scale=scale, return_lse=return_lse)
+    if q.dtype == torch.float32:
+        return flash_attention_fp32_cuda(q, k, v, **kw)
+    out = _launch(q, k, v, torch.bfloat16, **kw)
+    flash_attention_cuda.launches += 1
+    return out
+
+
+def flash_attention_fp32_cuda(q, k, v, **kw):
+    """The fp32 kernel (3xTF32 on the tensor cores, split over the keys)
+    on CUDA tensors; the same arguments as ``flash_attention_cuda``."""
+    out = _launch(q, k, v, torch.float32, **kw)
+    flash_attention_fp32_cuda.launches += 1
+    return out
+
+
+def _launch(q, k, v, dtype, *, causal=True, window=None, softcap=None,
+            kv_len=None, q_offset=0, scale=None, return_lse=False):
+    """Checks, then one launch of the ``dtype`` kernel."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -114,14 +179,14 @@ def flash_attention_cuda(
             or h % kvh):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the kernel takes fp32 or bf16 q, k, v of one "
-                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dtype == torch.bfloat16 and (d, dv) not in BF16_HEAD_DIMS:
+    if q.dtype != dtype or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"the kernel takes {dtype} q, k, v, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if dtype == torch.bfloat16 and (d, dv) not in BF16_HEAD_DIMS:
         raise ValueError(f"head dims (q/k {d}, v {dv}) are not built for "
                          f"bf16 (built: {BF16_HEAD_DIMS})")
-    if q.dtype == torch.float32 and not (d % 16 == 0 and dv % 16 == 0
-                                         and 0 < dv <= d <= 256):
+    if dtype == torch.float32 and not (d % 16 == 0 and dv % 16 == 0
+                                       and 0 < dv <= d <= 256):
         raise ValueError(f"head dims (q/k {d}, v {dv}): the fp32 path takes "
                          "multiples of 16 with v <= q/k <= 256")
     if kv_len is not None and kv_len.shape != (b,):
@@ -136,22 +201,32 @@ def flash_attention_cuda(
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     scale = scale if scale is not None else d ** -0.5
+    splits, split_len, part = 1, 0, None
+    if dtype == torch.float32:
+        shape = fp32_shape(d, dv)
+        splits, split_len = fp32_splits(
+            b, sq, h, sk, causal, window, shape["rows"], shape["keys"],
+            shape["per_sm"] * _build.sm_count(q.device.index or 0))
+        if splits > 1:
+            part = torch.empty(b * h * splits * sq * (dv + 2),
+                               dtype=torch.float32, device=q.device)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(),
         None if offs is None else offs.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
+        None if part is None else part.data_ptr(),
         b, sq, sk, h, kvh, d, dv, 0 if per_row else int(q_offset),
         float(scale),
         int(causal), 0 if window is None else int(window),
-        0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype],
-        _build.current_stream(q.device))
+        0.0 if softcap is None else float(softcap), splits, split_len,
+        _DTYPE_CODE[q.dtype], _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention")
-    flash_attention_cuda.launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_fp32_cuda.launches = 0
 
 # (q/k, v) head dims the backward kernel is built for, bf16 and fp32: the
 # forward's pairs (csrc/flash_attention_bwd.cu's kPairs), which ``_bwd_lib``
@@ -297,5 +372,5 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
-__all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
-           "flash_attention_plain"]
+__all__ = ["flash_attention_cuda", "flash_attention_fp32_cuda",
+           "flash_attention_bwd_cuda", "flash_attention_plain"]

@@ -47,7 +47,8 @@ NEG_INF = ref.NEG_INF
 # every Hopper kernel wrapper, by name; each carries a ``launches`` count
 KERNELS = {
     "rmsnorm": rn.rmsnorm_cuda,          # both forms count here
-    "flash_attention": fa.flash_attention_cuda,
+    "flash_attention": fa.flash_attention_cuda,          # bf16
+    "flash_attention_fp32": fa.flash_attention_fp32_cuda,
     "flash_attention_bwd": fa.flash_attention_bwd_cuda,
     "rmsnorm_bwd": rn.rmsnorm_bwd_cuda,  # both forms count here
     "decode_attention": da.decode_attention_cuda,

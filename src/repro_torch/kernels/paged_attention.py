@@ -24,7 +24,6 @@ from shapes alone, so a decode step never reads ``kv_len`` back.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -98,11 +97,6 @@ def decode_splits(batch: int, kv_heads: int, span: int, granule: int,
     return -(-units // per), per * granule
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_plan(q: torch.Tensor, kv_heads: int, span: int,
                granule: int) -> Tuple[int, int, Optional[torch.Tensor]]:
     """Splits, tokens a split and, with more than one split, the fp32
@@ -110,7 +104,7 @@ def split_plan(q: torch.Tensor, kv_heads: int, span: int,
     floats."""
     b, h, d = q.shape
     splits, split_len = decode_splits(b, kv_heads, span, granule,
-                                      sm_count(q.device.index or 0))
+                                      _build.sm_count(q.device.index or 0))
     scratch = None
     if splits > 1:
         scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,

@@ -16,6 +16,7 @@ the host one foreign call.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -33,16 +34,23 @@ def add_rmsnorm_plain(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
 
 
 _launcher = None
+_bwd_launcher = None
 
 
 def _lib() -> ctypes.CDLL:
-    global _launcher
+    global _launcher, _bwd_launcher
     lib = _build.library("rmsnorm")
     if _launcher is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rmsnorm_launch.argtypes = [P] * 5 + [I, I, ctypes.c_float, I, I,
                                                   P]
         lib.rmsnorm_launch.restype = I
+        lib.rmsnorm_bwd_launch.argtypes = [P] * 7 + [I, I, I, ctypes.c_float,
+                                                     I, I, I, P]
+        lib.rmsnorm_bwd_launch.restype = I
+        lib.rmsnorm_bwd_blocks.argtypes = [I] * 4
+        lib.rmsnorm_bwd_blocks.restype = I
+        _bwd_launcher = lib.rmsnorm_bwd_launch
         _launcher = lib.rmsnorm_launch
     return lib
 
@@ -104,7 +112,18 @@ def add_rmsnorm_cuda(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
 
 rmsnorm_cuda.launches = 0
 
-_bwd_launcher = None
+@functools.lru_cache(maxsize=None)
+def bwd_blocks(index: int, d: int, code: int, wcode: int, vec: bool) -> int:
+    """The backward row kernel's blocks on card ``index`` for rows of
+    ``d`` (dtype codes of s and w; vectors of 8 or 1): the library's
+    answer, as many as the card holds at once, at most 4 an SM.  The dw
+    partial has this many rows."""
+    with torch.cuda.device(index):
+        n = _lib().rmsnorm_bwd_blocks(d, code, wcode, int(vec))
+    if n <= 0:
+        raise ValueError(f"no RMSNorm backward kernel takes rows of {d} "
+                         f"(dtype codes {code}, {wcode})")
+    return n
 
 
 def rmsnorm_bwd_cuda(s: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
@@ -116,8 +135,8 @@ def rmsnorm_bwd_cuda(s: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     for the plain form).  Returns ``(dx, dw)``: dx in s's dtype (the fused
     form's dr too), dw in fp32 (summed over the rows in fp32; the caller
     rounds it to w's dtype).  One launch of the backward counts once (it
-    runs the row kernel and the dw sum)."""
-    global _bwd_launcher
+    runs the row kernel, one pass over the rows in persistent blocks, and
+    the dw sum over the blocks' partials)."""
     if not (s.is_cuda and dy.is_cuda and w.is_cuda
             and (ds is None or ds.is_cuda)):
         raise ValueError("rmsnorm_bwd_cuda takes CUDA tensors")
@@ -131,12 +150,6 @@ def rmsnorm_bwd_cuda(s: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
             ds is not None and ds.dtype != s.dtype):
         raise ValueError(f"unsupported dtypes {s.dtype}, {dy.dtype}")
     lib = _lib()
-    if _bwd_launcher is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rmsnorm_bwd_launch.argtypes = [P] * 7 + [I, I, I, ctypes.c_float,
-                                                     I, I, P]
-        lib.rmsnorm_bwd_launch.restype = I
-        _bwd_launcher = lib.rmsnorm_bwd_launch
     wcode = _DTYPES.get(w.dtype)
     w_in = w if wcode in (0, code) else w.float()
     wcode = _DTYPES[w_in.dtype]
@@ -146,15 +159,19 @@ def rmsnorm_bwd_cuda(s: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
     dw = torch.empty((d,), dtype=torch.float32, device=s.device)
     rows = s.numel() // d if d else 0
     if rows:
-        sms = torch.cuda.get_device_properties(s.device).multi_processor_count
-        blocks = min(rows, 8 * sms)      # 8 blocks of 256 threads an SM
+        # 16-byte vectors of 8 elements where every row allows them (the
+        # fresh dx and partial are aligned)
+        vec = d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (
+            s, dy, w_in) + (() if ds is None else (ds,)))
+        blocks = min(rows, bwd_blocks(s.device.index or 0, d, code, wcode,
+                                      vec))
         partial = torch.empty((blocks, d), dtype=torch.float32,
                               device=s.device)
         err = _bwd_launcher(s.data_ptr(), dy.data_ptr(),
                             None if ds is None else ds.data_ptr(),
                             w_in.data_ptr(), dx.data_ptr(), dw.data_ptr(),
                             partial.data_ptr(), blocks, rows, d, eps, code,
-                            wcode, _build.current_stream(s.device))
+                            wcode, int(vec), _build.current_stream(s.device))
         if err:
             _build.check(lib, err, "rmsnorm_bwd_cuda")
         rmsnorm_bwd_cuda.launches += 1

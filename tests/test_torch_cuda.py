@@ -45,6 +45,13 @@ def _paged_inputs(quant: bool, h: int, d: int):
     return q, k, v, tab, kv_len, ks, vs
 
 
+def _flash_kernel(dtype):
+    """The launch count a flash call of ``dtype`` adds to: the bf16 and
+    the fp32 kernels count apart."""
+    return "flash_attention_fp32" if dtype == torch.float32 else \
+        "flash_attention"
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -129,11 +136,11 @@ def test_flash_attention_kernel_on_card(cuda_device, dtype, d, per_row,
     q_offset, window and softcap, ragged Sq and Sk.  fp32 at 2e-5."""
     (q, k, v), kw = _flash_case(cuda_device, dtype, d, per_row=per_row,
                                 window=window, softcap=softcap)
-    before = ops.launch_counts()["flash_attention"]
+    before = ops.launch_counts()[_flash_kernel(dtype)]
     got = ops.flash_attention(q, k, v, **kw)
     want = ops.flash_attention(q, k, v, impl="ref", **kw)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert ops.launch_counts()[_flash_kernel(dtype)] == before + 1
     if dtype == torch.float32:
         np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
         return
@@ -501,11 +508,11 @@ def test_flash_attention_mla_shape_on_card(cuda_device, dtype, b, sq,
         from repro_torch.kernels.flash_attention import launch_shape
         shape = launch_shape(b, sq, h, d, dv)
         assert shape["consumers"] == 2 and shape["stages"] == 2
-    before = ops.launch_counts()["flash_attention"]
+    before = ops.launch_counts()[_flash_kernel(dtype)]
     got = ops.flash_attention(q, k, v, **kw)
     want = ops.flash_attention(q, k, v, impl="ref", **kw)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert ops.launch_counts()[_flash_kernel(dtype)] == before + 1
     assert got.shape == want.shape == (b, sq, h, dv)
     if dtype == torch.float32:
         np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
@@ -534,11 +541,11 @@ def test_flash_attention_non_causal_on_card(cuda_device, dtype, h, kvh, b,
                .to(cuda_device, dtype)
                for shape in ((b, sq, h, 64), (b, sk, kvh, 64),
                              (b, sk, kvh, 64)))
-    before = ops.launch_counts()["flash_attention"]
+    before = ops.launch_counts()[_flash_kernel(dtype)]
     got = ops.flash_attention(q, k, v, causal=False)
     want = ops.flash_attention(q, k, v, causal=False, impl="ref")
     torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert ops.launch_counts()[_flash_kernel(dtype)] == before + 1
     assert got.shape == (b, sq, h, 64)
     if dtype == torch.float32:
         np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
@@ -548,6 +555,109 @@ def test_flash_attention_non_causal_on_card(cuda_device, dtype, h, kvh, b,
     err = np.abs(_np(got.float()) - _np(want.float()))
     assert (err <= _bf16_bound(_np(want.float()), _np(wmean))).all(), \
         float(err.max())
+
+
+# the fp32 flash kernel (3xTF32): every (q/k, v) head-dim pair the fp32
+# path serves or trains at, and per pair these cases: (name, b, sq, sk,
+# heads, kv heads, causal, window, softcap, per-row q_offset or None)
+FP32_FLASH_PAIRS = [(16, 16), (64, 64), (128, 128), (256, 256), (192, 128)]
+# pairs no config reaches, which take the runtime-dims build: one in each
+# of its n-tile counts (DV up to 16, 32, 64, 128 and 256)
+FP32_FLASH_UNSERVED = [(32, 16), (64, 32), (128, 64), (96, 96), (256, 160)]
+FP32_FLASH_CASES = [
+    ("causal G4 ragged", 2, 300, 300, 8, 2, True, None, None, None),
+    ("never causal G1 sq!=sk", 2, 70, 333, 4, 4, False, None, None, None),
+    ("window 300 softcap 50 G8 chunk", 1, 256, 1024, 8, 1, True, 300, 50.0,
+     (768,)),
+    ("per-row offsets G8 ragged", 3, 70, 600, 8, 1, True, None, None,
+     (0, 200, 530)),
+    ("deep chunk G2 splits", 1, 256, 4096, 2, 1, True, None, None, (3840,)),
+    ("window 300 never causal G4 splits", 1, 256, 4096, 8, 2, False, 300,
+     None, None),
+]
+
+
+def _fp32_flash_inputs(device, d, dv, case):
+    _, b, sq, sk, h, kvh, causal, window, cap, off = case
+    rng = np.random.default_rng(sq + sk + d)
+    q, k = (_t(rng.normal(size=s).astype(np.float32)).to(device)
+            for s in ((b, sq, h, d), (b, sk, kvh, d)))
+    v = _t(rng.normal(size=(b, sk, kvh, dv)).astype(np.float32)).to(device)
+    kw = dict(causal=causal, window=window, softcap=cap, scale=d ** -0.5)
+    if off is not None:
+        off = np.asarray(off, np.int32)
+        kw.update(q_offset=_t(off).to(device),
+                  kv_len=_t(np.minimum(off + sq, sk).astype(np.int32))
+                  .to(device))
+    return q, k, v, kw
+
+
+def _lse_plain(q, k, *, causal, window, softcap, scale, kv_len=None,
+               q_offset=0):
+    """Each row's log-sum-exp of its capped, masked scores (B, H, Sq), in
+    float64, per-row offsets too."""
+    b, sq, h, _ = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    kk = k.double().repeat_interleave(h // kvh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double() * scale, kk)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    off = (q_offset.long() if torch.is_tensor(q_offset)
+           else torch.full((b,), q_offset, device=q.device))
+    q_pos = off[:, None] + torch.arange(sq, device=q.device)      # (B, Sq)
+    k_pos = torch.arange(sk, device=q.device)
+    lens = (kv_len.long() if kv_len is not None
+            else torch.full((b,), sk, device=q.device))
+    ok = (k_pos[None, None, :] < lens[:, None, None]).expand(b, sq, sk)
+    if causal:
+        ok = ok & (k_pos[None, None, :] <= q_pos[:, :, None])
+    if window:
+        ok = ok & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    return torch.logsumexp(s.masked_fill(~ok[:, None], float("-inf")), -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", FP32_FLASH_PAIRS + FP32_FLASH_UNSERVED)
+@pytest.mark.parametrize("case", FP32_FLASH_CASES,
+                         ids=[c[0] for c in FP32_FLASH_CASES])
+def test_fp32_flash_kernel_on_card(cuda_device, d, dv, case):
+    """The fp32 kernel (3xTF32 on mma.sync, split over the keys), in its
+    fixed-dims and runtime-dims builds, against the plain version at 2e-5,
+    output and log-sum-exp; one launch on the fp32 count and none on the
+    bf16 one; two calls bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, kw = _fp32_flash_inputs(cuda_device, d, dv, case)
+    before = ops.launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention_fp32"] == before["flash_attention_fp32"] + 1
+    assert after["flash_attention"] == before["flash_attention"]
+    want = ops.flash_attention(q, k, v, impl="ref", **kw)
+    assert got.shape == want.shape == (q.shape[0], q.shape[1], q.shape[2],
+                                       dv)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    again, lse2 = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, got) and torch.equal(again, out)
+    assert torch.equal(lse, lse2)
+    np.testing.assert_allclose(_np(lse), _np(_lse_plain(q, k, **kw)),
+                               atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_fp32_flash_splits_the_deep_chunk(cuda_device):
+    """The deep chunk and the never-causal window of ``FP32_FLASH_CASES``
+    run in more than one split on the card, so their cases above hold the
+    merge kernel too."""
+    from repro_torch.kernels import flash_attention as fa
+    shape = fa.fp32_shape(128, 128)
+    assert shape["per_sm"] >= 1 and shape["keys"] == 32 and \
+        shape["rows"] == 64
+    slots = shape["per_sm"] * torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert fa.fp32_splits(1, 256, 2, 4096, True, None, 64, 32, slots)[0] > 1
+    assert fa.fp32_splits(1, 256, 8, 4096, False, 300, 64, 32, slots)[0] > 1
 
 
 @pytest.mark.cuda
@@ -1340,6 +1450,51 @@ def test_rmsnorm_backward_on_card(cuda_device, fused, dtype, rows, d):
         want_dx, want_dw = rn.rmsnorm_bwd_cuda(*f32[:3], 1e-6, ds=f32[3])
         ulp = torch.finfo(torch.bfloat16).eps * want_dx.abs().clamp(
             min=torch.finfo(torch.bfloat16).tiny)
+        err = (dx.float() - want_dx).abs()
+        assert bool((err <= ulp).all()), float((err / ulp).max())
+        tol = 1e-3
+    rel = float((dw - want_dw).abs().max() / want_dw.abs().max())
+    assert rel <= tol, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype,w_fp32", [(torch.float32, True),
+                                          (torch.bfloat16, True),
+                                          (torch.bfloat16, False),
+                                          (torch.float16, False)])
+@pytest.mark.parametrize("d", [512, 2048, 4096, 8192, 16384, 32768])
+def test_rmsnorm_backward_widths_on_card(cuda_device, fused, dtype, w_fp32,
+                                         d):
+    """Every width class of the one-pass backward (512-32768: two vectors
+    a thread, and 1024 threads of four with dw in shared memory), both
+    forms, fp32, bf16 and fp16, w in fp32 or x's type, at 300 rows, fewer
+    than the blocks the card holds: fp32 within 1e-5 of autograd of the
+    plain fp32 version (largest |dx|, |dw|), bf16 and fp16 within one ulp
+    of the fp32 kernel on the same inputs upcast (dw within 1e-3); two
+    calls bit-equal."""
+    from repro_torch.kernels import rmsnorm as rn
+    rows = 300
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    s, dy = (torch.randn((rows, d), generator=gen, device=cuda_device)
+             .to(dtype) for _ in range(2))
+    w = 1 + 0.1 * torch.randn((d,), generator=gen, device=cuda_device)
+    w = w if w_fp32 else w.to(dtype)
+    ds = (torch.randn((rows, d), generator=gen, device=cuda_device).to(dtype)
+          if fused else None)
+    dx, dw = rn.rmsnorm_bwd_cuda(s, dy, w, 1e-6, ds=ds)
+    dx2, dw2 = rn.rmsnorm_bwd_cuda(s, dy, w, 1e-6, ds=ds)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    f32 = [None if t is None else t.float() for t in (s, dy, w, ds)]
+    if dtype == torch.float32:
+        want_dx, want_dw = rn.rmsnorm_bwd_plain(*f32[:3], 1e-6, ds=f32[3])
+        assert float((dx - want_dx).abs().max()) <= 1e-5 * float(
+            want_dx.abs().max())
+        tol = 1e-5
+    else:
+        want_dx, want_dw = rn.rmsnorm_bwd_cuda(*f32[:3], 1e-6, ds=f32[3])
+        ulp = torch.finfo(dtype).eps * want_dx.abs().clamp(
+            min=torch.finfo(dtype).tiny)
         err = (dx.float() - want_dx).abs()
         assert bool((err <= ulp).all()), float((err / ulp).max())
         tol = 1e-3

@@ -227,10 +227,58 @@ def test_kernel_route_raises_instead_of_falling_back(monkeypatch, tmp_path):
 def test_launch_counts_start_at_zero_and_reset():
     ops.reset_launch_counts()
     assert set(ops.launch_counts()) == {
-        "rmsnorm", "flash_attention", "decode_attention",
+        "rmsnorm", "flash_attention", "flash_attention_fp32",
+        "decode_attention",
         "paged_decode_attention", "retrieval_topk", "retrieval_topk_merge",
         "flash_attention_bwd", "rmsnorm_bwd"}
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# ------------------------------------------- the fp32 flash kernel's splits
+@pytest.mark.parametrize("b,sq,h,sk,causal,window,slots", [
+    (1, 256, 8, 6144, True, 4096, 132),   # gemma2's deep int8 chunk
+    (1, 256, 32, 1024, True, None, 264),  # serve-swap's chunk: 2 splits
+    (1, 256, 16, 1024, True, None, 528),  # granite's chunk
+    (2, 1024, 32, 1024, True, None, 264), # one-shot: the items fill the card
+    (8, 16, 16, 1024, False, None, 528),  # seamless's cross attention
+    (1, 256, 16, 256, True, None, 264),   # deepseek's (1, 256): 4 tiles
+    (1, 1, 1, 16, True, None, 132),       # one row, one key
+    (3, 70, 8, 600, True, 40, 264),       # a window shorter than a q tile
+    (1, 256, 8, 4096, False, 300, 264),   # a window, never causal: all Sk
+    (3, 70, 8, 600, False, 40, 264),
+])
+def test_fp32_flash_splits_from_shapes(b, sq, h, sk, causal, window, slots):
+    """Whole 32-key tiles covering the reach a 64-row q tile can have (Sk,
+    or a causal window's: without causality a window bounds the keys from
+    below only), no empty tail split, each at least ``MIN_SPLIT_TILES``
+    tiles unless there is one; more than one split only where the items
+    leave blocks free, and never more blocks than the card holds at once;
+    one split spans all of Sk."""
+    from repro_torch.kernels.flash_attention import (MIN_SPLIT_TILES,
+                                                     fp32_splits)
+    rows, keys = 64, 32
+    splits, split_len = fp32_splits(b, sq, h, sk, causal, window, rows, keys,
+                                    slots)
+    items = -(-sq // rows) * h * b
+    assert splits >= 1 and split_len % keys == 0
+    if splits == 1:
+        assert split_len >= sk
+        return
+    span = min(sk, window + rows + keys - 2) if causal and window else sk
+    assert splits * split_len >= span > (splits - 1) * split_len
+    assert split_len >= MIN_SPLIT_TILES * keys
+    assert items * splits <= slots
+
+
+def test_fp32_flash_splits_at_the_serving_chunks():
+    """The serving chunks the kernel was cut for: gemma2's deep chunk
+    (8 heads, window 4096, one block an SM at D = 256) into 4 splits of
+    33 tiles; serve-swap's llama chunk (32 heads, two an SM at D = 128)
+    into 2 of 512 keys."""
+    from repro_torch.kernels.flash_attention import fp32_splits
+    assert fp32_splits(1, 256, 8, 6144, True, 4096, 64, 32, 132) == \
+        (4, 1056)
+    assert fp32_splits(1, 256, 32, 1024, True, None, 64, 32, 264) == (2, 512)
 
 
 # ------------------------------------------------- split-K decode planning
