@@ -22,7 +22,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and its device ms by kernel beside it.
 4a. train-kernels -- the training kernels against their plain versions:
               the flash backward (``csrc/flash_attention_bwd.cu``; bf16 on
-              wgmma) at llama3-8b's shapes (B = 4, S = 2048, 32/8 x 128,
+              wgmma, fp32 on 3xTF32 ``mma.sync``, its own row
+              ``flash_attention_bwd_fp32`` against its 3xTF32 bound with
+              the CUDA cores' beside it) at llama3-8b's shapes (B = 4, S = 2048, 32/8 x 128,
               causal) in bf16 and fp32, then at D = 64, bidirectional, a
               window of 4096 with softcap 50 (S = 6144) and a ragged S, and
               at every head-dim pair the families train at, bf16 and fp32:
@@ -59,9 +61,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               fp32 AdamW state (every loss finite, the flash backward once
               per attention layer and step); then ``launch/train.py``'s
               default reduced llama (head dim 16, fp32) for 20 steps on
-              the card (the backward launched, the loss down).  Each fp32
-              card-against-CPU check is profiled: its forward must run
-              ``flash_tf32_kernel``.
+              the card (the fp32 backward launched, the loss down).  Each
+              fp32 card-against-CPU check is profiled: its forward must run
+              ``flash_tf32_kernel`` and its backward ``dkdv_tf32_kernel``
+              and ``dq_tf32_kernel``.
 5a. family-kernels -- the attention kernels at the shapes of gemma2-2b
               (8/4 heads x 256, window 4096, softcap 50: paged and dense
               decode at kv_len 4100-6200, a prefill chunk at q_offset
@@ -779,6 +782,7 @@ REDESIGNED = ("flash_wgmma_kernel<128,", "flash_wgmma_kernel<192,",
               "rmsnorm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, 8, 2, false>",
               "rmsnorm_bwd_kernel<float, float, 8, 2, false>",
               "dkdv_wgmma_kernel<", "dq_wgmma_kernel<",
+              "dkdv_tf32_kernel<", "dq_tf32_kernel<",
               "merge_kernel",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 4, 4>",
               "decode_kernel<__nv_bfloat16, __nv_bfloat16, 8, 4>",
@@ -1593,7 +1597,8 @@ def phase_train_kernels(torch, timer, smi):
     from repro_torch.kernels import rmsnorm as rn
     sdpa = F.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(25)
-    rows, shapes = {}, {"flash_attention_bwd": [], "rmsnorm_bwd": []}
+    rows, shapes = {}, {"flash_attention_bwd": [],
+                        "flash_attention_bwd_fp32": [], "rmsnorm_bwd": []}
 
     def report(name, case, err, ms, plain_ms, lib_ms, bound):
         b_ms, b_by = bound
@@ -1649,7 +1654,8 @@ def phase_train_kernels(torch, timer, smi):
                 lib_ms = timer(lambda: torch.autograd.grad(
                     o_l, (qt, kt, vt), g_l, retain_graph=True))
                 del o_l, qt, kt, vt
-            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+            # fp32: 3xTF32's bound, the CUDA cores' beside it
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32_ATTN
             # q, k, v, o, dO and lse read once; dq, dk, dv written once
             nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
                       * q.element_size() + lse.numel() * 4)
@@ -1659,17 +1665,26 @@ def phase_train_kernels(torch, timer, smi):
             case = f"{name} ({b}, {sq}) {h}/{kvh} x {d}" + (
                 f"/{dv}" if dv != d else "") + f" {dname}"
             split = _by_kernel(timer.split)
+            kname = ("flash_attention_bwd" if dt == torch.bfloat16
+                     else "flash_attention_bwd_fp32")
             # one call a trace: the plain version's thousands of small
             # kernels make a trace of three take seconds to stop
-            r = report("flash_attention_bwd", case, err, ms,
-                       timer(plain, iters=1),
+            r = report(kname, case, err, ms, timer(plain, iters=1),
                        lib_ms, bound_ms(nbytes, ops5, peak))
             r["bound_7_products_ms"] = bound_ms(nbytes, ops7, peak)[0]
-            log(f"[train-kernel] flash_attention_bwd {case}: two calls "
-                f"bit-equal; {ops7 / ms / 1e9:.1f} TFLOP/s of the 7 products "
-                f"it runs; device ms a call by kernel {json.dumps(split)}")
+            r["ms_by_kernel"] = split
+            extra = ""
+            if dt == torch.float32:
+                r["bound_cuda_cores_ms"] = bound_ms(nbytes, ops5,
+                                                    PEAK_FP32)[0]
+                extra = (f"; CUDA-core bound {r['bound_cuda_cores_ms']:.4f} "
+                         f"ms -> {r['bound_cuda_cores_ms'] / ms:.1%} of it")
+            log(f"[train-kernel] {kname} {case}: two calls bit-equal; "
+                f"{ops7 / ms / 1e9:.1f} TFLOP/s of the 7 products it runs"
+                f"{extra}; device ms a call by kernel {json.dumps(split)}")
+            if name == "llama3-8b":
+                rows[kname] = r
             if name == "llama3-8b" and dname == "bf16":
-                rows["flash_attention_bwd"] = r
                 # the forward's cost of its log-sum-exp
                 with_lse = timer(lambda: fa.flash_attention_cuda(
                     q, k, v, return_lse=True, **kw))
@@ -1746,10 +1761,18 @@ def _grad_tree(torch, model, params, batch):
     return float(loss), grads
 
 
+# the fp32 flash backward's kernels, by name (the fp32 training path must
+# run them)
+FP32_BWD_KERNELS = ("dkdv_tf32_kernel", "dq_tf32_kernel")
+
+
 def _grads_card_vs_cpu(torch, cfg1, tag):
     """One fp32 config at batch 1 x ``TRAIN_CHECK_SEQ``: the card (kernels)
     against the CPU (plain versions), the loss and every gradient leaf
-    within ``TRAIN_GRAD_TOL`` of the leaf's largest |gradient|."""
+    within ``TRAIN_GRAD_TOL`` of the leaf's largest |gradient|; the card's
+    pass is profiled and must run the fp32 flash forward and backward
+    kernels.  Returns the card pass's launch counts."""
+    from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     from repro_torch.training.optimizer import tree_leaves
     cpu = Model(cfg1, device="cpu", remat=True)
@@ -1766,15 +1789,21 @@ def _grads_card_vs_cpu(torch, cfg1, tag):
     loss_cpu, g_cpu = _grad_tree(torch, cpu, p_cpu, batch)
     t_cpu = time.perf_counter() - t0
     from torch.profiler import ProfilerActivity, profile
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         loss_gpu, g_gpu = _grad_tree(torch, gpu, p_gpu,
                                      {k: v.cuda() for k, v in batch.items()})
         torch.cuda.synchronize()
-    # the fp32 training forward runs the fp32 flash kernel, by name (the
-    # trace may lose its first and last records, never the middle's)
-    if not any("flash_tf32_kernel" in n for n, _, _ in
-               _kernel_records(prof, torch)):
-        fail(f"{tag}: the fp32 forward launched no flash_tf32_kernel")
+    counts = ops.launch_counts()
+    # the fp32 training forward and backward run the fp32 flash kernels,
+    # by name (the trace may lose its first and last records, never the
+    # middle's)
+    names = {n for n, _, _ in _kernel_records(prof, torch)}
+    for kern in ("flash_tf32_kernel",) + FP32_BWD_KERNELS:
+        if not any(kern in n for n in names):
+            fail(f"{tag}: the fp32 training pass launched no {kern}")
+    if counts["flash_attention_bwd_fp32"] == 0 or counts["flash_attention_bwd"]:
+        fail(f"{tag}: the fp32 flash backward's launches {counts}")
     if abs(loss_gpu - loss_cpu) > 1e-4 * abs(loss_cpu):
         fail(f"{tag}: card loss {loss_gpu} vs CPU {loss_cpu}")
     worst = 0.0
@@ -1791,10 +1820,12 @@ def _grads_card_vs_cpu(torch, cfg1, tag):
         f"batch 1 x {TRAIN_CHECK_SEQ}: card loss {loss_gpu:.6f} vs CPU "
         f"{loss_cpu:.6f}; {len(list(tree_leaves(g_cpu)))} gradient leaves, "
         f"worst {worst:.2e} of the leaf's largest |g| (tol "
-        f"{TRAIN_GRAD_TOL}); CPU took {t_cpu:.1f} s; the forward's "
-        "attention ran flash_tf32_kernel (profiled)")
+        f"{TRAIN_GRAD_TOL}); CPU took {t_cpu:.1f} s; the attention ran "
+        f"flash_tf32_kernel, {' and '.join(FP32_BWD_KERNELS)} (profiled), "
+        f"the fp32 backward {counts['flash_attention_bwd_fp32']} time(s)")
     del cpu, p_cpu, g_cpu, gpu, p_gpu, g_gpu
     _free(torch)
+    return counts
 
 
 def phase_train(torch, smi):
@@ -1949,8 +1980,9 @@ def phase_train_families(torch, smi):
     ``TRAIN_FAMILY_STEPS`` steps at batch 1: every loss finite, the flash
     backward launched once per attention layer and step.  Then
     ``launch/train.py``'s default reduced llama (D = 16, fp32) for
-    ``LAUNCHER_STEPS`` steps: the backward launched, the loss down.
-    Returns the launch counts of the steps and of the launcher's run."""
+    ``LAUNCHER_STEPS`` steps: the fp32 backward launched at least once a
+    step, the loss down.  Returns the launch counts of the fp32 checks, of
+    the steps and of the launcher's run."""
     import dataclasses
     import math
     from repro_torch.configs import get_config
@@ -1962,7 +1994,7 @@ def phase_train_families(torch, smi):
     runs = []
     for arch, layers, seq in TRAIN_FAMILIES:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-        _grads_card_vs_cpu(torch, cfg, "[train-families] (a)")
+        runs.append(_grads_card_vs_cpu(torch, cfg, "[train-families] (a)"))
         model = Model(cfg, device="cuda", remat=True)
         state = TrainState.create(model, seed=7, dtype=torch.bfloat16)
         step = make_train_step(model, AdamWConfig(
@@ -2009,9 +2041,9 @@ def phase_train_families(torch, smi):
     losses = launcher.main(["--steps", str(LAUNCHER_STEPS), "--log-every",
                             "5"])
     counts = ops.launch_counts()
-    if counts["flash_attention_bwd"] == 0:
-        fail(f"train-families launcher: the flash backward never launched "
-             f"({counts})")
+    if counts["flash_attention_bwd_fp32"] < LAUNCHER_STEPS:
+        fail(f"train-families launcher: the fp32 flash backward launched "
+             f"fewer times than the {LAUNCHER_STEPS} steps ({counts})")
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         fail(f"train-families launcher: the loss did not fall ({losses})")
     log(f"[train-families] launch/train.py, reduced llama3-8b (head dim 16, "
@@ -5755,7 +5787,7 @@ def phase_serve_sharded(torch, cfg, params, store, queries, exact, smi: str,
 CATEGORIES = (
     # training's backward kernels, before the forward's names
     ("flash attention backward", ("dkdv_wgmma_kernel", "dq_wgmma_kernel",
-                                  "dkdv_simt_kernel", "dq_simt_kernel",
+                                  "dkdv_tf32_kernel", "dq_tf32_kernel",
                                   "delta_kernel")),
     ("rmsnorm backward", ("rmsnorm_bwd_kernel", "rmsnorm_dw_kernel")),
     # the split kernels and their merge passes (*_decode_combine_kernel)
@@ -5849,6 +5881,11 @@ SOURCES = {
     "flash_attention_bwd": ("cuda",
                             "src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_vjp.py:127"),
+    # the same gradient in fp32: kernels of their own (3xTF32), counted
+    # apart from the bf16 ones
+    "flash_attention_bwd_fp32": ("cuda",
+                                 "src/repro_torch/csrc/flash_attention_bwd.cu",
+                                 "src/repro/kernels/flash_vjp.py:127"),
     "rmsnorm_bwd": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:22"),
 }
@@ -5890,8 +5927,8 @@ def main() -> int:
         del timer
         train_rows = timed("train-kernels", phase_train_kernels, torch,
                            Timer(torch, iters=3), smi)
-        rows.update((k, train_rows[k]) for k in ("flash_attention_bwd",
-                                                 "rmsnorm_bwd"))
+        rows.update((k, train_rows[k]) for k in (
+            "flash_attention_bwd", "flash_attention_bwd_fp32", "rmsnorm_bwd"))
         timed("model", phase_model, torch)
         train = timed("train", phase_train, torch, smi)
         train_families = timed("train-families", phase_train_families, torch,

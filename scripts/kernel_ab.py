@@ -1,22 +1,26 @@
 """Device time of the port's flash kernels at the families' prefill
-shapes, bf16 and fp32, and of the RMSNorm backward at the train shape,
-for one or more checkouts side by side on one card.
+shapes, bf16 and fp32, of the fp32 flash backward at ``chip_smoke.py``'s
+``BWD_CASES`` and of the RMSNorm backward at the train shape, for one or
+more checkouts side by side on one card.
 
-    python3 scripts/kernel_ab.py PARENT . . PARENT
+    python3 scripts/kernel_ab.py [-k TEXT] PARENT . . PARENT
 
-Each argument is the root of a checkout (its ``src/repro_torch``); each is
+``-k TEXT`` times only the cases whose name holds TEXT.  Each other
+argument is the root of a checkout (its ``src/repro_torch``); each is
 run in a process of its own, in the order given, and prints one JSON line
 ``{"root": ..., "ms": {case: device ms}, "by_kernel": {case: {kernel:
 ms}}, "sdpa_ms": {case: ms}, "sm_mhz": {case: SM clock}}``, a case the
 checkout cannot take as null, SDPA's time on each flash case's inputs
-(``chip_smoke.sdpa_ms``; the first process only: it does not depend on
-the checkout); the SM clock is ``nvidia-smi``'s, read right after the
-case's timing.  Run parent, change, change, parent to see drift.  The
-cases are the shapes ``chip_smoke.py`` of this checkout times, from its
-constants and the configs; the timer is its ``Timer`` (10 calls, the
-profiler's device records, which also give each case's ms by kernel);
-the inputs are seeded, the same in every process.  Only the flash and
-RMSNorm libraries are built.  Needs a card.
+(``chip_smoke.sdpa_ms``; for a backward case SDPA's fp32 backward through
+autograd, where there is no softcap and no window; the first process
+only: it does not depend on the checkout); the SM clock is
+``nvidia-smi``'s, read right after the case's timing.  Run parent,
+change, change, parent to see drift.  The cases are the shapes
+``chip_smoke.py`` of this checkout times, from its constants and the
+configs; the timer is its ``Timer`` (10 calls, the profiler's device
+records, which also give each case's ms by kernel); the inputs are
+seeded, the same in every process.  Only the flash (forward and
+backward) and RMSNorm libraries are built.  Needs a card.
 """
 from __future__ import annotations
 
@@ -95,23 +99,26 @@ def sm_clock() -> str:
         capture_output=True, text=True).stdout.strip()
 
 
-def one(root: Path, with_sdpa: bool) -> tuple:
-    """Times every case on the checkout at ``root``: (ms, ms by kernel,
-    SM clocks, SDPA's ms where asked)."""
+def one(root: Path, with_sdpa: bool, only: str = "") -> tuple:
+    """Times every case (whose name holds ``only``) on the checkout at
+    ``root``: (ms, ms by kernel, SM clocks, SDPA's ms where asked)."""
     sys.path.insert(0, str(root / "src"))
     import torch
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     sys.path.insert(1, str(HERE))
     import chip_smoke as cs
     if not Path(ops.__file__).resolve().is_relative_to(root):
         raise SystemExit(f"imported {ops.__file__}, not {root}'s")
-    _build.build = functools.partial(_build.build,
-                                     ("flash_attention", "rmsnorm"))
+    _build.build = functools.partial(
+        _build.build, ("flash_attention", "flash_attention_bwd", "rmsnorm"))
     timer = cs.Timer(torch, iters=10)
     out, split, clocks, sdpa = {}, {}, {}, {}
     for i, (case, (dt, arch, b, sq, sk, off, kw)) in enumerate(
             flash_cases(cs).items()):
+        if only not in case:
+            continue
         h, kvh, d, dv = head_dims(arch)
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         gen = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -137,6 +144,32 @@ def one(root: Path, with_sdpa: bool) -> tuple:
                 torch, timer, q, k, v, causal=kwf["causal"], q_offset=off,
                 kv_len=kwf.get("kv_len"), window=kwf.get("window"))
         del q, k, v
+    for i, (name, b, sq, h, kvh, d, dv, causal, window, cap,
+            dts) in enumerate(cs.BWD_CASES):
+        case = f"flash_attention_bwd {name} ({b}, {sq}) fp32"
+        if "fp32" not in dts or only not in case:
+            continue
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        q, k, v, dout = (torch.randn(s, generator=gen, device="cuda")
+                         for s in ((b, sq, h, d), (b, sq, kvh, d),
+                                   (b, sq, kvh, dv), (b, sq, h, dv)))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        out[case] = timer(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, dout, lse, **kw))
+        split[case] = cs._by_kernel(timer.split)
+        clocks[case] = sm_clock()
+        if with_sdpa and window is None and cap is None:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            o_l = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            g_l = dout.transpose(1, 2)
+            sdpa[case] = timer(lambda: torch.autograd.grad(
+                o_l, (qt, kt, vt), g_l, retain_graph=True))
+            del o_l, qt, kt, vt
+        del q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
     rows, width = cs.RMS_BWD_SHAPE
     for form, dt in RMS_BWD_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
@@ -147,6 +180,8 @@ def one(root: Path, with_sdpa: bool) -> tuple:
                                    device="cuda")).to(dtype)
         ds = ds if form == "add_rmsnorm" else None
         case = f"rmsnorm_bwd {form} ({rows}, {width}) {dt}"
+        if only not in case:
+            continue
         out[case] = timer(lambda: rn.rmsnorm_bwd_cuda(s, dy, w, 1e-5, ds=ds))
         split[case] = cs._by_kernel(timer.split)
         clocks[case] = sm_clock()
@@ -155,16 +190,19 @@ def one(root: Path, with_sdpa: bool) -> tuple:
 
 
 def main(argv) -> int:
+    only = ""
+    if len(argv) >= 2 and argv[0] == "-k":
+        only, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] in ("--one", "--one-sdpa"):
         root = Path(argv[1]).resolve()
-        ms, split, clocks, sdpa = one(root, argv[0] == "--one-sdpa")
+        ms, split, clocks, sdpa = one(root, argv[0] == "--one-sdpa", only)
         print(json.dumps({"root": str(root), "ms": ms, "by_kernel": split,
                           "sdpa_ms": sdpa, "sm_mhz": clocks}), flush=True)
         return 0
     if not argv:
         raise SystemExit(__doc__)
     for i, root in enumerate(argv):
-        subprocess.run([sys.executable, __file__,
+        subprocess.run([sys.executable, __file__, "-k", only,
                         "--one-sdpa" if i == 0 else "--one", root], check=True)
     return 0
 

@@ -60,11 +60,49 @@
 // The score is scaled in fp32 after the product, as the bf16 forward does,
 // and P and dS enter their products rounded to bf16; every sum is fp32.
 //
-// fp32: the CUDA cores in fp32, the exact anchor the CPU is held to (TF32
-// would not keep 1e-4): the same three launches with tiles of 32 q rows x
-// 64 keys staged in shared memory; a warp owns 8 keys (dK/dV) or 4 rows
-// (dQ), a lane the columns lane, lane + 32, ... below D (lanes past D = 16
-// idle).
+// fp32: exact to fp32 in the JAX order (q * scale in fp32 before its
+// products, the softcap, its chain 1 - (sc/cap)^2, the mask, dq = (dS K) *
+// scale, dk = dS^T (q * scale)), on the tensor cores.  One TF32 product
+// moves a gradient by 3-9e-4 of its largest value, past the 1e-4 the fp32
+// backward is held to, so each product is three mma.sync m16n8k8 of
+// operands split into two TF32 halves (3xTF32, tf32.cuh): about 1e-6.  The
+// bound is then operations at 3xTF32's rate, a third of the TF32 peak
+// (494.7 / 3 = 164.9 TFLOP/s against 67 on the CUDA cores).  The design:
+//   * Fragments: mma.sync's A and B load from shared memory lane by lane,
+//     so one tile serves along its rows (A, and B of S = Q K^T) and down
+//     its columns (B of P^T dO, dS^T Q, dS K) with no transpose (wgmma
+//     takes TF32 operands only K-major); rows padded to width + 8 floats.
+//     The k index of each product is permuted (tf32.cuh), so the C
+//     fragment of S^T or dP^T (S, dP in dQ) is, as it stands, the A
+//     fragment of the next product: P and dS stay in registers.
+//   * dK/dV block (f32_kv_role): 8 warps, 64 keys; warps 0-3 (role 0) run
+//     S^T, P^T and dV, warps 4-7 (role 1) dP^T, dS^T and dK, each warp on
+//     16 keys, so no warp holds both dK and dV (128 registers each at D =
+//     256).  P^T times the softcap's chain passes from role 0's warp w to
+//     role 1's through a shared tile, one float a register, and a 64-
+//     thread named barrier.  The q tiles (Q, dO, lse, delta) stream through
+//     a 2-stage cp.async ring, the next tile's copies under this one's
+//     products; q * scale and lse in log2 units once per tile, in place.
+//   * dQ block: 64 or 128 q rows, Q (times scale) and dO staged once, the
+//     key tiles (K, V) through a 2-stage cp.async ring; a warp a 16 rows,
+//     or at (192, 128) and (256, 256) two (f32_q_half: one S and P, one
+//     dP and dS, through a shared tile; dQ's columns split between them),
+//     so that 8 warps share an SM where 4 of 255 registers would.
+//   * Tiles per pair (F32Bwd): the widths set the shared bytes, so the q
+//     tile of dK/dV is 64 rows at D <= 128, 32 at (192, 128) and (64, 64)
+//     (two blocks an SM), 16 at D = 256; the dQ key tile 64, 32, 16.
+//   * Both grids run the heaviest blocks first under the causal mask
+//     (dK/dV: the first key blocks; dQ: the last q tiles), across heads and
+//     batches; a warp whose keys (rows) the mask drops for a whole tile
+//     skips its products.
+//   * Sums: mma.sync adds into its accumulator with truncation, so dK
+//     carried in it through every q row of G heads (32768 at G = 8, S =
+//     4096) was off by 1.9e-3 where the largest |dk| is 7.7 on an H100
+//     (the SIMT kernel: 9.9e-5 at most); each step's dV, dK or dQ product
+//     is taken in a fresh accumulator and added in fp32, round to nearest
+//     (f32_add_step): 3.5e-5 at most.
+// No atomics: every gradient element is one warp's fp32 sum over q tiles
+// (heads, in order) or key tiles, in a fixed order.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -73,12 +111,12 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -116,10 +154,10 @@ __device__ __forceinline__ bool keep(const Args& a, int q_pos, int k_pos, int le
   return ok;
 }
 
-// p = exp(sc - lse) of one raw score (0 where the mask drops the key),
-// lse2 in log2 units; *f takes the softcap's chain factor 1 - (sc/cap)^2.
-__device__ __forceinline__ float prob(const Args& a, float s, float lse2, bool ok, float* f) {
-  float x = s * a.scale;
+// p = exp(sc - lse) of one scaled score x (0 where the mask drops the
+// key), lse2 in log2 units; *f takes the softcap's chain factor 1 -
+// (sc/cap)^2.
+__device__ __forceinline__ float prob(const Args& a, float x, float lse2, bool ok, float* f) {
   *f = 1.f;
   if (a.softcap > 0.f) {
     x = a.softcap * tanhf(x / a.softcap);
@@ -410,7 +448,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             const int col = 8 * j + 2 * t + (e & 1);
             const bool ok = !masked || keep(a, qp + col, e < 2 ? kp0 : kp1, w.len);
             float f;
-            const float p = prob(a, sc[4 * j + e], ls[col], ok, &f);
+            const float p = prob(a, sc[4 * j + e] * a.scale, ls[col], ok, &f);
             sc[4 * j + e] = p;
             xb[(4 * j + e) * 128 + tid] = p * f;
           }
@@ -617,7 +655,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           const int kp = k0 + 8 * j + 2 * t + (e & 1);
           const bool ok = !masked || keep(a, a.q_off + (e < 2 ? r0 : r1), kp, len);
           float f;
-          const float p = prob(a, sc[4 * j + e], e < 2 ? l0 : l1, ok, &f);
+          const float p = prob(a, sc[4 * j + e] * a.scale, e < 2 ? l0 : l1, ok, &f);
           sc[4 * j + e] = p * f * (dp[4 * j + e] - (e < 2 ? d0 : d1));
         }
       }
@@ -659,247 +697,553 @@ cudaError_t run_bf16(const Args& a, cudaStream_t s) {
                 T::kQSmem, s, qm, km, vm, gm, a);
 }
 
-// ============================================================= fp32: SIMT
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsQ = 32;              // q rows a tile
-constexpr int kKeys = 64;               // keys a tile
-
-// `rows` rows of one head of a (B, S, heads, W) tensor into shared memory
-// with row stride LD, times `mul`; rows past S read as zeros.  K and V
-// rows take LD = W + 1: lane j reads row j.  Q, do, P and dS rows are read
-// by a whole warp at once or along the row: LD = their width.
-template <int W, int LD>
-__device__ __forceinline__ void stage(float* dst, const float* src, int b, int row0, int rows,
-                                      int S, int heads, int h, float mul) {
-  for (int i = threadIdx.x; i < rows * W; i += kThreads) {
-    const int r = i / W, d = i % W, t = row0 + r;
-    float x = 0.f;
-    if (t < S) x = src[((static_cast<size_t>(b) * S + t) * heads + h) * W + d] * mul;
-    dst[r * LD + d] = x;
-  }
-}
-
-// Scores, probabilities and score gradients of one (q tile, k tile) pair
-// into shared memory: P[i][j] and dS[i][j] (row stride kKeys), from
-// qs (pre-scaled), gs (do), ks, vs staged above.  Thread t takes key
-// j = t % 64 for rows i = t / 64 + 4 r.
-template <int D, int DV>
-__device__ __forceinline__ void scores(const Args& a, const float* qs, const float* gs,
-                                       const float* ks, const float* vs, const float* lse_s,
-                                       const float* del_s, float* ps, float* dss, int q0,
-                                       int k0, int len) {
-  const int j = threadIdx.x % kKeys, i0 = threadIdx.x / kKeys;
-  constexpr int kGroups = kThreads / kKeys;          // 4
-  constexpr int kPer = kRowsQ / kGroups;             // 8 rows a thread
-  float s[kPer], dp[kPer];
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) s[r] = dp[r] = 0.f;
-  const float* kr = ks + j * (D + 1);
-  const float* vr = vs + j * (DV + 1);
-  for (int d = 0; d < D; ++d) {
-    const float kx = kr[d];
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) s[r] = fmaf(qs[(i0 + kGroups * r) * D + d], kx, s[r]);
-  }
-  for (int d = 0; d < DV; ++d) {
-    const float vx = vr[d];
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) dp[r] = fmaf(gs[(i0 + kGroups * r) * DV + d], vx, dp[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int i = i0 + kGroups * r;
-    float sc = s[r];
-    if (a.softcap > 0.f) sc = a.softcap * tanhf(sc / a.softcap);
-    const bool ok = keep(a, a.q_off + q0 + i, k0 + j, len);
-    const float p = expf((ok ? sc : kNegInf) - lse_s[i]);
-    float ds = p * (dp[r] - del_s[i]);
-    if (a.softcap > 0.f) ds *= 1.f - (sc / a.softcap) * (sc / a.softcap);
-    ps[i * kKeys + j] = ok ? p : 0.f;
-    dss[i * kKeys + j] = ok ? ds : 0.f;
-  }
-}
+// ============================================================= fp32: 3xTF32
+// Every product as three mma.sync m16n8k8 of split operands (tf32.cuh),
+// accumulating in fp32; operand tiles in shared memory at tf32::pad rows.
+// Tiles of a (D, DV) pair:
+//   dK/dV: 64 keys a block (K and V staged once), q tiles of kBq rows
+//   streamed through a ring of 2 stages (Q, dO, lse, delta by cp.async);
+//   dQ: kRows q rows a block (Q and dO staged once), key tiles of kBk
+//   keys streamed through a ring of 2 stages (K, V by cp.async).
+// The q tile and key tile shrink as the rows widen, so that a block's
+// tiles fit the 227 KB of shared memory a block has: at D = 256 a
+// dK/dV block's K and V alone take 132 KB.
+constexpr int kF32Keys = 64;                 // keys a dK/dV block
+constexpr int kF32KvThreads = 256;           // two roles of 4 warps
+constexpr int kF32Stages = 2;                // cp.async ring
 
 template <int D, int DV>
-constexpr size_t simt_smem() {
-  // q and do tiles, k and v tiles, P and dS, lse and delta: 213.75 KB at
-  // D = DV = 256, one block an SM
-  return sizeof(float) * (kRowsQ * D + kRowsQ * DV + kKeys * (D + 1) + kKeys * (DV + 1)
-                          + 2 * kRowsQ * kKeys + 2 * kRowsQ);
-}
+struct F32Bwd {
+  static constexpr int kLk = tf32::pad(D), kLv = tf32::pad(DV);   // row strides
+  // dK/dV: q rows a step; 2 blocks an SM at (64, 64), else 1
+  static constexpr int kBq = D + DV >= 512 ? 16 : (D + DV >= 320 || D + DV == 128) ? 32 : 64;
+  static constexpr int kKvBlocks = D + DV <= 128 ? 2 : 1;
+  // a stage: Q, dO, lse, delta (floats)
+  static constexpr int kStage = kBq * (kLk + kLv) + 2 * kBq;
+  static constexpr int oK = 0, oV = kF32Keys * kLk, oS = oV + kF32Keys * kLv;
+  static constexpr int oX = oS + kF32Stages * kStage;     // the exchange tile
+  static constexpr size_t kKvSmem = sizeof(float) * (oX + kF32Keys * kBq);
+  // dQ: q rows a block, keys a tile; from D + DV = 320 on, two warps of
+  // 16 rows each (kPairQ: one S, one dP, dQ's columns split), else one
+  static constexpr int kRows = D + DV == 256 ? 128 : 64;
+  static constexpr int kBk = D + DV <= 128 ? 64 : D + DV <= 320 ? 32 : 16;
+  static constexpr bool kPairQ = D + DV >= 320;
+  static constexpr int kQThreads = (kPairQ ? 4 : 2) * kRows;
+  static constexpr int oQ = 0, oG = kRows * kLk, oR = oG + kRows * kLv;
+  static constexpr int kTile = kBk * (kLk + kLv);           // a stage: K, V
+  static constexpr int oXq = oR + kF32Stages * kTile;       // the pairs' exchange
+  static constexpr size_t kQSmem = sizeof(float) * (oXq + (kPairQ ? kRows * kBk : 0));
+  static_assert(kKvSmem <= kSmemMax && kQSmem <= kSmemMax, "shared memory");
+};
 
-// the stage of q rows [q0, q0 + 32) of head h: q (pre-scaled), do, lse, delta
-template <int D, int DV>
-__device__ __forceinline__ void stage_rows(const Args& a, float* qs, float* gs, float* lse_s,
-                                           float* del_s, int b, int h, int q0) {
-  stage<D, D>(qs, static_cast<const float*>(a.q), b, q0, kRowsQ, a.Sq, a.H, h, a.scale);
-  stage<DV, DV>(gs, static_cast<const float*>(a.dout), b, q0, kRowsQ, a.Sq, a.H, h, 1.f);
-  if (threadIdx.x < kRowsQ) {
-    const int i = q0 + threadIdx.x;
-    const size_t at = (static_cast<size_t>(b) * a.H + h) * a.Sq + i;
-    // a row past Sq: p = exp(-1e30 - 1e30) = 0 and its q and do are 0
-    lse_s[threadIdx.x] = i < a.Sq ? a.lse[at] : 1e30f;
-    del_s[threadIdx.x] = i < a.Sq ? a.delta[at] : 0.f;
-  }
-}
-
-// columns a lane owns of a width-W row: lane + 32 e, for e < cols(W)
-__host__ __device__ constexpr int cols(int w) { return (w + 31) / 32; }
-
-// ------------------------------------------------------------- 2. dk, dv
-template <int D, int DV>
-__global__ void __launch_bounds__(kThreads) dkdv_simt_kernel(Args a) {
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* gs = qs + kRowsQ * D;
-  float* ks = gs + kRowsQ * DV;
-  float* vs = ks + kKeys * (D + 1);
-  float* ps = vs + kKeys * (DV + 1);
-  float* dss = ps + kRowsQ * kKeys;
-  float* lse_s = dss + kRowsQ * kKeys;
-  float* del_s = lse_s + kRowsQ;
-  const int k0 = blockIdx.x * kKeys, kh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.KV;
-  const int len = valid_len(a, b);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kKeysPerWarp = kKeys / kWarps;       // 8
-  constexpr int kCK = cols(D), kCV = cols(DV);
-  float dk[kKeysPerWarp][kCK], dv[kKeysPerWarp][kCV];
-#pragma unroll
-  for (int jj = 0; jj < kKeysPerWarp; ++jj) {
-#pragma unroll
-    for (int e = 0; e < kCK; ++e) dk[jj][e] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kCV; ++e) dv[jj][e] = 0.f;
-  }
-
-  // the q rows whose mask can keep a key of this tile: [lo, hi)
+// The q tiles of a dK/dV block (blocks in descending causal cost: the
+// first key blocks see the most rows): step i is q head kh * G + i / nq,
+// rows lo + (i % nq) * BQ; n = G * nq steps (0 when no key is kept).
+template <int BQ>
+__device__ __forceinline__ KvWork f32_kv_work(const Args& a) {
+  KvWork w;
+  int i = blockIdx.x;
+  w.k0 = (i / (a.KV * a.B)) * kF32Keys;
+  i %= a.KV * a.B;
+  w.kh = i % a.KV;
+  w.b = i / a.KV;
+  w.G = a.H / a.KV;
+  w.len = valid_len(a, w.b);
   int lo = 0, hi = a.Sq;
-  if (a.causal) lo = max(lo, k0 - a.q_off);
-  if (a.window > 0) hi = min(hi, k0 + kKeys - 1 + a.window - a.q_off);
-  lo = (lo / kRowsQ) * kRowsQ;
-  if (k0 < len && lo < hi) {
-    stage<D, D + 1>(ks, static_cast<const float*>(a.k), b, k0, kKeys, a.Sk, a.KV, kh, 1.f);
-    stage<DV, DV + 1>(vs, static_cast<const float*>(a.v), b, k0, kKeys, a.Sk, a.KV, kh, 1.f);
-    for (int h = kh * G; h < (kh + 1) * G; ++h) {
-      for (int q0 = lo; q0 < hi; q0 += kRowsQ) {
-        __syncthreads();                 // the last pair's tiles are read
-        stage_rows<D, DV>(a, qs, gs, lse_s, del_s, b, h, q0);
-        __syncthreads();
-        scores<D, DV>(a, qs, gs, ks, vs, lse_s, del_s, ps, dss, q0, k0, len);
-        __syncthreads();
-        for (int i = 0; i < kRowsQ; ++i) {
-          float gx[kCV], qx[kCK];
-#pragma unroll
-          for (int e = 0; e < kCV; ++e)
-            gx[e] = e * 32 + lane < DV ? gs[i * DV + e * 32 + lane] : 0.f;
-#pragma unroll
-          for (int e = 0; e < kCK; ++e)
-            qx[e] = e * 32 + lane < D ? qs[i * D + e * 32 + lane] : 0.f;
-#pragma unroll
-          for (int jj = 0; jj < kKeysPerWarp; ++jj) {
-            const int j = warp * kKeysPerWarp + jj;
-            const float p = ps[i * kKeys + j], ds = dss[i * kKeys + j];
-#pragma unroll
-            for (int e = 0; e < kCV; ++e) dv[jj][e] = fmaf(p, gx[e], dv[jj][e]);
-#pragma unroll
-            for (int e = 0; e < kCK; ++e) dk[jj][e] = fmaf(ds, qx[e], dk[jj][e]);
-          }
-        }
-      }
+  if (a.causal) lo = max(lo, w.k0 - a.q_off);
+  if (a.window > 0) hi = min(hi, w.k0 + kF32Keys - 1 + a.window - a.q_off);
+  w.lo = (lo / BQ) * BQ;
+  w.nq = (w.k0 < w.len && lo < hi) ? (hi - w.lo + BQ - 1) / BQ : 0;
+  w.n = w.G * w.nq;
+  return w;
+}
+
+// Rows [row0, row0 + n) of head h, batch b of a (B, S, heads, W) fp32
+// tensor into shared rows of stride ld, by 16-byte cp.async: thread tid
+// copies chunks tid, tid + nthreads, ... (4 floats each, row-major over
+// the rows); rows past S arrive as zeros.
+template <int W>
+__device__ __forceinline__ void f32_stage(float* dst, int ld, const float* src, int b, int row0,
+                                          int n, int S, int heads, int h, int nthreads) {
+  for (int c = threadIdx.x; c < n * (W / 4); c += nthreads) {
+    const int r = c / (W / 4), x = c % (W / 4), row = row0 + r;
+    const size_t at = (static_cast<size_t>(b) * S + min(row, S - 1)) * heads + h;
+    tf32::cp_async16(hopper::smem_u32(dst + r * ld + 4 * x), src + at * W + 4 * x,
+                     row < S ? 16 : 0);
+  }
+}
+
+// Copies of step i (if any) into its ring slot, then a commit: q rows
+// past Sq arrive as zeros (their lse and delta too).
+template <int D, int DV>
+__device__ __forceinline__ void f32_kv_issue(const Args& a, const KvWork& w, float* sm, int i) {
+  using T = F32Bwd<D, DV>;
+  constexpr int BQ = T::kBq;
+  if (i < w.n) {
+    const int h = w.kh * w.G + i / w.nq, q0 = w.lo + (i % w.nq) * BQ;
+    float* sq = sm + T::oS + (i % kF32Stages) * T::kStage;
+    float* sg = sq + BQ * T::kLk;
+    float* sl = sg + BQ * T::kLv;
+    f32_stage<D>(sq, T::kLk, static_cast<const float*>(a.q), w.b, q0, BQ, a.Sq, a.H, h,
+                 kF32KvThreads);
+    f32_stage<DV>(sg, T::kLv, static_cast<const float*>(a.dout), w.b, q0, BQ, a.Sq, a.H, h,
+                  kF32KvThreads);
+    for (int c = threadIdx.x; c < 2 * BQ; c += kF32KvThreads) {
+      const int r = c % BQ, row = q0 + r;
+      const size_t at = (static_cast<size_t>(w.b) * a.H + h) * a.Sq + min(row, a.Sq - 1);
+      tf32::cp_async4(hopper::smem_u32(sl + c), (c < BQ ? a.lse : a.delta) + at,
+                      row < a.Sq ? 4 : 0);
     }
   }
-  float* dko = static_cast<float*>(a.dk);
-  float* dvo = static_cast<float*>(a.dv);
+  tf32::cp_async_commit();
+}
+
+// S = A B^T over a step, big and small terms apart (tf32::mma3): 16 rows
+// of A (`arow` at row g, column 2t; stride la) against 8 NK rows of B
+// (`brow` likewise, stride lb), KS columns; the k-steps unrolled by U.
+template <int KS, int NK, int U>
+__device__ __forceinline__ void f32_scores(float (*s)[4], float (*sl)[4], const float* arow,
+                                           int la, const float* brow, int lb) {
 #pragma unroll
-  for (int jj = 0; jj < kKeysPerWarp; ++jj) {
-    const int t = k0 + warp * kKeysPerWarp + jj;
-    if (t >= a.Sk) continue;
-    const size_t row = (static_cast<size_t>(b) * a.Sk + t) * a.KV + kh;
+  for (int n = 0; n < NK; ++n)
 #pragma unroll
-    for (int e = 0; e < kCK; ++e)
-      if (e * 32 + lane < D) dko[row * D + e * 32 + lane] = dk[jj][e];
+    for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.f;
+#pragma unroll (U)
+  for (int kk = 0; kk < KS / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    tf32::load_a(arow, la, kk, ah, al);
 #pragma unroll
-    for (int e = 0; e < kCV; ++e)
-      if (e * 32 + lane < DV) dvo[row * DV + e * 32 + lane] = dv[jj][e];
+    for (int n = 0; n < NK; ++n) {
+      uint32_t bh[2], bl[2];
+      tf32::load_b_rows(brow + n * 8 * lb, kk, bh, bl);
+      tf32::mma3(s[n], sl[n], ah, al, bh, bl);
+    }
   }
 }
 
-// ------------------------------------------------------------- 3. dq
-template <int D, int DV>
-__global__ void __launch_bounds__(kThreads) dq_simt_kernel(Args a) {
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* gs = qs + kRowsQ * D;
-  float* ks = gs + kRowsQ * DV;
-  float* vs = ks + kKeys * (D + 1);
-  float* ps = vs + kKeys * (DV + 1);
-  float* dss = ps + kRowsQ * kKeys;
-  float* lse_s = dss + kRowsQ * kKeys;
-  float* del_s = lse_s + kRowsQ;
-  const int q0 = blockIdx.x * kRowsQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (a.H / a.KV);
-  const int len = valid_len(a, b);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int kRowsPerWarp = kRowsQ / kWarps;      // 4
-  constexpr int kCK = cols(D);
-  float dq[kRowsPerWarp][kCK];
+// acc (16 rows x 8 NW columns) += C B over one step: C the step's S-like
+// accumulator (16 rows x 8 NK, its columns the k index, as A), B read down
+// the rows of a tile (`p` at row 2t, column g; row stride ld).  The
+// step's sum is taken in a fresh accumulator (3 NK mma deep; mma.sync
+// truncates as it accumulates, see Sums above) and added to acc in fp32,
+// round to nearest, 8 n-tiles at a time.
+template <int NK, int NW>
+__device__ __forceinline__ void f32_add_step(float (*acc)[4], const float (*c)[4],
+                                             const float* p, int ld) {
+  constexpr int CW = NW < 8 ? NW : 8;
 #pragma unroll
-  for (int ii = 0; ii < kRowsPerWarp; ++ii)
+  for (int j0 = 0; j0 < NW; j0 += CW) {
+    float tmp[CW][4];
 #pragma unroll
-    for (int e = 0; e < kCK; ++e) dq[ii][e] = 0.f;
+    for (int j = 0; j < CW; ++j) tmp[j][0] = tmp[j][1] = tmp[j][2] = tmp[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t ah[4], al[4];
+      tf32::c_as_a(c[kk], ah, al);
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        uint32_t bh[2], bl[2];
+        tf32::load_b_cols(p + kk * 8 * ld + 8 * (j0 + j), ld, bh, bl);
+        tf32::mma3(tmp[j], tmp[j], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j0 + j][e] += tmp[j][e];
+  }
+}
 
-  stage_rows<D, DV>(a, qs, gs, lse_s, del_s, b, h, q0);
-  // the keys this q tile's mask can keep: [first, end)
-  const int q_lo = a.q_off + q0, q_hi = a.q_off + min(q0 + kRowsQ, a.Sq) - 1;
-  int end = len;
+// One role of a dK/dV block, 4 warps of 16 keys each (warp w: keys k0 +
+// 16w + g and + 8).  Role 0: S^T = K (q * scale)^T, P^T, dV += P^T dO;
+// role 1: dP^T = V dO^T, dS^T = P^T (dP^T - delta) (P^T times the
+// softcap's chain from role 0's warp w, through the exchange tile), dK +=
+// dS^T (q * scale).  Each role holds one of the two accumulators, so
+// neither holds both (at D = 256 each is 128 registers a thread).  All 8
+// warps stage the ring: named barrier 1 (the block) once a step, one
+// 64-thread barrier a warp pair (ids 2-5) for the exchange.
+template <int ROLE, int D, int DV>
+__device__ __forceinline__ void f32_kv_role(const Args& a, const KvWork& w, float* sm) {
+  using T = F32Bwd<D, DV>;
+  constexpr int BQ = T::kBq, NQ = BQ / 8;
+  constexpr int W = ROLE == 0 ? DV : D;              // dV or dK columns
+  constexpr int KS = ROLE == 0 ? D : DV;             // S^T or dP^T reduction
+  constexpr int LA = ROLE == 0 ? T::kLk : T::kLv;    // K or V rows (A)
+  constexpr int LB = ROLE == 0 ? T::kLk : T::kLv;    // Q or dO rows (B of S^T, dP^T)
+  constexpr int LW = ROLE == 0 ? T::kLv : T::kLk;    // dO or Q rows (B of dV, dK)
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = w.k0 + warp * 16;                   // the warp's first key
+  const int kp0 = kw + g, kp1 = kp0 + 8;             // this thread's keys
+  const float* arow = sm + (ROLE == 0 ? T::oK : T::oV) + (warp * 16 + g) * LA + 2 * t;
+  float* xb = sm + T::oX + warp * (BQ / 2) * 32 + lane;
+  float acc[W / 8][4];
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < w.n; ++i) {
+    const int q0 = w.lo + (i % w.nq) * BQ;
+    float* sq = sm + T::oS + (i % kF32Stages) * T::kStage;
+    float* sg = sq + BQ * T::kLk;
+    float* sl = sg + BQ * T::kLv;
+    const float* sd = sl + BQ;
+    // each thread's own copies of step i have landed: q * scale in fp32
+    // (the JAX order: scaled before both of its products) and the lse in
+    // log2 units, in place, over the chunks f32_stage gave this thread;
+    // a row past Sq: p = 0
+    tf32::cp_async_wait<kF32Stages - 2>();
+    for (int c = tid; c < BQ * (D / 4); c += kF32KvThreads) {
+      float4* p = reinterpret_cast<float4*>(sq + (c / (D / 4)) * T::kLk) + c % (D / 4);
+      float4 v = *p;
+      v.x *= a.scale;
+      v.y *= a.scale;
+      v.z *= a.scale;
+      v.w *= a.scale;
+      *p = v;
+    }
+    for (int r = tid; r < BQ; r += kF32KvThreads)
+      sl[r] = q0 + r < a.Sq ? sl[r] * kLog2e : 1e30f;
+    hopper::named_sync(1, kF32KvThreads);           // step i in; step i - 1 read
+    f32_kv_issue<D, DV>(a, w, sm, i + kF32Stages - 1);
+    // the warp's 16 keys against the step's BQ q positions
+    const int qp = a.q_off + q0;
+    if (kw >= w.len || (a.causal && kw > qp + BQ - 1)
+        || (a.window > 0 && kw + 15 <= qp - a.window))
+      continue;                                      // all masked: both roles skip
+    const bool masked = kw + 16 > w.len || (a.causal && kw + 15 > qp)
+                        || (a.window > 0 && kw <= qp + BQ - 1 - a.window);
+
+    // S^T (role 0) or dP^T (role 1): keys x the step's q rows; the
+    // k-steps unrolled by 2 only, so that the two roles' code stays in the
+    // instruction cache (fully unrolled, dK/dV took 10.7 ms at llama's
+    // shape on an H100, not 6.3)
+    float s[NQ][4], sl2[NQ][4];
+    f32_scores<KS, NQ, 2>(s, sl2, arow, LA, (ROLE == 0 ? sq : sg) + g * LB + 2 * t, LB);
+    // lane holds keys g (e = 0, 1) and g + 8 (e = 2, 3) of q columns
+    // 8n + 2t (+1)
+    if constexpr (ROLE == 0) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);
+          const bool ok = !masked || keep(a, qp + col, e < 2 ? kp0 : kp1, w.len);
+          float f;
+          const float p = prob(a, s[n][e] + sl2[n][e], sl[col], ok, &f);
+          s[n][e] = p;
+          xb[(4 * n + e) * 32] = p * f;
+        }
+      hopper::named_arrive(2 + warp, 64);
+    } else {
+      hopper::named_sync(2 + warp, 64);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);
+          s[n][e] = xb[(4 * n + e) * 32] * ((s[n][e] + sl2[n][e]) - sd[col]);
+        }
+    }
+    // dV += P^T dO (role 0), dK += dS^T (q * scale) (role 1): the q rows
+    // are the k index, B read down them; the step's product in a fresh
+    // accumulator, added to the running sum in fp32 (f32_add_step)
+    const float* wrow = (ROLE == 0 ? sg : sq) + 2 * t * LW + g;
+    f32_add_step<NQ, W / 8>(acc, s, wrow, LW);
+  }
+  tf32::cp_async_wait<0>();
+  float* out = static_cast<float*>(ROLE == 0 ? a.dv : a.dk);
+  const size_t r0 = (static_cast<size_t>(w.b) * a.Sk + kp0) * a.KV + w.kh;
+  const size_t r1 = (static_cast<size_t>(w.b) * a.Sk + kp1) * a.KV + w.kh;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    if (kp0 < a.Sk)
+      *reinterpret_cast<float2*>(out + r0 * W + 8 * j + 2 * t) = make_float2(acc[j][0], acc[j][1]);
+    if (kp1 < a.Sk)
+      *reinterpret_cast<float2*>(out + r1 * W + 8 * j + 2 * t) = make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// ------------------------------------------------------------- 2. dK, dV
+// A block: 64 keys of one kv head and batch, warps 0-3 role 0 and 4-7
+// role 1 (f32_kv_role); the key blocks heaviest first across heads and
+// batches.
+template <int D, int DV>
+__global__ void __launch_bounds__(kF32KvThreads, F32Bwd<D, DV>::kKvBlocks)
+dkdv_tf32_kernel(Args a) {
+  using T = F32Bwd<D, DV>;
+  extern __shared__ float4 f32_smem_raw[];
+  float* sm = reinterpret_cast<float*>(f32_smem_raw);
+  const KvWork w = f32_kv_work<T::kBq>(a);
+  if (w.n > 0) {
+    // K and V of the block's keys (past Sk: zeros), in step 0's group
+    f32_stage<D>(sm + T::oK, T::kLk, static_cast<const float*>(a.k), w.b, w.k0, kF32Keys,
+                 a.Sk, a.KV, w.kh, kF32KvThreads);
+    f32_stage<DV>(sm + T::oV, T::kLv, static_cast<const float*>(a.v), w.b, w.k0, kF32Keys,
+                  a.Sk, a.KV, w.kh, kF32KvThreads);
+  }
+  for (int i = 0; i < kF32Stages - 1; ++i) f32_kv_issue<D, DV>(a, w, sm, i);
+  if (threadIdx.x < 128) f32_kv_role<0, D, DV>(a, w, sm);
+  else f32_kv_role<1, D, DV>(a, w, sm);
+}
+
+// ------------------------------------------------------------- 3. dQ
+// The work of a dQ block: kRows q rows of head h from row0 (the q tiles
+// heaviest first across heads and batches), over the key tiles its mask
+// reaches: ntiles of BK keys from `first`.
+struct QWork {
+  int row0, h, b, kh, len, first, ntiles;
+};
+
+template <int R, int BK>
+__device__ __forceinline__ QWork f32_q_work(const Args& a) {
+  QWork w;
+  int bi = blockIdx.x;
+  const int nqt = (a.Sq + R - 1) / R;
+  w.row0 = (nqt - 1 - bi / (a.H * a.B)) * R;
+  bi %= a.H * a.B;
+  w.h = bi % a.H;
+  w.b = bi / a.H;
+  w.kh = w.h / (a.H / a.KV);
+  w.len = valid_len(a, w.b);
+  const int q_lo = a.q_off + w.row0, q_hi = a.q_off + min(w.row0 + R, a.Sq) - 1;
+  int end = w.len;
   if (a.causal) end = min(end, q_hi + 1);
   int first = 0;
   if (a.window > 0) first = max(0, q_lo - a.window + 1);
-  first = (first / kKeys) * kKeys;
-  for (int k0 = first; k0 < end; k0 += kKeys) {
-    __syncthreads();                     // the last tile's dS is read
-    stage<D, D + 1>(ks, static_cast<const float*>(a.k), b, k0, kKeys, a.Sk, a.KV, kh, 1.f);
-    stage<DV, DV + 1>(vs, static_cast<const float*>(a.v), b, k0, kKeys, a.Sk, a.KV, kh, 1.f);
-    __syncthreads();
-    scores<D, DV>(a, qs, gs, ks, vs, lse_s, del_s, ps, dss, q0, k0, len);
-    __syncthreads();
-    for (int j = 0; j < kKeys; ++j) {
-      float kx[kCK];
+  w.first = (first / BK) * BK;
+  w.ntiles = end > w.first ? (end - w.first + BK - 1) / BK : 0;
+  return w;
+}
+
+// Whether 16 rows from q position wq keep no key of the tile at k0 (the
+// warp skips it), and whether they keep only some (the mask is applied
+// element by element).
+template <int BK>
+__device__ __forceinline__ bool q_dead(const Args& a, int len, int k0, int wq) {
+  return k0 >= len || (a.causal && k0 > wq + 15) || (a.window > 0 && k0 + BK - 1 <= wq - a.window);
+}
+
+template <int BK>
+__device__ __forceinline__ bool q_masked(const Args& a, int len, int k0, int wq) {
+  return k0 + BK > len || (a.causal && k0 + BK - 1 > wq) || (a.window > 0 && k0 <= wq + 15 - a.window);
+}
+
+
+// dq (16 rows x NC columns from C0) times scale into the output
+template <int D, int NC>
+__device__ __forceinline__ void f32_store_dq(const Args& a, const QWork& w, int r0, int c0,
+                                             const float (*dq)[4], int t) {
+  float* out = static_cast<float*>(a.dq);
+  const int r1 = r0 + 8;
+  float* o0 = out + ((static_cast<size_t>(w.b) * a.Sq + r0) * a.H + w.h) * D + c0 + 2 * t;
+  float* o1 = out + ((static_cast<size_t>(w.b) * a.Sq + r1) * a.H + w.h) * D + c0 + 2 * t;
 #pragma unroll
-      for (int e = 0; e < kCK; ++e) kx[e] = e * 32 + lane < D ? ks[j * (D + 1) + e * 32 + lane] : 0.f;
-#pragma unroll
-      for (int ii = 0; ii < kRowsPerWarp; ++ii) {
-        const float ds = dss[(warp * kRowsPerWarp + ii) * kKeys + j];
-#pragma unroll
-        for (int e = 0; e < kCK; ++e) dq[ii][e] = fmaf(ds, kx[e], dq[ii][e]);
-      }
-    }
+  for (int j = 0; j < NC / 8; ++j) {
+    if (r0 < a.Sq)
+      *reinterpret_cast<float2*>(o0 + 8 * j) = make_float2(dq[j][0] * a.scale, dq[j][1] * a.scale);
+    if (r1 < a.Sq)
+      *reinterpret_cast<float2*>(o1 + 8 * j) = make_float2(dq[j][2] * a.scale, dq[j][3] * a.scale);
   }
-  float* dqo = static_cast<float*>(a.dq);
+}
+
+// A warp of 16 q rows alone (D + DV < 320): S = (q * scale) K^T and dP =
+// dO V^T (keys as columns), dS in registers, dQ += dS K (K read down the
+// keys).
+template <int D, int DV, typename Issue>
+__device__ __forceinline__ void f32_q_warp(const Args& a, const QWork& w, float* sm,
+                                           const Issue& issue) {
+  using T = F32Bwd<D, DV>;
+  constexpr int BK = T::kBk, NK = BK / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = w.row0 + warp * 16 + g, r1 = r0 + 8;
+  const size_t at = (static_cast<size_t>(w.b) * a.H + w.h) * a.Sq;
+  // a row past Sq: p = 0 (its q and dO are zeros)
+  const float l0 = r0 < a.Sq ? a.lse[at + r0] * kLog2e : 1e30f;
+  const float l1 = r1 < a.Sq ? a.lse[at + r1] * kLog2e : 1e30f;
+  const float d0 = r0 < a.Sq ? a.delta[at + r0] : 0.f;
+  const float d1 = r1 < a.Sq ? a.delta[at + r1] : 0.f;
+  const int wq = a.q_off + w.row0 + warp * 16;      // the warp's first q position
+  const float* qrow = sm + T::oQ + (warp * 16 + g) * T::kLk + 2 * t;
+  const float* grow = sm + T::oG + (warp * 16 + g) * T::kLv + 2 * t;
+  float dq[D / 8][4];
 #pragma unroll
-  for (int ii = 0; ii < kRowsPerWarp; ++ii) {
-    const int i = q0 + warp * kRowsPerWarp + ii;
-    if (i >= a.Sq) continue;
-    const size_t base = ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * D;
+  for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int it = 0; it < w.ntiles; ++it) {
+    tf32::cp_async_wait<kF32Stages - 2>();
+    __syncthreads();                                 // tile it landed; it - 1 read
+    issue(it + kF32Stages - 1);
+    const int k0 = w.first + it * BK;
+    if (q_dead<BK>(a, w.len, k0, wq)) continue;      // the warp's rows keep no key
+    const bool masked = q_masked<BK>(a, w.len, k0, wq);
+    const float* sk = sm + T::oR + (it % kF32Stages) * T::kTile;
+    const float* sv = sk + BK * T::kLk;
+    float s[NK][4], sl[NK][4], dp[NK][4], dpl[NK][4];
+    f32_scores<D, NK, D / 8>(s, sl, qrow, T::kLk, sk + g * T::kLk + 2 * t, T::kLk);
+    f32_scores<DV, NK, DV / 8>(dp, dpl, grow, T::kLv, sv + g * T::kLv + 2 * t, T::kLv);
+    // dS = P (dP - delta) times the softcap's chain: lane holds rows g (e
+    // = 0, 1) and g + 8 (e = 2, 3) of keys 8n + 2t (+1)
 #pragma unroll
-    for (int e = 0; e < kCK; ++e)
-      if (e * 32 + lane < D) dqo[base + e * 32 + lane] = dq[ii][e] * a.scale;
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * n + 2 * t + (e & 1);
+        const bool ok = !masked || keep(a, a.q_off + (e < 2 ? r0 : r1), kp, w.len);
+        float f;
+        const float p = prob(a, s[n][e] + sl[n][e], e < 2 ? l0 : l1, ok, &f);
+        s[n][e] = p * f * ((dp[n][e] + dpl[n][e]) - (e < 2 ? d0 : d1));
+      }
+    // dQ += dS K: keys are the k index, K read down them
+    f32_add_step<NK, D / 8>(dq, s, sk + 2 * t * T::kLk + g, T::kLk);
+  }
+  tf32::cp_async_wait<0>();
+  f32_store_dq<D, D>(a, w, r0, 0, dq, t);
+}
+
+// One of the two warps on 16 q rows (D + DV >= 320, where one warp's S,
+// dP and dQ would not fit its registers beside each other): warp rg of
+// half 0 runs S = (q * scale) K^T and P (times the softcap's chain) for
+// rows 16 rg.., warp rg of half 1 dP = dO V^T and dS = P (dP - delta),
+// through an exchange tile (64-thread named barriers 2 + rg: P is in; 6 +
+// rg: dS is in); then each adds dS K into its own columns of dQ, DV / 2
+// for half 0 and D - DV / 2 for half 1, which evens the two halves' work.
+template <int HALF, int D, int DV, typename Issue>
+__device__ __forceinline__ void f32_q_half(const Args& a, const QWork& w, float* sm,
+                                           const Issue& issue) {
+  using T = F32Bwd<D, DV>;
+  constexpr int BK = T::kBk, NK = BK / 8, NT = T::kQThreads;
+  constexpr int C0 = HALF == 0 ? 0 : DV / 2;          // dQ columns [C0, C0 + NC)
+  constexpr int NC = HALF == 0 ? DV / 2 : D - DV / 2;
+  constexpr int KS = HALF == 0 ? D : DV;              // S or dP's reduction
+  constexpr int LA = HALF == 0 ? T::kLk : T::kLv;     // q or dO rows; K or V rows
+  const int rg = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = w.row0 + rg * 16 + g, r1 = r0 + 8;
+  const size_t at = (static_cast<size_t>(w.b) * a.H + w.h) * a.Sq;
+  float x0, x1;                    // half 0: lse in log2 units; half 1: delta
+  if constexpr (HALF == 0) {
+    x0 = r0 < a.Sq ? a.lse[at + r0] * kLog2e : 1e30f;
+    x1 = r1 < a.Sq ? a.lse[at + r1] * kLog2e : 1e30f;
+  } else {
+    x0 = r0 < a.Sq ? a.delta[at + r0] : 0.f;
+    x1 = r1 < a.Sq ? a.delta[at + r1] : 0.f;
+  }
+  const int wq = a.q_off + w.row0 + rg * 16;
+  const float* arow = sm + (HALF == 0 ? T::oQ : T::oG) + (rg * 16 + g) * LA + 2 * t;
+  float* xp = sm + T::oXq + rg * (BK / 2) * 32 + lane;
+  float dq[NC / 8][4];
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int it = 0; it < w.ntiles; ++it) {
+    tf32::cp_async_wait<kF32Stages - 2>();
+    hopper::named_sync(1, NT);                       // tile it landed; it - 1 read
+    issue(it + kF32Stages - 1);
+    const int k0 = w.first + it * BK;
+    if (q_dead<BK>(a, w.len, k0, wq)) continue;      // both halves skip
+    const float* sk = sm + T::oR + (it % kF32Stages) * T::kTile;
+    const float* b0 = (HALF == 0 ? sk : sk + BK * T::kLk) + g * LA + 2 * t;
+    float s[NK][4], sl[NK][4];
+    f32_scores<KS, NK, KS / 8>(s, sl, arow, LA, b0, LA);
+    if constexpr (HALF == 0) {
+      const bool masked = q_masked<BK>(a, w.len, k0, wq);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * n + 2 * t + (e & 1);
+          const bool ok = !masked || keep(a, a.q_off + (e < 2 ? r0 : r1), kp, w.len);
+          float f;
+          xp[(4 * n + e) * 32] = prob(a, s[n][e] + sl[n][e], e < 2 ? x0 : x1, ok, &f) * f;
+        }
+      hopper::named_arrive(2 + rg, 64);
+      hopper::named_sync(6 + rg, 64);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = xp[(4 * n + e) * 32];
+    } else {
+      hopper::named_sync(2 + rg, 64);
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = xp[(4 * n + e) * 32] * ((s[n][e] + sl[n][e]) - (e < 2 ? x0 : x1));
+          xp[(4 * n + e) * 32] = s[n][e];
+        }
+      hopper::named_arrive(6 + rg, 64);
+    }
+    f32_add_step<NK, NC / 8>(dq, s, sk + 2 * t * T::kLk + g + C0, T::kLk);
+  }
+  tf32::cp_async_wait<0>();
+  f32_store_dq<D, NC>(a, w, r0, C0, dq, t);
+}
+
+// A block: Q (times scale) and dO of its kRows rows staged once, the key
+// tiles (K, V) through a 2-stage cp.async ring; its warps as above.
+template <int D, int DV>
+__global__ void __launch_bounds__(F32Bwd<D, DV>::kQThreads, 1) dq_tf32_kernel(Args a) {
+  using T = F32Bwd<D, DV>;
+  constexpr int R = T::kRows, BK = T::kBk, NT = T::kQThreads;
+  extern __shared__ float4 f32_smem_raw[];
+  float* sm = reinterpret_cast<float*>(f32_smem_raw);
+  const QWork w = f32_q_work<R, BK>(a);
+  const int tid = threadIdx.x;
+
+  // key tile `it` into ring slot it % stages; keys past Sk arrive as zeros
+  auto issue = [&](int it) {
+    if (it < w.ntiles) {
+      float* sk = sm + T::oR + (it % kF32Stages) * T::kTile;
+      const int k0 = w.first + it * BK;
+      f32_stage<D>(sk, T::kLk, static_cast<const float*>(a.k), w.b, k0, BK, a.Sk, a.KV, w.kh,
+                   NT);
+      f32_stage<DV>(sk + BK * T::kLk, T::kLv, static_cast<const float*>(a.v), w.b, k0, BK,
+                    a.Sk, a.KV, w.kh, NT);
+    }
+    tf32::cp_async_commit();
+  };
+  for (int i = 0; i < kF32Stages - 1; ++i) issue(i);
+  // q * scale in fp32 and dO of the block's rows; rows past Sq are zeros
+  const float* q = static_cast<const float*>(a.q);
+  const float* go = static_cast<const float*>(a.dout);
+  for (int c = tid; c < R * (D / 4); c += NT) {
+    const int r = c / (D / 4), x = c % (D / 4), row = w.row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < a.Sq) {
+      val = reinterpret_cast<const float4*>(
+          q + ((static_cast<size_t>(w.b) * a.Sq + row) * a.H + w.h) * D)[x];
+      val.x *= a.scale;
+      val.y *= a.scale;
+      val.z *= a.scale;
+      val.w *= a.scale;
+    }
+    *reinterpret_cast<float4*>(sm + T::oQ + r * T::kLk + 4 * x) = val;
+  }
+  for (int c = tid; c < R * (DV / 4); c += NT) {
+    const int r = c / (DV / 4), x = c % (DV / 4), row = w.row0 + r;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < a.Sq)
+      val = reinterpret_cast<const float4*>(
+          go + ((static_cast<size_t>(w.b) * a.Sq + row) * a.H + w.h) * DV)[x];
+    *reinterpret_cast<float4*>(sm + T::oG + r * T::kLv + 4 * x) = val;
+  }
+  if constexpr (T::kPairQ) {
+    if (tid < NT / 2) f32_q_half<0, D, DV>(a, w, sm, issue);
+    else f32_q_half<1, D, DV>(a, w, sm, issue);
+  } else {
+    f32_q_warp<D, DV>(a, w, sm, issue);
   }
 }
 
 template <int D, int DV>
 cudaError_t run_fp32(const Args& a, cudaStream_t s) {
+  using T = F32Bwd<D, DV>;
   cudaError_t e = launch_delta<float>(a, s);
   if (e != cudaSuccess) return e;
-  constexpr size_t smem = simt_smem<D, DV>();
-  static_assert(smem <= kSmemMax, "shared memory");
-  e = launch(dkdv_simt_kernel<D, DV>, dim3((a.Sk + kKeys - 1) / kKeys, a.KV, a.B), kThreads,
-             smem, s, a);
+  const unsigned nkb = (a.Sk + kF32Keys - 1) / kF32Keys;
+  e = launch(dkdv_tf32_kernel<D, DV>, dim3(nkb * a.KV * a.B), kF32KvThreads, T::kKvSmem, s, a);
   if (e != cudaSuccess) return e;
-  return launch(dq_simt_kernel<D, DV>, dim3((a.Sq + kRowsQ - 1) / kRowsQ, a.H, a.B), kThreads,
-                smem, s, a);
+  const unsigned nqt = (a.Sq + T::kRows - 1) / T::kRows;
+  return launch(dq_tf32_kernel<D, DV>, dim3(nqt * a.H * a.B), T::kQThreads, T::kQSmem, s, a);
 }
 
 // The head-dim pairs (D, DV) built, in both dtypes: the bf16 forward's

@@ -55,10 +55,63 @@ __device__ __forceinline__ void mma3(float* big, float* small, const uint32_t* a
   mma(big, ah, bh);
 }
 
+// Fragment loads from fp32 tiles in shared memory, split on the way.  A
+// tile is rows of `ld` floats, ld = width + 8 (pad below): a half-warp's
+// 8-byte loads of rows g (0..3) at columns 2t (0..7) then fall on 32
+// distinct banks, and the 4-byte loads down rows 2t and 2t + 1 at column g
+// meet two lanes a bank.
+__host__ __device__ constexpr int pad(int width) { return width + 8; }
+
+// A (16 x 8) of k-step kk from a tile holding A's rows: `p` points at row
+// g, column 2t of the 16 rows; columns 8kk + 2t, + 1 of rows g and g + 8.
+__device__ __forceinline__ void load_a(const float* p, int ld, int kk, uint32_t* ah,
+                                       uint32_t* al) {
+  const float2 x = *reinterpret_cast<const float2*>(p + 8 * kk);
+  const float2 y = *reinterpret_cast<const float2*>(p + 8 * ld + 8 * kk);
+  split(x.x, ah[0], al[0]);
+  split(y.x, ah[1], al[1]);
+  split(x.y, ah[2], al[2]);
+  split(y.y, ah[3], al[3]);
+}
+
+// B (8 x 8) of k-step kk from a tile holding B's columns as rows (B = T^T:
+// K of S = Q K^T): `p` points at row g, column 2t of the 8 rows.
+__device__ __forceinline__ void load_b_rows(const float* p, int kk, uint32_t* bh,
+                                            uint32_t* bl) {
+  const float2 x = *reinterpret_cast<const float2*>(p + 8 * kk);
+  split(x.x, bh[0], bl[0]);
+  split(x.y, bh[1], bl[1]);
+}
+
+// B (8 x 8) from a tile holding B's rows (V of O = P V): `p` points at row
+// 2t, column g of the k-step and n-tile; rows 2t and 2t + 1.
+__device__ __forceinline__ void load_b_cols(const float* p, int ld, uint32_t* bh,
+                                            uint32_t* bl) {
+  split(p[0], bh[0], bl[0]);
+  split(p[ld], bh[1], bl[1]);
+}
+
+// A from the C fragment of a product whose columns are the next product's
+// k index (S's keys for P V): under the k = t -> 2t, t + 4 -> 2t + 1
+// order c0, c2, c1, c3 are a0..a3.
+__device__ __forceinline__ void c_as_a(const float* c, uint32_t* ah, uint32_t* al) {
+  split(c[0], ah[0], al[0]);
+  split(c[2], ah[1], al[1]);
+  split(c[1], ah[2], al[2]);
+  split(c[3], ah[3], al[3]);
+}
+
 // 16 bytes global -> shared, asynchronously; `bytes` < 16 fills the rest
 // with zeros (0: all zeros, src is not read)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously (cp.async.ca); `bytes` 0 writes
+// a zero (src is not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 

@@ -31,9 +31,11 @@ on the tensor cores: each operand split into two TF32 halves, three
 splits (``fp32_splits``) that a second kernel merges in a fixed order.
 
 The backward (``flash_attention_bwd_cuda``, ``csrc/flash_attention_bwd.cu``)
-is built at the same head-dim pairs, bf16 and fp32: in bf16 two kernels on
-``wgmma`` with no atomics (dK/dV a block a 64 keys, dQ a block a 64 or 128
-q rows), so two calls give bit-equal gradients; in fp32 the CUDA cores.
+is built at the same head-dim pairs, bf16 and fp32, as two kernels with no
+atomics (dK/dV a block a 64 keys, dQ a block of q rows), so two calls give
+bit-equal gradients: in bf16 on ``wgmma``; in fp32
+(``flash_attention_bwd_fp32_cuda``, counted apart) on ``mma.sync`` with
+3xTF32 products, exact to fp32 in the JAX order.
 """
 from __future__ import annotations
 
@@ -263,7 +265,30 @@ def check_bwd_shape(d: int, dv: int, dtype) -> None:
             "or bf16)")
 
 
-def flash_attention_bwd_cuda(
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw):
+    """``(dq, dk, dv)`` of flash attention from the kernel
+    (``csrc/flash_attention_bwd.cu``), in q's dtype; one launch of the
+    backward counts once (it runs three kernels).  fp32 goes to
+    ``flash_attention_bwd_fp32_cuda`` (its own kernels, 3xTF32, and launch
+    count); bf16 launches the ``wgmma`` kernels here.  Raises on what it
+    cannot take, ``NotImplementedError`` on a head-dim pair it is not built
+    for."""
+    if q.dtype == torch.float32:
+        return flash_attention_bwd_fp32_cuda(q, k, v, out, dout, lse, **kw)
+    grads = _bwd_launch(q, k, v, out, dout, lse, **kw)
+    flash_attention_bwd_cuda.launches += 1
+    return grads
+
+
+def flash_attention_bwd_fp32_cuda(q, k, v, out, dout, lse, **kw):
+    """The fp32 backward (3xTF32 on the tensor cores, no atomics) on CUDA
+    tensors; the same arguments as ``flash_attention_bwd_cuda``."""
+    grads = _bwd_launch(q, k, v, out, dout, lse, **kw)
+    flash_attention_bwd_fp32_cuda.launches += 1
+    return grads
+
+
+def _bwd_launch(
     q: torch.Tensor,                # (B, Sq, H, D)
     k: torch.Tensor,                # (B, Sk, KV, D)
     v: torch.Tensor,                # (B, Sk, KV, DV)
@@ -278,11 +303,7 @@ def flash_attention_bwd_cuda(
     q_offset: int = 0,
     scale: Optional[float] = None,
 ):
-    """``(dq, dk, dv)`` of flash attention from the kernel
-    (``csrc/flash_attention_bwd.cu``), in q's dtype; one launch of the
-    backward counts once (it runs three kernels).  Raises on what it
-    cannot take, ``NotImplementedError`` on a head-dim pair it is not
-    built for."""
+    """Checks, then one launch of the backward (three kernels)."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -321,11 +342,11 @@ def flash_attention_bwd_cuda(
         0.0 if softcap is None else float(softcap), _DTYPE_CODE[q.dtype],
         _build.current_stream(q.device))
     _build.check(lib, err, "flash_attention_bwd")
-    flash_attention_bwd_cuda.launches += 1
     return dq, dk, dvv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_fp32_cuda.launches = 0
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
@@ -373,4 +394,5 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, softcap=None,
 
 
 __all__ = ["flash_attention_cuda", "flash_attention_fp32_cuda",
-           "flash_attention_bwd_cuda", "flash_attention_plain"]
+           "flash_attention_bwd_cuda", "flash_attention_bwd_fp32_cuda",
+           "flash_attention_plain"]

@@ -49,7 +49,8 @@ KERNELS = {
     "rmsnorm": rn.rmsnorm_cuda,          # both forms count here
     "flash_attention": fa.flash_attention_cuda,          # bf16
     "flash_attention_fp32": fa.flash_attention_fp32_cuda,
-    "flash_attention_bwd": fa.flash_attention_bwd_cuda,
+    "flash_attention_bwd": fa.flash_attention_bwd_cuda,  # bf16
+    "flash_attention_bwd_fp32": fa.flash_attention_bwd_fp32_cuda,
     "rmsnorm_bwd": rn.rmsnorm_bwd_cuda,  # both forms count here
     "decode_attention": da.decode_attention_cuda,
     "paged_decode_attention": pa.paged_decode_attention_cuda,

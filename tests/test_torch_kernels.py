@@ -230,7 +230,7 @@ def test_launch_counts_start_at_zero_and_reset():
         "rmsnorm", "flash_attention", "flash_attention_fp32",
         "decode_attention",
         "paged_decode_attention", "retrieval_topk", "retrieval_topk_merge",
-        "flash_attention_bwd", "rmsnorm_bwd"}
+        "flash_attention_bwd", "flash_attention_bwd_fp32", "rmsnorm_bwd"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
