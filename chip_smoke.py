@@ -39,6 +39,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               plain, library (SDPA's and ``F.rms_norm``'s backward through
               autograd) and bound ms (the backward's: FlashAttention-2's 5
               products; the 7 the kernel runs beside it).
+4b. mesh   -- the mesh paths (``Model(ctx=...)``, the train step, the
+              MoE over a mesh) on a one-rank NCCL group, a (data=1,
+              model=1) mesh: llama3-8b at full width and depth 2 in bf16,
+              one train step from one seeded init and batch, its loss and
+              every updated leaf bit-equal to the unsharded step's (each on
+              a fresh AdamW state; over a group of one every collective is
+              the identity); prefill and 8 decode steps on the dense cache,
+              the tokens equal to the unsharded run's; flash forward and
+              backward, RMSNorm and dense decode launched by the mesh's
+              runs.  granite-moe-1b-a400m at full width in fp32: the
+              tensor-parallel ``moe_forward(ctx=...)`` equal to the local
+              MoE, ``moe_forward_ep`` at ``capacity_factor`` 8 within 1e-5
+              of it and at 1.25 within 1e-5 of the same function on the
+              CPU, its dropped rows the same.
 5. model   -- a reduced llama on the card (kernels) against the same
               weights on the CPU (plain versions): logits and tokens of
               chunked prefill + paged decode, and of one-shot prefill +
@@ -95,9 +109,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               paged path with the weights cast to fp32 (its whole-batch
               prefill takes the capacity path, which drops rows; the
               drops of one prefill are printed).
-5e. serve-deepseek -- deepseek-v2-lite-16b at full width and depth (27
-              layers: MLA, a dense first layer, 26 MoE layers of 64
-              experts top 6 and 2 shared): 8 requests of 16 tokens at ctx
+5e. serve-deepseek -- deepseek-v2-lite-16b at full width and depth 14
+              of its 27 (cut for time; MLA, a dense first layer, 13 MoE
+              layers of 64 experts top 6 and 2 shared): 8 requests of 16 tokens at ctx
               1024 on the whole-batch path (the capacity path's drops
               printed) and the dense continuous path (no paged path: it
               must raise), the latter held to the whole-batch
@@ -399,6 +413,9 @@ DEEPSEEK, MAMBA2 = "deepseek-v2-lite-16b", "mamba2-370m"
 LLAMA70B, JAMBA = "llama3-70b", "jamba-1.5-large-398b"
 DENSE_MODEL_DEPTH = {DEEPSEEK: 2, MAMBA2: 1, JAMBA: 4}
 DEEPSEEK_STREAMED_DEPTH = 9
+# serve-deepseek: the prefix and 13 MoE layers of 27 (cut for time: the
+# phase took 52.6 s at 27 on the H100)
+DEEPSEEK_SERVE_DEPTH = 14
 MAMBA2_STREAMED_DEPTH = 8
 STREAMED_REQ, STREAMED_NEW = 2, 4
 DEEPSEEK_KERNELS = ("rmsnorm", "flash_attention", "retrieval_topk",
@@ -1960,6 +1977,153 @@ def phase_train(torch, smi):
     return counts
 
 
+# the mesh phase: llama3-8b at full width, 2 of its layers, on a (1, 1)
+# mesh of a one-rank NCCL group against the unsharded model
+MESH_DEPTH = 2
+MESH_BATCH, MESH_SEQ, MESH_DECODE = 2, 1024, 8
+MESH_KERNELS = ("rmsnorm", "flash_attention", "flash_attention_bwd",
+                "decode_attention")
+MESH_MOE_TOKENS = 64        # granite: 64 x 8 routed rows, 8x capacity exact
+MESH_MOE_TOL = 1e-5
+
+
+def phase_mesh(torch, smi):
+    """The mesh paths on one card: a one-rank NCCL group on a free port and
+    a (data=1, model=1) mesh, ``Model(ctx=...)`` against the unsharded
+    ``Model`` from one seeded init (see the module docstring, 4b).
+    Returns the launch counts of the mesh model's runs (the train step,
+    prefill and decode), set to 0 before them and read after."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import from_mesh
+    from repro_torch.sharding.specs import param_pspecs, shard_params
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
+    tag = "mesh"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        ctx = from_mesh(make_mesh((1, 1), ("data", "model")))
+        cfg = dataclasses.replace(get_config("llama3-8b"),
+                                  num_layers=MESH_DEPTH)
+        base = Model(cfg, device="cuda", remat=True)
+        mesh = Model(cfg, device="cuda", remat=True, ctx=ctx)
+        params = base.init(seed=11, dtype=torch.bfloat16)
+        p_mesh = mesh.shard(params)
+        g = torch.Generator().manual_seed(12)
+        toks = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ + 1),
+                             generator=g).cuda()
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=8)
+
+        def one_step(model, p):
+            # a fresh AdamW state a step: adamw_update writes its state
+            o = adamw_init(p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, o, _, m = make_train_step(model, opt)(p, o, None, batch)
+            torch.cuda.synchronize()
+            return q, float(m["loss"]), time.perf_counter() - t0
+
+        def greedy(model, p):
+            cache = model.init_cache(MESH_BATCH, MESH_SEQ + MESH_DECODE,
+                                     torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [model.prefill(p, batch["inputs"], cache).argmax(-1)]
+            for i in range(MESH_DECODE):
+                pos = torch.full((MESH_BATCH,), MESH_SEQ + i,
+                                 dtype=torch.int32, device="cuda")
+                out.append(model.decode(p, out[-1][:, None], cache,
+                                        pos).argmax(-1))
+            torch.cuda.synchronize()
+            return torch.stack(out, 1), time.perf_counter() - t0
+
+        q0, loss0, s0 = one_step(base, params)
+        want = [t.clone() for t in tree_leaves(q0)]
+        del q0
+        _free(torch)
+        ops.reset_launch_counts()
+        q1, loss1, s1 = one_step(mesh, p_mesh)
+        tok1, d1 = greedy(mesh, p_mesh)
+        counts = ops.launch_counts()
+        got = list(tree_leaves(q1))
+        if loss1 != loss0:
+            fail(f"[{tag}] the (1, 1) mesh's loss {loss1!r} differs from "
+                 f"the unsharded step's {loss0!r}")
+        same = sum(torch.equal(a, b) for a, b in zip(got, want))
+        if len(got) != len(want) or same != len(want):
+            fail(f"[{tag}] {len(want) - same} of {len(want)} updated leaves "
+                 "differ from the unsharded step's")
+        del q1, got, want
+        _free(torch)
+        tok0, d0 = greedy(base, params)
+        if not torch.equal(tok0, tok1):
+            fail(f"[{tag}] greedy tokens differ: unsharded {tok0.tolist()} "
+                 f"mesh {tok1.tolist()}")
+        missing = [k for k in MESH_KERNELS if counts[k] == 0]
+        if missing:
+            fail(f"[{tag}] {missing} launched no time on the mesh "
+                 f"({counts})")
+        log(f"[{tag}] llama3-8b at depth {MESH_DEPTH}, full width, bf16, "
+            f"one train step at {MESH_BATCH} x {MESH_SEQ} on a (1, 1) mesh "
+            f"of a one-rank NCCL group: loss {loss1!r}, equal to the "
+            f"unsharded step's, and all {same} updated leaves bit-equal "
+            f"(step {s1 * 1e3:.1f} ms, unsharded {s0 * 1e3:.1f} ms, each "
+            f"with its AdamW state's first touch); prefill + {MESH_DECODE} "
+            f"dense decode steps: tokens equal ({d1 * 1e3:.1f} ms, "
+            f"unsharded {d0 * 1e3:.1f} ms); launches on the mesh "
+            f"{json.dumps(counts)} ({smi})")
+        del params, p_mesh, base, mesh, batch
+        _free(torch)
+
+        # granite's MoE over the mesh, fp32, against the local MoE
+        gcfg = get_config("granite-moe-1b-a400m")
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        p = moe.init_moe(gen, gcfg, torch.float32, "cuda")
+        p_loc = shard_params(p, param_pspecs({"moe": p}, ctx)["moe"], ctx)
+        x = torch.randn((1, MESH_MOE_TOKENS, gcfg.d_model), generator=gen,
+                        device="cuda")
+        want, aux = moe.moe_forward(p, x, gcfg)
+        tp, tp_aux = moe.moe_forward(p_loc, x, gcfg, ctx=ctx)
+        ep8, ep8_aux = moe.moe_forward_ep(p_loc, x, gcfg, ctx,
+                                          capacity_factor=8.0)
+        ep, _ = moe.moe_forward_ep(p_loc, x, gcfg, ctx)
+        ep_cpu, _ = moe.moe_forward_ep(_to_dev(p_loc, "cpu"), x.cpu(), gcfg,
+                                       ctx)
+        e_tp = check_close(f"[{tag}] moe_forward(ctx) vs local", tp, want,
+                           atol=MESH_MOE_TOL)
+        e_ep8 = check_close(f"[{tag}] moe_forward_ep cf 8 vs local", ep8,
+                            want, atol=MESH_MOE_TOL)
+        e_ep = check_close(f"[{tag}] moe_forward_ep cf 1.25, card vs CPU",
+                           ep.cpu(), ep_cpu, atol=MESH_MOE_TOL)
+        dropped = (ep_cpu - want.cpu()).abs().amax(-1) > MESH_MOE_TOL
+        if not torch.equal((ep.cpu() - want.cpu()).abs().amax(-1)
+                           > MESH_MOE_TOL, dropped):
+            fail(f"[{tag}] moe_forward_ep dropped other rows on the card "
+                 "than on the CPU")
+        for name, a in (("tp", tp_aux), ("ep8", ep8_aux)):
+            if abs(float(a) - float(aux)) > MESH_MOE_TOL:
+                fail(f"[{tag}] {name} aux {float(a)} vs local {float(aux)}")
+        log(f"[{tag}] granite-moe-1b-a400m at full width, fp32, "
+            f"{MESH_MOE_TOKENS} tokens: moe_forward(ctx) off the local MoE "
+            f"by {e_tp:.2e}, moe_forward_ep at capacity factor 8 by "
+            f"{e_ep8:.2e}, at 1.25 off the CPU's by {e_ep:.2e} with "
+            f"{int(dropped.sum())} rows dropped on both; aux equal to "
+            f"{MESH_MOE_TOL}")
+        del p, p_loc, x
+        _free(torch)
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 # (arch, layers, sequence): the families the flash backward's other head
 # dims train, at full width: gemma2-2b one local and one global layer
 # (D = 256; its window of 4096 masks at 6144, softcap 50), gemma-7b one
@@ -2544,8 +2708,10 @@ def phase_family_models(torch, smi):
         # fewer tokens and steps (3 chunks and 2 decode steps still)
         ctx, chunk, steps = (24, 8, 3) if arch == LLAMA70B else (40, 16, 6)
         cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
-        p_cpu = _family_init(torch, cfg, 5, torch.float32, "cpu")
-        p_gpu = _to_dev(p_cpu)
+        # drawn on the card and copied to the host (a draw on the host
+        # of llama3-70b's 11 GB of fp32 weights took most of its check)
+        p_gpu = _family_init(torch, cfg, 5, torch.float32, "cuda")
+        p_cpu = _to_dev(p_gpu, "cpu")
         g = torch.Generator().manual_seed(6)
         prompts = torch.randint(2, cfg.vocab_size, (2, ctx), generator=g,
                                 dtype=torch.int32)
@@ -3160,8 +3326,8 @@ def _profile_dense_step(torch, tag, cfg, params, smi, rows=SLOTS):
 
 
 def phase_serve_deepseek(torch, store, queries, exact, smi):
-    """deepseek-v2-lite-16b at full width and depth (27 layers: a dense
-    first layer, 26 MLA + MoE layers; seeded bf16 weights) behind
+    """deepseek-v2-lite-16b at full width and depth ``DEEPSEEK_SERVE_DEPTH``
+    (a dense first layer, then MLA + MoE layers; seeded bf16 weights) behind
     ``RagdollEngine``, 8 requests of 16 tokens at ctx 1024 on the shared
     store: (a) the whole-batch ``Generator`` (its prefill of 8 x 1024
     tokens takes the capacity path: the drops are printed); (b) the dense
@@ -3181,7 +3347,8 @@ def phase_serve_deepseek(torch, store, queries, exact, smi):
     from repro_torch.serving import GeneratorConfig
     t_phase = time.perf_counter()
     tag = "serve-deepseek"
-    cfg = get_config(DEEPSEEK)
+    cfg = dataclasses.replace(get_config(DEEPSEEK),
+                              num_layers=DEEPSEEK_SERVE_DEPTH)
     t0 = time.perf_counter()
     params = _family_init(torch, cfg, 0, torch.bfloat16, "cuda")
     torch.cuda.synchronize()
@@ -5933,6 +6100,7 @@ def main() -> int:
         train = timed("train", phase_train, torch, smi)
         train_families = timed("train-families", phase_train_families, torch,
                                smi)
+        mesh = timed("mesh", phase_mesh, torch, smi)
         timed("family-models", phase_family_models, torch, smi)
         timed("dense-family-models", phase_dense_family_models, torch, smi)
         timed("embed-models", phase_embed_models, torch, smi)
@@ -5974,7 +6142,7 @@ def main() -> int:
     runs = ([paged["counts"], swap] + [r["counts"] for r in batch.values()]
             + prefix + [streamed, sharded] + placement + families + g8
             + embed["seamless"] + embed["chameleon"] + [train]
-            + train_families)
+            + train_families + [mesh])
     kernels = []
     for kname, (route, source, replaces) in SOURCES.items():
         extra = ({"shapes": family_rows[kname]} if kname in family_rows
@@ -5984,6 +6152,8 @@ def main() -> int:
         # the train steps' launches, once a kernel (llama3-8b at depth 4)
         if kname in TRAIN_KERNELS:
             extra["launches_at_train"] = train[kname]
+        if kname in MESH_KERNELS:
+            extra["launches_at_mesh"] = mesh[kname]
         if kname == "flash_attention":
             extra["train_forward_ms"] = train_rows["flash_lse_ms"]
         # the launches of the G = 8 models' runs, once a kernel: each is

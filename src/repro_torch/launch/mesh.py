@@ -1,10 +1,14 @@
 """Device mesh construction.
 
-Ported from ``repro.launch.mesh.make_mesh``.  A torch mesh spans
-processes, one device each, so the default process group must exist
-first: the caller starts it with ``torch.distributed.init_process_group``
-and gives it its address, world size and rank.  The production meshes of
-the reference (256 or 512 devices) wait for a tensor-parallel model.
+Ported from ``repro.launch.mesh``.  A torch mesh spans processes, one
+device each, so the default process group must exist first: the caller
+starts it with ``torch.distributed.init_process_group`` and gives it its
+address, world size and rank.  ``make_production_mesh`` is the
+reference's: a single pod is ``(data=16, model=16)``, 256 devices; two
+pods are ``(pod=2, data=16, model=16)``, 512, where the pod axis carries
+only data-parallel traffic.  Without the cards, a fake process group of
+that many ranks in one process gives the same mesh
+(``torch.testing._internal.distributed.fake_pg``).
 """
 from __future__ import annotations
 
@@ -14,6 +18,22 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh over every process of the default group,
+    which must have 256 ranks (512 with ``multi_pod``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != n:
+        raise RuntimeError(
+            f"need {n} processes for mesh {shape}, the default group has "
+            f"{have}: start it with world_size={n} (one process a device, "
+            f"or the fake process group for a dry run)")
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,

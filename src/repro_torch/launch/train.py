@@ -1,24 +1,37 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Runs a real training loop on one device (reduced config by default) with
+Runs a real training loop (reduced config by default) with
 checkpointing and restart (``--resume``), gradient compression and
 gradient accumulation, as ``repro.launch.train``.  Everything runs on the
 CUDA card unless ``--device cpu`` asks for the plain PyTorch versions of
 the kernels; the reduced configs (head dim 16, fp32 weights) train on
-the card as the full ones do.  ``--mesh`` raises: sharded training waits
-for the meshes slice.  ``main`` returns each step's loss.
+the card as the full ones do.  ``main`` returns each step's loss.
+
+``--mesh DxM`` trains over a ``(data=D, model=M)`` mesh, one process a
+device, started as ``torchrun`` starts them: ``MASTER_ADDR``,
+``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` in the environment
+(``LOCAL_RANK`` picks the card).  The group runs NCCL on the cards and
+gloo with ``--device cpu``; a default group already started is used as
+it is.  Every process draws the whole tree from the seed and keeps its
+slices (``param_pspecs``); the model takes each data rank's rows of the
+batch; checkpoints hold a shard a process.  Every rank returns the same
+losses, the whole batch's.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import Model
+from repro_torch.sharding.specs import from_mesh
 from repro_torch.training.checkpoint import (latest_step, load_checkpoint,
                                              save_checkpoint)
 from repro_torch.training.compression import GradCompressor
@@ -44,21 +57,28 @@ def main(argv=None) -> List[float]:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default=None,
-                    help="e.g. '2x2' (data=2, model=2): not yet ported")
+                    help="e.g. '2x2' -> (data=2, model=2), a process a "
+                         "device")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the Hopper kernels) or cpu (plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: sharded training waits for the "
-                                  "meshes slice")
     device = resolve_device(args.device)
+    ctx, shard = None, {}
+    if args.mesh:
+        d, m = (int(x) for x in args.mesh.split("x"))
+        ctx = from_mesh(make_mesh((d, m), ("data", "model"),
+                                  device_type=_start_group(device)))
+        shard = dict(shard_id=dist.get_rank(),
+                     num_shards=dist.get_world_size())
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
 
     cfg = get_config(args.arch)
     if not args.full_config:
         cfg = cfg.reduced(d_model=64 * args.scale, d_ff=128 * args.scale)
 
-    model = Model(cfg, device, remat=True)
+    model = Model(cfg, device, remat=True, ctx=ctx)
     comp = GradCompressor() if args.compress_grads else None
     params = model.init(seed=0, dtype=torch.float32)
     opt_state = adamw_init(params)
@@ -66,7 +86,8 @@ def main(argv=None) -> List[float]:
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir):
         tree, start = load_checkpoint(args.ckpt_dir,
-                                      {"p": params, "o": opt_state})
+                                      {"p": params, "o": opt_state},
+                                      shard_id=shard.get("shard_id", 0))
         params, opt_state = tree["p"], tree["o"]
         print(f"resumed from step {start}")
 
@@ -77,6 +98,8 @@ def main(argv=None) -> List[float]:
 
     data = iter(SyntheticLM(cfg, DataConfig(batch=args.batch,
                                             seq_len=args.seq_len)))
+    for _ in range(start):           # a resume takes the batches it left
+        next(data)
     t0 = time.time()
     losses = []
     for i in range(start, args.steps):
@@ -94,9 +117,26 @@ def main(argv=None) -> List[float]:
             t0 = time.time()
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             save_checkpoint(args.ckpt_dir, i + 1,
-                            {"p": params, "o": opt_state})
+                            {"p": params, "o": opt_state}, **shard,
+                            barrier=dist.barrier if ctx else None)
     print("done.")
     return [float(x) for x in losses]
+
+
+def _start_group(device: torch.device) -> str:
+    """Start the default group from the environment (NCCL on the cards,
+    gloo on the CPU) unless one runs already; the mesh's device type."""
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get(
+            "LOCAL_RANK", os.environ.get("RANK", "0")))
+            % torch.cuda.device_count())
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError("--mesh runs a process a device: start them "
+                               "with MASTER_ADDR, MASTER_PORT, RANK and "
+                               "WORLD_SIZE set (torchrun does)")
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device.type
 
 
 if __name__ == "__main__":

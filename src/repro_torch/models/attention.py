@@ -47,13 +47,15 @@ plain ``jnp`` in the reference too, over the whole ``S_cache``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, quant, ref
 from repro_torch.models import layers
+from repro_torch.models.parallel import Layout
+from repro_torch.sharding import collectives as C
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -107,7 +109,84 @@ def _project_qkv(p: dict, x: torch.Tensor):
     return q, k, v
 
 
+def kv_heads_for(cfg: ModelConfig, layout: Optional[Layout]
+                 ) -> Optional[List[int]]:
+    """The kv heads this model rank's q heads read, where the q heads
+    split over the model axis and the kv heads do not (the reference
+    repeats K and V to every q head and splits them with q; here a rank
+    takes only the kv heads its own q heads read, so decode keeps its
+    head group).  Each kv head once where the rank's q heads fall in
+    whole groups of it (chatglm3's 32/2 at tp 4: 8 q heads on one kv
+    head); else one a q head.  None where the kv heads split too or the
+    heads run whole."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if layout is None or not layout.sharded(h) or layout.sharded(kvh):
+        return None
+    lo, hl = layout.chunk(h)
+    reads = [j // (h // kvh) for j in range(lo, lo + hl)]
+    uniq = sorted(set(reads))
+    per = hl // len(uniq)
+    if hl % len(uniq) == 0 and all(r == uniq[i // per]
+                                   for i, r in enumerate(reads)):
+        return uniq
+    return reads
+
+
+def local_kv_heads(cfg: ModelConfig, layout: Optional[Layout]) -> int:
+    """The kv heads of this rank's dense cache."""
+    idx = kv_heads_for(cfg, layout)
+    if idx is not None:
+        return len(idx)
+    if layout is not None and layout.sharded(cfg.num_heads):
+        return cfg.num_kv_heads // layout.tp
+    return cfg.num_kv_heads
+
+
 def attention_forward(
+    p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+    mixer: str, mode: str, cache: Optional[dict],
+    pos: Optional[torch.Tensor] = None, causal: bool = True,
+    block_tab: Optional[torch.Tensor] = None,
+    kv_span: Optional[int] = None,
+    layout: Optional[Layout] = None,
+) -> torch.Tensor:
+    """Returns the attention output; ``cache`` is written in place.
+
+    Over a mesh (``layout``): where the q heads split over the model
+    axis, each rank runs its own heads (``wq``, ``wo`` and ``bq`` its
+    slices; ``wk``, ``wv``, ``bk``, ``bv`` its slices where the kv heads
+    split, else the heads ``kv_heads_for`` picks from the whole leaves),
+    between ``col_in`` and ``row_out``; its dense cache holds those kv
+    heads.  Where they do not split, attention runs whole on every model
+    rank.  The paged and chunked paths take no mesh, as the reference
+    reaches them from no caller with one."""
+    if layout is None or layout.tp == 1:
+        return _attention(p, x, cfg, mixer=mixer, mode=mode, cache=cache,
+                          pos=pos, causal=causal, block_tab=block_tab,
+                          kv_span=kv_span)
+    if block_tab is not None or (mode == "prefill" and pos is not None):
+        raise NotImplementedError("paged KV and chunked prefill take no "
+                                  "mesh (no caller of the reference's "
+                                  "passes one a ctx)")
+    run = lambda q, h: _attention(q, h, cfg, mixer=mixer, mode=mode,
+                                  cache=cache, pos=pos, causal=causal,
+                                  block_tab=None, kv_span=kv_span)
+    if not layout.sharded(cfg.num_heads):
+        return layout.rep_out(run(p, layout.rep_in(x)))
+    idx = kv_heads_for(cfg, layout)
+    if idx is not None:
+        p = dict(p)
+        g = layout.model_group
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                # whole leaves, each rank reading its own heads: their
+                # gradients are summed over the model axis
+                w = C.copy_to(p[name], g)
+                p[name] = w[:, idx] if w.dim() == 3 else w[idx]
+    return layout.row_out(run(p, layout.col_in(x)))
+
+
+def _attention(
     p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     mixer: str,                      # "attn" | "local"
     mode: str,                       # "prefill" | "decode" | "train"
@@ -121,7 +200,6 @@ def attention_forward(
     block_tab: Optional[torch.Tensor] = None,   # (B, nmax) page ids (paged)
     kv_span: Optional[int] = None,   # dense length of the gathered view
 ) -> torch.Tensor:
-    """Returns the attention output; ``cache`` is written in place."""
     if mixer not in ("attn", "local"):
         raise NotImplementedError(f"mixer {mixer!r}")
     mode = _train_mode(mode)
@@ -364,14 +442,17 @@ def make_cross_cache_spec(cfg: ModelConfig, batch: int, enc_len: int,
 
 
 def make_attn_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
-                         dtype, kv_format: Optional[str] = None) -> dict:
+                         dtype, kv_format: Optional[str] = None,
+                         kv_heads: Optional[int] = None) -> dict:
     """Per-layer shapes ``{"k","v": ((batch, cache_len, KV, hd), dtype)}``
     (a paged pool: ``(pages, page, KV, hd)``).  ``kv_format="int8"``
     (paged pools only) gives int8 ``k``/``v`` and fp32 ``(pages, KV)``
-    ``k_scale``/``v_scale`` leaves."""
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    ``k_scale``/``v_scale`` leaves.  ``kv_heads`` (a rank's heads over a
+    mesh) in place of the config's."""
+    kv = cfg.num_kv_heads if kv_heads is None else kv_heads
+    shape = (batch, cache_len, kv, cfg.resolved_head_dim)
     if kv_format == "int8":
-        sshape = (batch, cfg.num_kv_heads)
+        sshape = (batch, kv)
         return {"k": (shape, torch.int8), "v": (shape, torch.int8),
                 "k_scale": (sshape, torch.float32),
                 "v_scale": (sshape, torch.float32)}

@@ -9,13 +9,19 @@ zstd, which the card's machine lacks: a shard here is ``torch.save`` of
 ``{"magic", "step", "arrays": {path: CPU tensor}}``, loaded with
 ``weights_only=True``.  A leaf's path joins its dict keys and list
 indices with ``/``, as the reference names them.
+
+Over a mesh each process saves its own slices as ``shard_<rank>`` with
+``num_shards`` the world, into one step directory: every shard is
+written into the ``.tmp`` directory, then (``barrier`` given) shard 0
+alone writes ``meta.json`` and renames it once all are in.  Each process
+loads its own shard back.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,7 +54,14 @@ def _unflatten(template, leaves: Dict[str, Any], prefix: str = ""):
 
 def save_checkpoint(directory: str, step: int, tree,
                     shard_id: int = 0, num_shards: int = 1,
-                    keep: int = 3, extra: Optional[Dict] = None) -> str:
+                    keep: int = 3, extra: Optional[Dict] = None,
+                    barrier: Optional[Callable[[], None]] = None) -> str:
+    """Write ``tree`` as shard ``shard_id`` of step ``step``.  With
+    several shards, every process calls this with its own and the same
+    ``barrier`` (``torch.distributed.barrier``): the step directory
+    appears, whole, once every shard is in."""
+    if num_shards > 1 and barrier is None:
+        raise ValueError("a checkpoint of several shards needs a barrier")
     step_dir = os.path.join(directory, f"step_{step:08d}")
     tmp_dir = step_dir + ".tmp"
     os.makedirs(tmp_dir, exist_ok=True)
@@ -56,14 +69,19 @@ def save_checkpoint(directory: str, step: int, tree,
               for k, v in _flatten(tree)}
     torch.save({"magic": _MAGIC, "step": step, "arrays": arrays},
                os.path.join(tmp_dir, f"shard_{shard_id:04d}.ckpt"))
-    meta = {"step": step, "num_shards": num_shards,
-            "extra": extra or {}, "magic": _MAGIC}
-    with open(os.path.join(tmp_dir, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    if os.path.exists(step_dir):
-        shutil.rmtree(step_dir)
-    os.rename(tmp_dir, step_dir)
-    _apply_retention(directory, keep)
+    if barrier is not None:
+        barrier()
+    if shard_id == 0:
+        meta = {"step": step, "num_shards": num_shards,
+                "extra": extra or {}, "magic": _MAGIC}
+        with open(os.path.join(tmp_dir, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        if os.path.exists(step_dir):
+            shutil.rmtree(step_dir)
+        os.rename(tmp_dir, step_dir)
+        _apply_retention(directory, keep)
+    if barrier is not None:
+        barrier()
     return step_dir
 
 

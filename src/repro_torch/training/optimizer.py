@@ -17,6 +17,9 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 
+from repro_torch.sharding import collectives
+from repro_torch.sharding.specs import is_spec
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -31,14 +34,17 @@ class AdamWConfig:
     min_lr_frac: float = 0.1
 
 
-def tree_leaves(tree) -> Iterator[torch.Tensor]:
+def tree_leaves(tree, is_leaf: Callable = lambda x: False
+                ) -> Iterator[torch.Tensor]:
     """The tensors of a nested dict/list tree, in order."""
-    if isinstance(tree, dict):
+    if is_leaf(tree):
+        yield tree
+    elif isinstance(tree, dict):
         for v in tree.values():
-            yield from tree_leaves(v)
+            yield from tree_leaves(v, is_leaf)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from tree_leaves(v)
+            yield from tree_leaves(v, is_leaf)
     else:
         yield tree
 
@@ -84,20 +90,40 @@ def adamw_init(params) -> Dict[str, Any]:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = None
-    for x in tree_leaves(tree):
+def global_norm(tree, specs=None, ctx=None) -> torch.Tensor:
+    """The norm of every leaf together.  Over a mesh (``specs``, ``ctx``)
+    each rank holds slices: the squares of the leaves split over the same
+    axes are summed, then over those axes, so each element counts once
+    (a replicated leaf once, not once a rank)."""
+    if ctx is None:
+        total = None
+        for x in tree_leaves(tree):
+            sq = torch.sum(torch.square(x.float()))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    spec_leaves = tree_leaves(specs, is_leaf=is_spec)
+    for x, spec in zip(tree_leaves(tree), spec_leaves):
+        axes = tuple(a for e in spec for a in ctx.live_axes(e))
         sq = torch.sum(torch.square(x.float()))
+        by_axes[axes] = sq if axes not in by_axes else by_axes[axes] + sq
+    total = None
+    for axes, sq in by_axes.items():
+        for a in axes:
+            sq = collectives.all_reduce(sq, ctx.group(a))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig
+def adamw_update(params, grads, state, cfg: AdamWConfig, specs=None,
+                 ctx=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step: ``(new params, state, {"grad_norm", "lr"})``."""
+    """One AdamW step: ``(new params, state, {"grad_norm", "lr"})``.
+    Over a mesh every tree holds this rank's slices, and ``specs`` and
+    ``ctx`` give the clipping norm its sums over the mesh."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, ctx)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

@@ -237,11 +237,26 @@ def test_moe_forward_with_shared_experts_matches_jax():
 
 
 def test_moe_forward_refuses_a_mesh():
+    """The MoE runs over a mesh (``tests/test_torch_mesh.py``); expert
+    parallelism refuses one whose model axis does not divide the experts,
+    as the reference's asserts (a fake process group of 3 ranks in this
+    process, destroyed after)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import from_mesh
     _, cfg = _cfgs()
     gen = torch.Generator().manual_seed(0)
     p = moe.init_moe(gen, cfg, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
-        moe.moe_forward(p, torch.zeros(1, 2, cfg.d_model), cfg, ctx=object())
+    assert cfg.moe.num_experts % 3
+    dist.init_process_group("fake", store=FakeStore(), world_size=3, rank=0)
+    try:
+        ctx = from_mesh(make_mesh((1, 3), ("data", "model"),
+                                  device_type="cpu"))
+        with pytest.raises(ValueError, match="num_experts % tp"):
+            moe.moe_forward_ep(p, torch.zeros(1, 2, cfg.d_model), cfg, ctx)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_router_stays_fp32_under_bf16_weights():

@@ -345,7 +345,9 @@ def test_launcher_trains_on_cpu_and_resumes(capsys, tmp_path):
     train.main(args[:3] + ["6"] + args[4:] + ["--resume"])
     out = capsys.readouterr().out
     assert "resumed from step 4" in out and "step     6 loss=" in out
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # --mesh trains over a process group (tests/test_torch_mesh.py); one
+    # process with no group to join says so
+    with pytest.raises(RuntimeError, match="mesh"):
         train.main(["--device", "cpu", "--mesh", "2x2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
